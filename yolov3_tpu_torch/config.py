@@ -1,0 +1,113 @@
+"""Configuration dataclasses for the PyTorch port.
+
+An own copy of `yolov3_tpu/config.py`'s `ModelConfig` and
+`InferenceConfig`, with the same field names, defaults and JSON form, so
+`ModelConfig.from_json` reads a `model_config.json` written by the JAX
+package unchanged.
+
+Every field of the JAX config is accepted, including the TPU-only ones
+(`stem_space_to_depth`, `s2d_base_grads`, `stem1_im2row_grads`,
+`int8_train`, `int8_train_static`, `remat_blocks`). The inference forward
+of this port ignores them: the space-to-depth stem is the same math as the
+plain stem laid out for the TPU's 128-wide lanes (one variable tree for
+both), the two grad options change only how the TPU computes weight
+gradients, and the int8-training and remat options select the training
+forward, which the port does not run yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+from typing import Any, List, Tuple
+
+import torch
+
+# Network constants (reference/model.py:22-26)
+BLOCK_COUNT = 8
+FILTER_COUNT = 1024
+KERNEL_SIZE = 3
+NETWORK_DOWNSAMPLE_FACTOR = 32
+
+DEFAULT_ANCHORS: Tuple[Tuple[int, int], ...] = ((32, 32), (128, 128), (256, 256))
+TRAIN_DEFAULT_ANCHORS: Tuple[Tuple[int, int], ...] = ((64, 384), (384, 64))
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Static model hyperparameters (field for field as the JAX config)."""
+
+    img_size: Tuple[int, int, int]  # (H, W, C)
+    number_classes: int
+    anchors: Tuple[Tuple[float, float], ...] = DEFAULT_ANCHORS
+    compute_dtype: str = "bfloat16"
+    leaky_relu_alpha: float = 0.2
+    bn_momentum: float = 0.99
+    bn_epsilon: float = 1e-3
+    block_count: int = BLOCK_COUNT
+    filter_count: int = FILTER_COUNT
+    kernel_size: int = KERNEL_SIZE
+    # TPU layout of the stem; ignored here (same math, same tree)
+    stem_space_to_depth: bool = True
+    # inference 1x1 ConvBlocks through the fused pointwise kernel
+    use_pallas_pointwise: bool = False
+    # reference-compatible channel-sum upsample (models/yolo.py upsample_2x)
+    upsample_channel_sum: bool = False
+    # TPU training options; accepted and ignored by the inference forward
+    s2d_base_grads: Any = False
+    stem1_im2row_grads: bool = False
+    int8_train: bool = False
+    int8_train_static: bool = False
+    remat_blocks: bool = False
+
+    def __post_init__(self):
+        h, w, _ = self.img_size
+        if h % NETWORK_DOWNSAMPLE_FACTOR or w % NETWORK_DOWNSAMPLE_FACTOR:
+            raise ValueError(
+                f"img size {self.img_size} must be a multiple of "
+                f"{NETWORK_DOWNSAMPLE_FACTOR}")
+
+    @property
+    def number_anchors(self) -> int:
+        return len(self.anchors)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return getattr(torch, self.compute_dtype)
+
+    @property
+    def grid_sizes(self) -> List[Tuple[int, int]]:
+        """Grid (gh, gw) per scale at strides 32/16/8."""
+        h, w, _ = self.img_size
+        return [(h // s, w // s) for s in self.strides]
+
+    @property
+    def strides(self) -> List[int]:
+        return [32, 16, 8]
+
+    @property
+    def number_output_boxes(self) -> int:
+        return self.number_anchors * sum(gh * gw for gh, gw in self.grid_sizes)
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self))
+
+    @staticmethod
+    def from_json(s: str) -> "ModelConfig":
+        d = json.loads(s)
+        d["img_size"] = tuple(d["img_size"])
+        d["anchors"] = tuple(tuple(a) for a in d["anchors"])
+        return ModelConfig(**d)
+
+
+@dataclasses.dataclass(frozen=True)
+class InferenceConfig:
+    """Inference / NMS configuration (reference/bbox_utils.py:240-247)."""
+
+    iou_threshold: float = 0.3
+    score_threshold: float = 0.1
+    min_box_size: int = 32
+    tile_height: int = 512
+    tile_width: int = 512
+    edge_effect_range: int = 96
+    max_boxes_per_class: int = 512

@@ -1,0 +1,266 @@
+"""Whole-image inference CLI: exported model -> per-class NMS -> CSV boxes.
+
+Port of `yolov3_tpu/inference.py` (bf16/f32 path). Pipeline: image ->
+whole-image z-score -> model -> clip corners to the image -> strict
+small-box filter -> per-class NMS (sqrt score rule) -> corners to xywh +
+class id -> 'X,Y,W,H,C' CSV named after the image (or 'X,Y,W,H,P,C' with
+--save-scores).
+
+Everything runs on `device`, "cuda" unless the caller asks for "cpu"
+(the tests do). int8 serving and multi-device sharding are not ported
+yet: `--int8`, `--calib-percentile` and `--num-devices` > 1 raise
+NotImplementedError (slice 2 in ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from yolov3_tpu_torch.config import InferenceConfig
+from yolov3_tpu_torch.data.device_pipeline import zscore_images
+from yolov3_tpu_torch.data.imaging import ensure_hwc, imread
+from yolov3_tpu_torch.ops import boxes as bbox
+from yolov3_tpu_torch.ops.nms import batched_nms_device, nms_to_host
+from yolov3_tpu_torch.utils import checkpoint as ckpt
+
+_NOT_PORTED = ("{} is not ported yet: int8 serving and multi-device "
+               "inference are slice 2 of the port (ROADMAP.md)")
+
+
+def make_detector_fn(saved_model_filepath: str, num_devices: int = 1,
+                     device: str = "cuda"):
+    """Load an exported model and return (detector_fn, config).
+
+    detector_fn(images NHWC [B, H, W, C]) -> detections [B, num_boxes,
+    4+1+C] float32 on `device`.
+    """
+    if num_devices > 1:
+        raise NotImplementedError(_NOT_PORTED.format("--num-devices > 1"))
+    params, batch_stats, cfg = ckpt.load_model(saved_model_filepath)
+    model = ckpt.build_model(params, batch_stats, cfg, device)
+
+    @torch.inference_mode()
+    def detect(images) -> torch.Tensor:
+        return model(torch.as_tensor(images, device=device))
+
+    return detect, cfg
+
+
+def make_serving_fn(saved_model_filepath: str,
+                    icfg: Optional[InferenceConfig] = None,
+                    min_box_size: Optional[int] = None,
+                    device: str = "cuda"):
+    """The full serving path on the device: forward + decode + corner clip
+    + small-box filter + per-class NMS.
+
+    Returns (serve, cfg) where serve(images [B,H,W,C] float32) ->
+    (boxes [B,C,K,4] ltrb, scores [B,C,K], keep [B,C,K] bool).
+    """
+    icfg = icfg or InferenceConfig()
+    if min_box_size is None:
+        min_box_size = icfg.min_box_size
+    params, batch_stats, cfg = ckpt.load_model(saved_model_filepath)
+    model = ckpt.build_model(params, batch_stats, cfg, device)
+
+    @torch.inference_mode()
+    def serve(images):
+        images = torch.as_tensor(images, device=device)
+        # clip to the served images' bounds, not cfg.img_size: the network
+        # is fully convolutional
+        img_h, img_w = images.shape[1], images.shape[2]
+        det = model(images)
+        clipped = torch.cat([
+            det[..., 0:1].clamp(0, img_w), det[..., 1:2].clamp(0, img_h),
+            det[..., 2:3].clamp(0, img_w), det[..., 3:4].clamp(0, img_h),
+            det[..., 4:]], dim=-1)
+        return batched_nms_device(clipped, cfg.number_classes,
+                                  iou_threshold=icfg.iou_threshold,
+                                  score_threshold=icfg.score_threshold,
+                                  max_boxes=icfg.max_boxes_per_class,
+                                  min_box_size=float(min_box_size))
+
+    return serve, cfg
+
+
+def detections_to_csv_rows(det: np.ndarray, img_hw, min_box_size: int,
+                           icfg: InferenceConfig, use_host_nms: bool,
+                           num_classes: int, return_scores: bool = False,
+                           device: str = "cuda"):
+    """Post-process one image's raw detections to [M, 5] xywhc int rows
+    (and the [M] NMS scores with `return_scores`)."""
+    det = np.array(det, dtype=np.float32)  # writable host copy
+    det[:, 0] = np.clip(det[:, 0], 0, img_hw[1])
+    det[:, 1] = np.clip(det[:, 1], 0, img_hw[0])
+    det[:, 2] = np.clip(det[:, 2], 0, img_hw[1])
+    det[:, 3] = np.clip(det[:, 3], 0, img_hw[0])
+
+    det = bbox.filter_small_boxes(det, min_box_size)
+    if use_host_nms:
+        boxes, scores, labels = bbox.per_class_nms(
+            det[:, 0:4], det[:, 4:5], det[:, 5:],
+            iou_threshold=icfg.iou_threshold,
+            score_threshold=icfg.score_threshold)
+    else:
+        out = batched_nms_device(torch.from_numpy(det[None]).to(device),
+                                 num_classes,
+                                 iou_threshold=icfg.iou_threshold,
+                                 score_threshold=icfg.score_threshold,
+                                 max_boxes=icfg.max_boxes_per_class)
+        boxes, scores, labels = nms_to_host(out[0][0], out[1][0], out[2][0])
+    if boxes is None:
+        rows = np.zeros((0, 5), dtype=np.int32)
+        return (rows, np.zeros((0,), np.float32)) if return_scores else rows
+    boxes = boxes.copy()
+    boxes[:, 2] = boxes[:, 2] - boxes[:, 0]
+    boxes[:, 3] = boxes[:, 3] - boxes[:, 1]
+    rows = np.concatenate([boxes, labels.reshape(-1, 1)],
+                          axis=-1).astype(np.int32)
+    if return_scores:
+        return rows, np.asarray(scores, np.float32).reshape(-1)
+    return rows
+
+
+def detect_images(images: Sequence[np.ndarray], detect, num_classes: int,
+                  icfg: InferenceConfig, min_box_size: int,
+                  use_host_nms: bool = False, device: str = "cuda"
+                  ) -> Tuple[List[np.ndarray], List[np.ndarray]]:
+    """One CLI batch: HWC images (raw pixels, one size) -> per image the
+    [M, 5] xywhc rows and the [M] scores. The z-score runs on `device`."""
+    batch = zscore_images(torch.from_numpy(np.stack(images)).to(device))
+    dets = detect(batch).cpu().numpy()
+    pairs = [detections_to_csv_rows(det, img.shape[:2], min_box_size, icfg,
+                                    use_host_nms, num_classes,
+                                    return_scores=True, device=device)
+             for det, img in zip(dets, images)]
+    return [p[0] for p in pairs], [p[1] for p in pairs]
+
+
+def write_detections_csv(rows: np.ndarray, scores: np.ndarray, out_csv: str,
+                         save_scores: bool) -> None:
+    """Write one image's rows as X,Y,W,H,C, or as X,Y,W,H,P,C with
+    `save_scores` (write_boxes_from_ltrbpc takes inclusive ltrb corners)."""
+    if save_scores:
+        ltrbpc = np.concatenate([
+            rows[:, 0:1], rows[:, 1:2],
+            rows[:, 0:1] + rows[:, 2:3] - 1,
+            rows[:, 1:2] + rows[:, 3:4] - 1,
+            scores.reshape(-1, 1), rows[:, 4:5]], axis=-1)
+        bbox.write_boxes_from_ltrbpc(ltrbpc, out_csv)
+    else:
+        bbox.write_boxes_from_xywhc(rows, out_csv)
+
+
+def save_overlay(img: np.ndarray, rows: np.ndarray, out_path: str) -> None:
+    """Write a PNG with detection rectangles burned in."""
+    from yolov3_tpu_torch.data.imaging import imwrite
+    vis = img - img.min()
+    rng = vis.max()
+    if rng > 0:
+        vis = vis / rng
+    vis = np.ascontiguousarray((vis * 255).astype(np.uint8))
+    imwrite(bbox.draw_boxes(vis, rows), out_path)
+
+
+def inference(image_folder: str, image_format: str,
+              saved_model_filepath: str, output_folder: str,
+              min_box_size: int, batch_size: int = 1,
+              use_host_nms: bool = False,
+              num_devices: int = 1,
+              overlay_folder: Optional[str] = None,
+              icfg: Optional[InferenceConfig] = None,
+              use_int8: bool = False,
+              calib_percentile=None,
+              save_scores: bool = False,
+              device: str = "cuda") -> None:
+    if use_int8 or calib_percentile is not None:
+        raise NotImplementedError(_NOT_PORTED.format("--int8"))
+    os.makedirs(output_folder, exist_ok=True)
+    icfg = icfg or InferenceConfig(min_box_size=min_box_size)
+    image_format = image_format.lstrip(".")
+
+    files = sorted(fn for fn in os.listdir(image_folder)
+                   if fn.endswith(f".{image_format}"))
+    paths = [os.path.join(image_folder, fn) for fn in files]
+    detect, cfg = make_detector_fn(saved_model_filepath, num_devices,
+                                   device=device)
+
+    print("Starting inference of file list")
+    for start in range(0, len(paths), batch_size):
+        chunk = paths[start:start + batch_size]
+        images = [ensure_hwc(imread(fp)) for fp in chunk]
+        rows_per_image, scores_per_image = detect_images(
+            images, detect, cfg.number_classes, icfg, min_box_size,
+            use_host_nms, device)
+        for fp, rows, scores, img in zip(chunk, rows_per_image,
+                                         scores_per_image, images):
+            file_name = os.path.basename(fp)
+            print(f"{start}/{len(paths)} : {file_name}")
+            print(f"Found: {rows.shape[0]} rois")
+            write_detections_csv(rows, scores, os.path.join(
+                output_folder, file_name.replace(image_format, "csv")),
+                save_scores)
+            if overlay_folder:
+                os.makedirs(overlay_folder, exist_ok=True)
+                save_overlay(img, rows, os.path.join(
+                    overlay_folder, file_name.replace(image_format, "png")))
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(
+        prog="inference",
+        description="Detect objects in a folder of images with a trained model")
+    parser.add_argument("--saved-model-filepath", type=str, required=True,
+                        help="Filepath to the exported model to use")
+    parser.add_argument("--output-folder", type=str, required=True)
+    parser.add_argument("--image-folder", type=str, required=True,
+                        help="folder containing images to inference (Required)")
+    parser.add_argument("--image-format", type=str, default="tif",
+                        help="format (extension) of the input images. "
+                             "E.g {tif, jpg, png}")
+    parser.add_argument("--min-box-size", type=int, default=32,
+                        help="Smallest detection to consider. Default (32, 32).")
+    parser.add_argument("--batch-size", type=int, default=1,
+                        help="images per device batch")
+    parser.add_argument("--max-boxes", type=int, default=512,
+                        help="per-class candidate cap for the device NMS")
+    parser.add_argument("--save-overlays", type=str, default=None,
+                        help="also write detection-overlay PNGs to this folder")
+    parser.add_argument("--save-scores", action="store_true",
+                        help="write the scored X,Y,W,H,P,C CSV layout "
+                             "instead of the reference's unscored X,Y,W,H,C")
+    parser.add_argument("--host_nms", action="store_true",
+                        help="run NMS on the host (numpy) instead of on device")
+    parser.add_argument("--calib-percentile", type=float, default=None,
+                        help="int8 calibration percentile (not ported yet)")
+    parser.add_argument("--int8", action="store_true",
+                        help="int8 post-training-quantized serving "
+                             "(not ported yet)")
+    parser.add_argument("--num-devices", type=int, default=1,
+                        help="shard image batches across N devices "
+                             "(only 1 is ported)")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device to run on (default cuda)")
+    args = parser.parse_args(argv)
+
+    print("Arguments:")
+    for k, v in sorted(vars(args).items()):
+        print(f"{k} = {v}")
+
+    inference(args.image_folder, args.image_format,
+              args.saved_model_filepath, args.output_folder,
+              args.min_box_size, batch_size=args.batch_size,
+              use_host_nms=args.host_nms, num_devices=args.num_devices,
+              overlay_folder=args.save_overlays,
+              icfg=InferenceConfig(min_box_size=args.min_box_size,
+                                   max_boxes_per_class=args.max_boxes),
+              use_int8=args.int8, calib_percentile=args.calib_percentile,
+              save_scores=args.save_scores, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,90 @@
+"""Greedy NMS suppression: the CUDA kernel's wrapper and its plain version.
+
+Replaces `yolov3_tpu/ops/pallas/nms_kernel.py::suppress_boxes_pallas_t`
+(and `suppress_boxes_pallas`, the same contract in row layout). The kernel
+is `csrc/nms_suppress.cu`: one thread block per (image, class) problem,
+the boxes in shared memory as l/t/r/b planes, and one block-wide OR per
+candidate up to the problem's highest valid slot. It is bound by that
+latency chain of K reductions, not by bytes; the source note says more.
+
+A CUDA tensor goes through the kernel, or the wrapper raises; a CPU tensor
+goes through `suppress_boxes_plain`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from yolov3_tpu_torch.ops.kernels import _build
+from yolov3_tpu_torch.ops.nms import _greedy_suppress, pairwise_iou
+
+NAME = "nms_suppress"
+_fn = None
+
+
+def _kernel_fn():
+    global _fn
+    if _fn is None:
+        fn = _build.load(NAME).nms_suppress
+        p = ctypes.c_void_p
+        fn.argtypes = [p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                       p]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def suppress_boxes_plain(cand: torch.Tensor, valid: torch.Tensor,
+                         iou_threshold: float) -> torch.Tensor:
+    """cand [C, K, 4] ltrb score-sorted, valid [C, K] -> keep [C, K] bool,
+    from the full IoU matrices and the sequential recurrence."""
+    return _greedy_suppress(pairwise_iou(cand.to(torch.float32)),
+                            valid.to(torch.bool), iou_threshold)
+
+
+def _check(cand: torch.Tensor, valid: torch.Tensor) -> None:
+    if cand.dim() != 3 or cand.shape[-1] != 4:
+        raise ValueError(f"cand must be [C, K, 4], got {tuple(cand.shape)}")
+    if tuple(valid.shape) != tuple(cand.shape[:2]):
+        raise ValueError(f"valid must be {tuple(cand.shape[:2])}, got "
+                         f"{tuple(valid.shape)}")
+    if valid.device != cand.device:
+        raise ValueError("cand and valid must be on one device")
+
+
+def _launch(cand: torch.Tensor, valid: torch.Tensor,
+            iou_threshold: float) -> torch.Tensor:
+    if cand.dtype != torch.float32 or valid.dtype != torch.bool:
+        raise TypeError(f"need float32 cand and bool valid, got {cand.dtype} "
+                        f"and {valid.dtype}")
+    if not (cand.is_contiguous() and valid.is_contiguous()):
+        raise ValueError("cand and valid must be contiguous")
+    c, k, _ = cand.shape
+    if k * 21 > 227 * 1024:
+        raise ValueError(f"K = {k} candidates do not fit in shared memory")
+    keep = torch.empty((c, k), dtype=torch.bool, device=cand.device)
+    stream = torch.cuda.current_stream(cand.device).cuda_stream
+    err = _kernel_fn()(cand.data_ptr(), valid.data_ptr(), keep.data_ptr(),
+                       c, k, float(iou_threshold), stream)
+    _build.check(err, NAME)
+    _build.launch_counts[NAME] += 1
+    return keep
+
+
+def suppress_boxes_t(cand: torch.Tensor, valid: torch.Tensor,
+                     iou_threshold: float) -> torch.Tensor:
+    """cand [C, K, 4] f32 ltrb score-sorted, valid [C, K] bool ->
+    keep [C, K] bool (the `suppress_boxes_pallas_t` contract)."""
+    _check(cand, valid)
+    if cand.device.type == "cpu":
+        return suppress_boxes_plain(cand, valid, iou_threshold)
+    return _launch(cand, valid, iou_threshold)
+
+
+def suppress_boxes(cand: torch.Tensor, valid: torch.Tensor,
+                   iou_threshold: float) -> torch.Tensor:
+    """Row-layout entry (the `suppress_boxes_pallas` contract): the same
+    function as `suppress_boxes_t`, onto the same CUDA kernel."""
+    return suppress_boxes_t(cand, valid, iou_threshold)

@@ -1,0 +1,196 @@
+"""Weight bridge and the port's exported-model artifact.
+
+The JAX package keeps the feature-map model `YoloV3`'s variables as two
+Flax trees, `params` and `batch_stats`. `params_from_jax` turns those
+trees, given as nested dicts of numpy arrays, into this port's
+`state_dict`; the names map explicitly (`_MODULES`, `_LEAVES`) because
+Flax auto-names the unnamed modules (`Darknet53_0`, the neck's
+`ConvBlock_0`/`ConvBlock_1`, `DetectionHead_0..2`, and `Conv_0` /
+`BatchNorm_0` inside each block). The JAX space-to-depth and plain stems
+share one tree, so one mapping serves both.
+
+The port's artifact is `<folder>/saved_model/` with the same
+`model_config.json` as the JAX export and a `weights.npz` keyed by Flax
+path (`params/Darknet53_0/ConvBlock_0/Conv_0/kernel`), written without
+pickle. Converting a JAX (Orbax) export needs JAX, so it is done outside
+this package: load it with the JAX package, turn the leaves into numpy,
+and pass them to `export_model`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import shutil
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from yolov3_tpu_torch.config import ModelConfig
+
+EXPORT_DIR = "saved_model"
+CONFIG_FILE = "model_config.json"
+WEIGHTS_FILE = "weights.npz"
+
+# port module name -> Flax module name ("{}" takes the next key part, the
+# index in a ModuleList)
+_MODULES = {
+    "darknet": "Darknet53_0",
+    "yolo_blocks": "YoloBlock_{}",
+    "necks": "ConvBlock_{}",
+    "heads": "DetectionHead_{}",
+    "blocks": "FeatureBlock_{}",
+    "convs": "ConvBlock_{}",
+    "conv": "Conv_0",
+    "bn": "BatchNorm_0",
+}
+# (owner module, port leaf) -> (Flax collection, Flax leaf)
+_LEAVES = {
+    ("conv", "weight"): ("params", "kernel"),
+    ("conv", "bias"): ("params", "bias"),
+    ("bn", "weight"): ("params", "scale"),
+    ("bn", "bias"): ("params", "bias"),
+    ("bn", "running_mean"): ("batch_stats", "mean"),
+    ("bn", "running_var"): ("batch_stats", "var"),
+}
+
+
+def flax_path(key: str) -> str:
+    """Port state_dict key -> "<collection>/<Flax path>", e.g.
+    `darknet.blocks.2.convs.3.bn.running_var` ->
+    `batch_stats/Darknet53_0/FeatureBlock_2/ConvBlock_3/BatchNorm_0/var`."""
+    parts = key.split(".")
+    collection, leaf = _LEAVES[(parts[-2], parts[-1])]
+    names, it = [], iter(parts[:-1])
+    for p in it:
+        fmt = _MODULES[p]
+        names.append(fmt.format(next(it)) if "{}" in fmt else fmt)
+    return "/".join([collection, *names, leaf])
+
+
+def _flax_shape(value: torch.Tensor) -> Tuple[int, ...]:
+    """Shape a port tensor has in the Flax tree (kernels are HWIO)."""
+    shape = tuple(value.shape)
+    return (shape[2], shape[3], shape[1], shape[0]) if len(shape) == 4 else shape
+
+
+def _flatten(tree: dict, prefix: str, out: Dict[str, np.ndarray]) -> None:
+    for k, v in tree.items():
+        path = f"{prefix}/{k}"
+        if isinstance(v, dict):
+            _flatten(v, path, out)
+        else:
+            out[path] = v
+
+
+def _unflatten(flat: Dict[str, np.ndarray]) -> dict:
+    tree: dict = {}
+    for path, v in flat.items():
+        *parents, leaf = path.split("/")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return tree
+
+
+def _template(cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """The port's state_dict names and shapes, allocated on no device."""
+    from yolov3_tpu_torch.models.yolo import YoloV3
+    with torch.device("meta"):
+        return YoloV3(cfg).state_dict()
+
+
+def params_from_jax(params: dict, batch_stats: dict,
+                    cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """Flax `YoloV3` trees (nested dicts of numpy arrays) -> the port's
+    `YoloV3` state_dict. Raises on any leaf missing, left over, or of the
+    wrong shape. The kernels go from HWIO to OIHW here and only here."""
+    flat: Dict[str, np.ndarray] = {}
+    _flatten(params, "params", flat)
+    _flatten(batch_stats, "batch_stats", flat)
+    state = {}
+    for key, meta in _template(cfg).items():
+        path = flax_path(key)
+        if path not in flat:
+            raise KeyError(f"Flax tree has no {path} (for {key})")
+        value = np.asarray(flat.pop(path), np.float32)
+        if value.shape != _flax_shape(meta):
+            raise ValueError(f"{path}: shape {value.shape}, expected "
+                             f"{_flax_shape(meta)}")
+        if value.ndim == 4:
+            value = value.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+        state[key] = torch.from_numpy(np.ascontiguousarray(value))
+    if flat:
+        raise KeyError(f"Flax leaves left over: {sorted(flat)}")
+    return state
+
+
+def init_params(cfg: ModelConfig, seed: int) -> Tuple[dict, dict]:
+    """Random Flax-shaped (params, batch_stats) trees for `cfg`, made from
+    `seed` with numpy: kernels N(0, 1/fan_in), conv and BN biases and BN
+    means N(0, 0.1^2), BN scales U(0.8, 1.2), variances U(0.5, 1.5)."""
+    rng = np.random.default_rng(seed)
+    flat = {}
+    for key, meta in _template(cfg).items():
+        shape = _flax_shape(meta)
+        leaf = key.rsplit(".", 1)[-1]
+        owner = key.rsplit(".", 2)[-2]
+        if len(shape) == 4:
+            v = rng.standard_normal(shape, np.float32) / np.sqrt(
+                np.prod(shape[:-1]))
+        elif owner == "bn" and leaf == "weight":
+            v = rng.uniform(0.8, 1.2, shape)
+        elif leaf == "running_var":
+            v = rng.uniform(0.5, 1.5, shape)
+        else:
+            v = 0.1 * rng.standard_normal(shape, np.float32)
+        flat[flax_path(key)] = v.astype(np.float32)
+    tree = _unflatten(flat)
+    return tree["params"], tree["batch_stats"]
+
+
+def export_model(output_folder: str, params: dict, batch_stats: dict,
+                 config: ModelConfig) -> str:
+    """Write `<output_folder>/saved_model` (config JSON + weights.npz) and
+    return its path. Training-only QAT flags are cleared, as the JAX
+    export does."""
+    config = dataclasses.replace(config, int8_train=False,
+                                 int8_train_static=False)
+    path = os.path.abspath(os.path.join(output_folder, EXPORT_DIR))
+    if os.path.exists(path):
+        shutil.rmtree(path)
+    os.makedirs(path)
+    with open(os.path.join(path, CONFIG_FILE), "w") as fh:
+        fh.write(config.to_json())
+    flat: Dict[str, np.ndarray] = {}
+    _flatten(params, "params", flat)
+    _flatten(batch_stats, "batch_stats", flat)
+    np.savez(os.path.join(path, WEIGHTS_FILE),
+             **{k: np.asarray(v, np.float32) for k, v in flat.items()})
+    return path
+
+
+def load_model(saved_model_path: str) -> Tuple[dict, dict, ModelConfig]:
+    """Load (params, batch_stats, config) from the port's artifact."""
+    saved_model_path = os.path.abspath(saved_model_path)
+    cfg_path = os.path.join(saved_model_path, CONFIG_FILE)
+    if not os.path.exists(cfg_path):
+        raise FileNotFoundError(f"Not an exported model: {saved_model_path}")
+    with open(cfg_path) as fh:
+        config = ModelConfig.from_json(fh.read())
+    with np.load(os.path.join(saved_model_path, WEIGHTS_FILE),
+                 allow_pickle=False) as z:
+        tree = _unflatten({k: z[k] for k in z.files})
+    return tree["params"], tree["batch_stats"], config
+
+
+def build_model(params: dict, batch_stats: dict, cfg: ModelConfig,
+                device) -> torch.nn.Module:
+    """`YoloV3Detector` for `cfg` with the given Flax-shaped weights, in
+    eval mode on `device`."""
+    from yolov3_tpu_torch.models.yolo import YoloV3Detector
+    model = YoloV3Detector(cfg)
+    model.backbone.load_state_dict(params_from_jax(params, batch_stats, cfg))
+    return model.to(device).eval()
