@@ -45,7 +45,8 @@ HBM_BYTES_S = 3.35e12
 BF16_OPS_S = 989e12
 F32_OPS_S = 67e12
 # f32 operations of one IoU test in the NMS recurrence: 4 min/max, 2 sub,
-# 2 clamp, 1 mul, 1 add, 1 sub, 1 div, 1 compare
+# 2 clamp, 1 mul, 1 add, 1 sub, 1 div, 1 compare. The function tests each
+# valid candidate i only against the kept j < i.
 IOU_OPS = 13
 
 FULL = dict(img_size=(512, 512, 3), number_classes=2,
@@ -147,6 +148,11 @@ def phase_serving(torch, ckpt, inf, build, ModelConfig, InferenceConfig,
         conv_block.pointwise_conv_block = orig_pw
         nms_suppress.suppress_boxes_t = orig_nms
     torch.cuda.synchronize()
+    recorded = {"pointwise_conv_block": len(calls["pw"]),
+                "nms_suppress": len(calls["nms"])}
+    if recorded != EXPECTED_LAUNCHES:
+        raise AssertionError(f"recorded kernel calls {recorded} != "
+                             f"{EXPECTED_LAUNCHES}")
 
     build.launch_counts.clear()
     boxes, scores, keep = serve(images)
@@ -196,15 +202,17 @@ def phase_profile(torch, serve, images, reps=3, top=15):
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     total = sum(e.self_device_time_total for e in events) / 1e3
+    ops = sum(e.count for e in events) / reps
     log(f"profile {reps} serving calls: wall {wall_ms:.3f} ms, device busy "
-        f"{total:.3f} ms ({100 * total / wall_ms:.1f}%)")
+        f"{total:.3f} ms ({100 * total / wall_ms:.1f}%), {ops:.0f} device "
+        f"ops per call")
     rows = []
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
         ms = e.self_device_time_total / 1e3 / reps
         rows.append({"name": e.key, "ms_per_call": ms, "count": e.count / reps})
         log(f"profile  {ms:9.4f} ms/call  x{e.count / reps:6.1f}  {e.key[:90]}")
     return {"wall_ms": wall_ms / reps, "device_ms": total / reps,
-            "top": rows}
+            "device_ops_per_call": ops, "top": rows}
 
 
 def phase_pointwise(torch, calls):
@@ -270,15 +278,14 @@ def nms_case(torch, cand, valid, label):
     ms = cuda_ms(lambda: K.suppress_boxes_t(cand, valid, 0.3), 20)
     plain = cuda_ms(lambda: K.suppress_boxes_plain(cand, valid, 0.3), 2, 1)
     c, k = valid.shape
-    idx = torch.arange(k, device=valid.device)
-    ends = torch.where(valid, idx + 1, 0).max(dim=1).values.double()
-    pairs = float((ends * (ends - 1) / 2).sum())
+    kept = want.to(torch.float64)
+    pairs = float(((kept.cumsum(dim=1) - kept) * valid).sum())
     b_ms, b_by = bound(c * k * (16 + 1 + 1), pairs * IOU_OPS, F32_OPS_S)
     log(f"nms_suppress {label} C={c} K={k} valid={int(valid.sum())}: kernel "
-        f"{ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.5f} ms ({b_by}), "
-        f"keep bit-equal ({int(got.sum())} kept)")
+        f"{ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.6f} ms ({b_by}, "
+        f"{pairs:.0f} IoU tests), keep bit-equal ({int(got.sum())} kept)")
     return dict(label=label, c=c, k=k, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                bound_by=b_by, max_abs_err=err)
+                bound_by=b_by, iou_tests=pairs, max_abs_err=err)
 
 
 def phase_nms(torch, calls):

@@ -61,6 +61,7 @@ def test_conv_block_flag_close_to_standard_path():
         blk.bn.bias.data = torch.from_numpy(p["offset"])
         blk.bn.running_mean.data = torch.from_numpy(p["mean"])
         blk.bn.running_var.data = torch.from_numpy(p["var"])
+        blk.prepare()
     assert fused.fused and not std.fused
     with torch.no_grad():
         np.testing.assert_allclose(fused(x).numpy(), std(x).numpy(),

@@ -24,8 +24,9 @@ sys.exit(1 if bad or len(names) < 15 else 0)
 """
 
 
-def _run(args, cwd):
+def _run(args, cwd, **extra_env):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(extra_env)
     return subprocess.run([sys.executable, *args], cwd=cwd, env=env,
                           capture_output=True, text=True, timeout=120)
 
@@ -37,12 +38,12 @@ def test_port_imports_no_jax():
 
 @pytest.mark.parametrize("alone", [False, True])
 def test_chip_smoke_fails_without_card_or_package(tmp_path, alone):
-    """Without a card (here), and in a directory holding chip_smoke.py and
+    """With no card visible, and in a directory holding chip_smoke.py and
     nothing else of the repo, the script exits non-zero with no result."""
     cwd = REPO
     if alone:
         shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
         cwd = str(tmp_path)
-    r = _run(["chip_smoke.py"], cwd)
+    r = _run(["chip_smoke.py"], cwd, CUDA_VISIBLE_DEVICES="")
     assert r.returncode != 0
     assert '"ok"' not in r.stdout and '"kernels"' not in r.stdout

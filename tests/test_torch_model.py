@@ -144,6 +144,7 @@ def _load_block(block, v):
     block.bn.bias.data = torch.from_numpy(p["BatchNorm_0"]["bias"])
     block.bn.running_mean.data = torch.from_numpy(s["BatchNorm_0"]["mean"])
     block.bn.running_var.data = torch.from_numpy(s["BatchNorm_0"]["var"])
+    block.prepare()
 
 
 @pytest.mark.parametrize("k,stride,size", [(3, 1, 8), (3, 2, 8), (3, 2, 7),
@@ -161,6 +162,30 @@ def test_conv_block_matches_flax(k, stride, size):
     with torch.no_grad():
         got = block(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+def test_prepared_constants_follow_load_state_dict():
+    """The forward's derived constants are rebuilt by `load_state_dict`
+    and stay out of the state_dict."""
+    cfg = ModelConfig(**dict(SMALL, compute_dtype="bfloat16",
+                             use_pallas_pointwise=True))
+    params, stats = init_params(cfg, 4)
+    state = params_from_jax(params, stats, cfg)
+    model = port_model(cfg, params, stats)
+    assert set(model.state_dict()) == set(state)
+    fused, plain = model.necks[0], model.darknet.convs[1]
+    assert fused.fused and not plain.fused
+    w = state["necks.0.conv.weight"][:, :, 0, 0].t()
+    assert fused.w.dtype == torch.bfloat16 and fused.w.is_contiguous()
+    assert torch.equal(fused.w, w.to(torch.bfloat16))
+    var, gamma = (state["necks.0.bn.running_var"],
+                  state["necks.0.bn.weight"])
+    torch.testing.assert_close(fused.mul, gamma / torch.sqrt(var + 1e-3),
+                               rtol=0, atol=0)
+    assert torch.equal(plain.w, state["darknet.convs.1.conv.weight"].to(
+        torch.bfloat16))
+    assert torch.equal(model.heads[0].b,
+                       state["heads.0.conv.bias"].to(torch.bfloat16))
 
 
 def test_stride2_pads_bottom_right_only():

@@ -16,6 +16,13 @@ Reference quirks kept for output parity (reference/model.py:19-464):
 The JAX model's space-to-depth stem is the same math as the plain stem,
 laid out for the TPU, over the same variable tree; this port runs the
 plain stem whatever `stem_space_to_depth` says.
+
+What the forward needs beyond the parameters (weights in the compute
+dtype, the 1x1 kernel's [Ci, Co] bf16 layout, the folded BatchNorm) is
+derived once, as non-persistent buffers, by each module's `prepare()`:
+at construction and after every `load_state_dict`. The forward only
+launches work on the activations. Call `prepare()` again after assigning
+parameters directly.
 """
 
 from __future__ import annotations
@@ -28,7 +35,7 @@ from torch import nn
 
 from yolov3_tpu_torch.config import ModelConfig
 from yolov3_tpu_torch.ops.decode import decode_detections
-from yolov3_tpu_torch.ops.kernels.conv_block import fused_pointwise_conv_block
+from yolov3_tpu_torch.ops.kernels import conv_block
 
 
 def _same_pads(size: int, k: int, s: int) -> Tuple[int, int]:
@@ -52,6 +59,24 @@ def conv2d_same(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return y.permute(0, 2, 3, 1)
 
 
+class Prepared(nn.Module):
+    """A module whose forward reads constants derived from its parameters;
+    `prepare()` derives them, at construction and after every
+    `load_state_dict`."""
+
+    def __init__(self):
+        super().__init__()
+        self.register_load_state_dict_post_hook(lambda m, _: m.prepare())
+
+    def constant(self, name: str, value: torch.Tensor) -> None:
+        """Set (or register) a non-persistent buffer: it follows `.to()`
+        but stays out of the state_dict."""
+        self.register_buffer(name, value.detach(), persistent=False)
+
+    def prepare(self) -> None:
+        raise NotImplementedError
+
+
 class Conv(nn.Module):
     """Conv parameters (OIHW weight + bias); zeros until weights load."""
 
@@ -62,7 +87,7 @@ class Conv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
 
-class BatchNorm(nn.Module):
+class BatchNorm(Prepared):
     """Inference BatchNorm over the channel (last) axis, computed in f32
     and cast back, in Flax's op order."""
 
@@ -73,14 +98,19 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
+        self.prepare()
+
+    @torch.no_grad()
+    def prepare(self) -> None:
+        self.constant("mul", torch.rsqrt(self.running_var + self.eps)
+                      * self.weight)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = (x.to(torch.float32) - self.running_mean) * mul + self.bias
+        y = (x.to(torch.float32) - self.running_mean) * self.mul + self.bias
         return y.to(x.dtype)
 
 
-class ConvBlock(nn.Module):
+class ConvBlock(Prepared):
     """Conv(SAME, bias) -> LeakyReLU -> BatchNorm (reference/model.py:28-39).
 
     With `use_pallas_pointwise`, a 1x1 stride-1 block runs as one fused
@@ -98,17 +128,35 @@ class ConvBlock(nn.Module):
         self.fused = use_pallas_pointwise and kernel == 1 and stride == 1
         self.conv = Conv(in_features, features, kernel)
         self.bn = BatchNorm(features, bn_epsilon)
+        self.prepare()
+
+    @torch.no_grad()
+    def prepare(self) -> None:
+        """Fused: the [Ci, Co] bf16 kernel, f32 bias and the folded
+        BatchNorm (mul, add). Otherwise: weight and bias in the compute
+        dtype, and the BatchNorm's own constant."""
+        conv, bn = self.conv, self.bn
+        if self.fused:
+            self.constant("w", conv.weight[:, :, 0, 0].t().to(
+                torch.bfloat16).contiguous())
+            self.constant("b", conv.bias.to(torch.float32))
+            mul, add = conv_block.fold_batchnorm(bn.weight, bn.bias, bn.running_mean,
+                                      bn.running_var, self.bn_epsilon)
+            self.constant("mul", mul)
+            self.constant("add", add)
+        else:
+            self.constant("w", conv.weight.to(self.dtype))
+            self.constant("b", conv.bias.to(self.dtype))
+            bn.prepare()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.fused:
-            bn = self.bn
-            return fused_pointwise_conv_block(
-                x, self.conv.weight[:, :, 0, 0].t(), self.conv.bias,
-                bn.weight, bn.bias, bn.running_mean, bn.running_var,
-                alpha=self.alpha, eps=self.bn_epsilon, out_dtype=self.dtype)
-        dt = self.dtype
-        y = conv2d_same(x.to(dt), self.conv.weight.to(dt),
-                        self.conv.bias.to(dt), self.stride)
+            n, h, w, ci = x.shape
+            y = conv_block.pointwise_conv_block(
+                x.reshape(n * h * w, ci).to(torch.bfloat16), self.w, self.b,
+                self.mul, self.add, self.alpha, self.dtype)
+            return y.reshape(n, h, w, -1)
+        y = conv2d_same(x.to(self.dtype), self.w, self.b, self.stride)
         return self.bn(F.leaky_relu(y, self.alpha))
 
 
@@ -161,7 +209,7 @@ def upsample_2x(x: torch.Tensor, channel_sum: bool = False) -> torch.Tensor:
         n, 2 * h, 2 * w, c)
 
 
-class DetectionHead(nn.Module):
+class DetectionHead(Prepared):
     """Linear 1x1 conv to A*(5+C) channels (reference/model.py:107-120)."""
 
     def __init__(self, in_features: int, num_anchors: int,
@@ -169,11 +217,15 @@ class DetectionHead(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.conv = Conv(in_features, num_anchors * (5 + number_classes), 1)
+        self.prepare()
+
+    @torch.no_grad()
+    def prepare(self) -> None:
+        self.constant("w", self.conv.weight.to(self.dtype))
+        self.constant("b", self.conv.bias.to(self.dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.dtype
-        return conv2d_same(x.to(dt), self.conv.weight.to(dt),
-                           self.conv.bias.to(dt), 1)
+        return conv2d_same(x.to(self.dtype), self.w, self.b, 1)
 
 
 class Darknet53(nn.Module):

@@ -20,6 +20,7 @@ its kernel, so a run can show that its path went through the kernels.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -57,48 +58,35 @@ def _target(name: str) -> str:
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 
 
-def _start(name: str):
-    """Start nvcc for one kernel; returns (process, tmp, target) or None
-    when the library for this source is already built."""
+def _compile(name: str) -> None:
+    """Build one kernel's library unless it is built for this source."""
     target = _target(name)
     if os.path.exists(target):
-        return None
+        return
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           os.path.join(CSRC_DIR, f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, target
-
-
-def _finish(name: str, job) -> str:
-    """Wait for one nvcc; returns its error output, or "" on success."""
-    proc, tmp, target = job
-    out, _ = proc.communicate()
-    if proc.returncode != 0:
+    r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp,
+                        os.path.join(CSRC_DIR, f"{name}.cu")],
+                       capture_output=True, text=True)
+    if r.returncode != 0:
         os.unlink(tmp)
-        return f"nvcc failed for {name}.cu:\n{out}"
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{r.stdout}"
+                           f"{r.stderr}")
     os.replace(tmp, target)
-    return ""
 
 
 def build(names: Iterable[str] = KERNELS) -> None:
-    """Compile the given kernels, one nvcc process each, all at once;
-    waits for every process before raising on any failure."""
-    jobs = {n: _start(n) for n in names}
-    errors = [_finish(n, job) for n, job in jobs.items() if job is not None]
-    errors = [e for e in errors if e]
-    if errors:
-        raise RuntimeError("\n".join(errors))
+    """Compile the given kernels, one nvcc process each, all at once."""
+    with concurrent.futures.ThreadPoolExecutor() as pool:
+        list(pool.map(_compile, names))
 
 
 def load(name: str) -> ctypes.CDLL:
     """The kernel's shared library, built on first use."""
     lib = _loaded.get(name)
     if lib is None:
-        build([name])
+        _compile(name)
         lib = ctypes.CDLL(_target(name))
         _loaded[name] = lib
     return lib

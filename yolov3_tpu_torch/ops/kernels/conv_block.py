@@ -18,6 +18,7 @@ raises; a CPU tensor goes through `pointwise_conv_block_plain`.
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
@@ -97,6 +98,15 @@ def pointwise_conv_block(x: torch.Tensor, w: torch.Tensor,
     return _launch(x, w, bias, mul, add, alpha, out_dtype)
 
 
+def fold_batchnorm(scale: torch.Tensor, offset: torch.Tensor,
+                   mean: torch.Tensor, var: torch.Tensor, eps: float
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inference BatchNorm as f32 `(mul, add)` (conv_block_kernel.py:57-58)."""
+    f32 = torch.float32
+    mul = scale.to(f32) / torch.sqrt(var.to(f32) + eps)
+    return mul, offset.to(f32) - mean.to(f32) * mul
+
+
 def fused_pointwise_conv_block(x: torch.Tensor, kernel: torch.Tensor,
                                bias: torch.Tensor, scale: torch.Tensor,
                                offset: torch.Tensor, mean: torch.Tensor,
@@ -109,10 +119,9 @@ def fused_pointwise_conv_block(x: torch.Tensor, kernel: torch.Tensor,
     mul/add in f32 (conv_block_kernel.py:57-58)."""
     n, h, w, ci = x.shape
     co = kernel.shape[-1]
-    f32 = torch.float32
-    mul = scale.to(f32) / torch.sqrt(var.to(f32) + eps)
-    add = offset.to(f32) - mean.to(f32) * mul
+    mul, add = fold_batchnorm(scale, offset, mean, var, eps)
     y = pointwise_conv_block(x.reshape(n * h * w, ci).to(torch.bfloat16),
                              kernel.to(torch.bfloat16).contiguous(),
-                             bias.to(f32), mul, add, alpha, out_dtype)
+                             bias.to(torch.float32), mul, add, alpha,
+                             out_dtype)
     return y.reshape(n, h, w, co)
