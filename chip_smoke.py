@@ -5,7 +5,7 @@
 
 Phases, in order; any failure exits non-zero:
   1. Print the card's name and power limit; build the CUDA kernels from
-     `yolov3_tpu_torch/csrc/` with nvcc, all at once.
+     `yolov3_tpu_torch/csrc/` with nvcc, all five at once.
   2. Reference check at 64 px, full width, f32: the port on the card
      (plain path, and 1x1 blocks through the kernel) against the port's
      plain path on the CPU.
@@ -16,19 +16,37 @@ Phases, in order; any failure exits non-zero:
      the 1x1 kernel must launch 34 times and the NMS kernel once. Then
      images/s over repeated calls, and device time by kernel over three
      calls under torch.profiler.
-  4. Each kernel against its plain version on the inputs the serving call
-     handed it (recorded on a warm-up call), plus the NMS kernel at the
-     batch-64 shapes (C = 128, K = 512), saturated and sparse: NMS keep
-     masks bit-equal, the 1x1 block within rtol = atol = 2e-2 in bf16.
-     Times from CUDA events after warm-up, beside each call's bound.
-  5. The CLI's per-batch function on 4 uint8 images; CSVs in both layouts.
-  6. One JSON line of kernel results, then the last line
+  4. Each bf16-path kernel against its plain version on the inputs the
+     serving call handed it (recorded on a warm-up call), plus the NMS
+     kernel at the batch-64 shapes (C = 128, K = 512), saturated and
+     sparse: NMS keep masks bit-equal, the 1x1 block within rtol = atol =
+     2e-2 in bf16. Times from CUDA events after warm-up, beside each
+     call's bound.
+  5. int8 reference check at 64 px, full width, bf16: the port's int8
+     model on the card (kernels) and on the CPU (plain versions) with one
+     scale dict. Every kernel launch against its plain version on the same
+     inputs: s8 codes within 1, float outputs within a bf16 ulp; the share
+     of s8 codes that differ along the two chains; decode fidelity >= 0.99.
+  6. Full-width int8 serving (`make_quantized_serving_fn`, 512 px, batch
+     8), calibrated (absmax) on the served batch. Counters set to 0 just
+     before one call and read just after: 34 int8 1x1, 32 int8 3x3, 5
+     stride-2 and 1 NMS launch. images/s, the profile by kernel, and the
+     int8-vs-bf16 decode fidelity (> 0.9, top 20).
+  7. Each int8 kernel against its plain version on every input the int8
+     serving call handed it (s8 within 1 code), and per shape the
+     kernel's, the plain version's and the library yardstick's time
+     (`torch._int_mm` on the rows or an im2col, plus the epilogue ops)
+     beside the bound.
+  8. The CLI's per-batch functions on 4 uint8 images, bf16 and --int8;
+     CSVs in both layouts.
+  9. One JSON line of kernel results, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import math
 import os
@@ -44,6 +62,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_S = 3.35e12
 BF16_OPS_S = 989e12
 F32_OPS_S = 67e12
+# dense int8 tensor-core operations/s of the H100 SXM
+INT8_OPS_S = 1979e12
 # f32 operations of one IoU test in the NMS recurrence: 4 min/max, 2 sub,
 # 2 clamp, 1 mul, 1 add, 1 sub, 1 div, 1 compare. The function tests each
 # valid candidate i only against the kept j < i.
@@ -58,6 +78,21 @@ DEVICE = "cuda"
 # launches of one serving call at FULL: FeatureBlocks 1+2+8+8+4 1x1s,
 # three YoloBlocks of three 1x1s and two neck 1x1s; one NMS launch
 EXPECTED_LAUNCHES = {"pointwise_conv_block": 34, "nms_suppress": 1}
+# int8 serving at FULL: 1x1s = 23 feature-block + 6 YoloBlock mid + 3
+# YoloBlock entry + 2 neck; 3x3s = 23 feature-block + 9 YoloBlock;
+# 5 stride-2 blocks; one NMS launch
+EXPECTED_INT8_LAUNCHES = {"pointwise_conv_block_q": 34,
+                          "conv3x3_block_q": 32, "down_conv_block_q": 5,
+                          "nms_suppress": 1}
+# int8 kernel -> (wrapper module, the TPU kernel's pallas_call)
+INT8_KERNELS = {
+    "pointwise_conv_block_q": (
+        "pointwise_q", "yolov3_tpu/ops/pallas/pointwise_kernel.py:154"),
+    "conv3x3_block_q": (
+        "conv3x3_q", "yolov3_tpu/ops/pallas/conv3x3_kernel.py:205"),
+    "down_conv_block_q": (
+        "down_conv_q", "yolov3_tpu/ops/pallas/down_conv_kernel.py:156"),
+}
 
 
 def log(*a):
@@ -305,6 +340,322 @@ def phase_nms(torch, calls):
     return rows
 
 
+def record_io(module, name, store):
+    """Wrap `module.name` so every call's (name, args, kwargs, output)
+    lands in `store`; returns the function to put back."""
+    orig = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        out = orig(*args, **kwargs)
+        store.append((name, args, kwargs, out))
+        return out
+
+    setattr(module, name, wrapper)
+    return orig
+
+
+def int8_module(name):
+    return importlib.import_module(
+        f"yolov3_tpu_torch.ops.kernels.{INT8_KERNELS[name][0]}")
+
+
+def int8_compare(torch, got, want):
+    """(max s8 code difference, s8 codes differing, s8 codes, max float
+    difference) between two int8 kernel results; floats must agree within
+    a bf16 ulp."""
+    code = differ = total = 0
+    fl = 0.0
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want):
+        g, w = g.cpu(), w.cpu()
+        if g.dtype == torch.int8:
+            d = (g.int() - w.int()).abs()
+            code = max(code, int(d.max()))
+            differ += int((d > 0).sum())
+            total += d.numel()
+        else:
+            d = (g.float() - w.float()).abs()
+            fl = max(fl, float(d.max()))
+            if bool((d > 2.0 ** -7 * w.float().abs() + 1e-6).any()):
+                raise AssertionError(f"float output beyond a bf16 ulp: "
+                                     f"{float(d.max())}")
+    return code, differ, total, fl
+
+
+def phase_int8_reference(torch, ckpt, TQ, ModelConfig):
+    """64 px, full width, bf16, one scale dict: the int8 model on the card
+    (kernels) against the same model on the CPU (plain versions)."""
+    import numpy as np
+    cfg = ModelConfig(**dict(FULL, img_size=(64, 64, 3)))
+    params, stats = ckpt.init_params(cfg, SEED)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (2, 64, 64, 3), dtype=np.float32))
+    cpu = TQ.build_quantized_model(params, stats, cfg, "cpu")
+    scales = TQ.calibrate(cpu, x)
+    cpu.set_act_scales(scales)
+    card = TQ.build_quantized_model(params, stats, cfg, DEVICE, scales)
+    runs, dets = {"cpu": [], "card": []}, {}
+    for side, model, xin in (("cpu", cpu, x), ("card", card, x.to(DEVICE))):
+        origs = {n: record_io(TQ, n, runs[side]) for n in INT8_KERNELS}
+        try:
+            with torch.inference_mode():
+                dets[side] = model.forward_detections(xin).float().cpu()
+        finally:
+            for n, f in origs.items():
+                setattr(TQ, n, f)
+    torch.cuda.synchronize()
+    # each card launch against its plain version on the same inputs
+    code, fl = 0, 0.0
+    for name, args, kw, out in runs["card"]:
+        want = getattr(int8_module(name), f"{name}_plain")(
+            *(a.cpu() for a in args),
+            **{k: v.cpu() if torch.is_tensor(v) else v
+               for k, v in kw.items()})
+        c, _, _, f = int8_compare(torch, out, want)
+        code, fl = max(code, c), max(fl, f)
+    # the two chains, launch by launch (the bf16 stem1 convolution differs
+    # between cuDNN and the CPU, so the chains' inputs drift apart)
+    chain = [0, 0, 0]
+    for (n1, _, _, o1), (n2, _, _, o2) in zip(runs["card"], runs["cpu"]):
+        assert n1 == n2, (n1, n2)
+        c, differ, total, _ = int8_compare(torch, o1, o2)
+        chain = [max(chain[0], c), chain[1] + differ, chain[2] + total]
+    fid = TQ.decode_iou_fidelity(dets["cpu"].numpy(), dets["card"].numpy(),
+                                 top_k=20)
+    out = dict(launches=len(runs["card"]), max_code_diff=code,
+               max_float_diff=fl, chain_max_code_diff=chain[0],
+               chain_codes_differing=chain[1] / max(chain[2], 1),
+               fidelity=fid)
+    log(f"int8 reference 64px bf16 full width, {len(runs['card'])} kernel "
+        f"launches: kernel vs plain on the same inputs max code diff {code}, "
+        f"max float diff {fl:.3e}; card vs CPU chains: max code diff "
+        f"{chain[0]}, {100 * out['chain_codes_differing']:.4f}% of "
+        f"{chain[2]} s8 codes differ; decode fidelity {fid:.6f}")
+    if len(runs["card"]) != len(runs["cpu"]) or code > 1 or fid < 0.99:
+        raise AssertionError(f"int8 card disagrees with the CPU: {out}")
+    return out
+
+
+def phase_int8_serving(torch, inf, TQ, build, path, images, card):
+    from yolov3_tpu_torch.ops.kernels import nms_suppress
+    serve, cfg, scales = TQ.make_quantized_serving_fn(path, images,
+                                                      device=DEVICE)
+    # warm-up call that records what the path hands each kernel
+    calls, nms_calls = [], []
+    origs = {n: record_io(TQ, n, calls) for n in INT8_KERNELS}
+    orig_nms = record(nms_suppress, "suppress_boxes_t", nms_calls)
+    try:
+        serve(images)
+    finally:
+        for n, f in origs.items():
+            setattr(TQ, n, f)
+        nms_suppress.suppress_boxes_t = orig_nms
+    torch.cuda.synchronize()
+    recorded = {n: sum(c[0] == n for c in calls) for n in INT8_KERNELS}
+    recorded["nms_suppress"] = len(nms_calls)
+    if recorded != EXPECTED_INT8_LAUNCHES:
+        raise AssertionError(f"recorded int8 kernel calls {recorded} != "
+                             f"{EXPECTED_INT8_LAUNCHES}")
+
+    build.launch_counts.clear()
+    boxes, scores, keep = serve(images)
+    torch.cuda.synchronize()
+    launches = dict(build.launch_counts)
+    log(f"serving b{BATCH} 512px int8 launches: {launches}")
+    if launches != EXPECTED_INT8_LAUNCHES:
+        raise AssertionError(f"expected launches {EXPECTED_INT8_LAUNCHES}, "
+                             f"got {launches}")
+    k = min(inf.InferenceConfig().max_boxes_per_class,
+            cfg.number_output_boxes)
+    for t, shape in ((boxes, (BATCH, 2, k, 4)), (scores, (BATCH, 2, k)),
+                     (keep, (BATCH, 2, k))):
+        if tuple(t.shape) != shape:
+            raise AssertionError(f"output shape {tuple(t.shape)} != {shape}")
+    if not (torch.isfinite(boxes).all() and torch.isfinite(scores).all()):
+        raise AssertionError("int8 serving output is not finite")
+    kept = int(keep.sum())
+    if kept == 0:
+        raise AssertionError("int8 serving kept no detection")
+
+    reps = 10
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        serve(images)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / reps
+    log(f"serving b{BATCH} 512px int8 (kernels on): {dt * 1e3:.3f} ms/batch, "
+        f"{BATCH / dt:.2f} images/s, {kept} boxes kept, {len(scales)} "
+        f"scales, on {card}")
+    serving = {"batch": BATCH, "ms_per_batch": dt * 1e3,
+               "images_per_s": BATCH / dt, "kept": kept,
+               "profile": phase_profile(torch, serve, images)}
+
+    # quality gate at the serving shape (bench.py:162-171)
+    detect_f, _ = inf.make_detector_fn(path, device=DEVICE)
+    detect_q, _ = TQ.make_quantized_detector_fn(path, images, device=DEVICE)
+    det_f = detect_f(images).float().cpu().numpy()
+    det_q = detect_q(images).float().cpu().numpy()
+    fid = TQ.decode_iou_fidelity(det_f, det_q, top_k=20)
+    log(f"int8 vs bf16 decode fidelity (top 20, b{BATCH} 512px): {fid:.6f}")
+    if not fid > 0.9:
+        raise AssertionError(f"int8 decode fidelity {fid} <= 0.9")
+    serving["fidelity"] = fid
+    return calls, launches, serving
+
+
+def int8_work(name, args, kw):
+    """(bytes moved, int8 operations) of one int8 kernel call: each input
+    read once, each output written once; the products of the taps that
+    fall inside the image."""
+    from yolov3_tpu_torch.ops.kernels._conv_q import same_pads
+    x, w_t, epi = args
+    taps, co, ci = w_t.shape
+    k = 1 if taps == 1 else 3
+    s = 2 if name == "down_conv_block_q" else 1
+    n, h, w, _ = x.shape
+    oh, ow = -(-h // s), -(-w // s)
+    pt, pl = same_pads(h, k, s)[0], same_pads(w, k, s)[0]
+
+    def inside(size, out, pad, u):
+        return sum(0 <= i * s - pad + u < size for i in range(out))
+
+    macs = n * ci * co * sum(inside(h, oh, pt, u) * inside(w, ow, pl, v)
+                             for u in range(k) for v in range(k))
+    res = kw.get("residual_q")
+    out_f = kw.get("out_dtype")
+    nbytes = (x.numel() * x.element_size() + w_t.numel() + epi.numel() * 4
+              + (res.numel() if res is not None else 0)
+              + n * oh * ow * co * (int(kw.get("emit_s8", True))
+                                    + (out_f.itemsize if out_f else 0)))
+    return nbytes, 2 * macs
+
+
+def int8_library(torch, name, args, kw):
+    """The library yardstick: the same function with torch._int_mm (cuBLAS
+    int8) on the rows, or on an im2col of the taps, plus the epilogue as
+    PyTorch ops. Timed here only; the port never calls it."""
+    import torch.nn.functional as F
+    from yolov3_tpu_torch.ops.kernels import _conv_q
+    x, w_t, epi = args
+    taps, co, ci = w_t.shape
+    res = kw.get("residual_q")
+    pointwise = name == "pointwise_conv_block_q"
+    q = _conv_q.quantized_input(x, kw["inv_in"], res if pointwise else None,
+                                kw.get("res_scale", 0.0))
+    n, h, w, _ = q.shape
+    if taps == 1:
+        oh, ow, a = h, w, q.reshape(-1, ci)
+    else:
+        s = 2 if name == "down_conv_block_q" else 1
+        (pt, pb), (pl, pr) = _conv_q.same_pads(h, 3, s), _conv_q.same_pads(
+            w, 3, s)
+        oh, ow = -(-h // s), -(-w // s)
+        cols = F.unfold(F.pad(q.permute(0, 3, 1, 2).to(torch.float16),
+                              (pl, pr, pt, pb)), 3, stride=s)
+        a = cols.transpose(1, 2).reshape(-1, ci * 9).to(torch.int8)
+    # column-major [K, Co], K in unfold's (channel, tap) order
+    b = w_t.permute(1, 2, 0).reshape(co, ci * taps).t()
+    acc = torch._int_mm(a, b).reshape(n, oh, ow, co)
+    out_f = kw.get("out_dtype")
+    cast = kw.get("cast_bf16", out_f != torch.float32)
+    return _conv_q.epilogue(acc, epi, inv_next=kw["inv_next"],
+                            alpha=kw["alpha"], cast_bf16=cast,
+                            residual_out=None if pointwise else res,
+                            res_scale=kw.get("res_scale", 0.0),
+                            emit_s8=kw.get("emit_s8", True), out_dtype=out_f)
+
+
+def phase_int8_kernels(torch, calls):
+    """Every recorded int8 launch against its plain version; per distinct
+    shape, the kernel's, plain and library times beside the bound."""
+    errs, lib_errs, groups = {}, {}, {}
+    for name, args, kw, out in calls:
+        mod = int8_module(name)
+        want = getattr(mod, f"{name}_plain")(*args, **kw)
+        c, _, _, f = int8_compare(torch, out, want)
+        if c > 1:
+            raise AssertionError(f"{name} {tuple(args[0].shape)}: s8 codes "
+                                 f"differ from the plain version by {c}")
+        errs[name] = max(errs.get(name, 0.0), float(c), f)
+        res = kw.get("residual_q")
+        key = (name, tuple(args[0].shape), str(args[0].dtype),
+               tuple(args[1].shape), kw.get("emit_s8", True),
+               str(kw.get("out_dtype")), res is not None)
+        groups.setdefault(key, []).append((args, kw))
+    rows = []
+    for key, members in groups.items():
+        name = key[0]
+        mod = int8_module(name)
+        kern, plain = getattr(mod, name), getattr(mod, f"{name}_plain")
+        args, kw = members[0]
+        lib_c, _, _, lib_f = int8_compare(
+            torch, int8_library(torch, name, args, kw), plain(*args, **kw))
+        lib_errs[name] = max(lib_errs.get(name, 0.0), float(lib_c), lib_f)
+        ms = cuda_ms(lambda: kern(*args, **kw), 20)
+        plain_ms = cuda_ms(lambda: plain(*args, **kw), 2, 1)
+        lib = cuda_ms(lambda: int8_library(torch, name, args, kw), 10)
+        nbytes, ops = int8_work(name, args, kw)
+        b_ms, b_by = bound(nbytes, ops, INT8_OPS_S)
+        n, h, w, ci = args[0].shape
+        co = args[1].shape[1]
+        rows.append(dict(kernel=name, shape=f"{n}x{h}x{w}x{ci}->{co}",
+                         x_dtype=key[2], emit_s8=key[4], out_dtype=key[5],
+                         residual=key[6], launches=len(members), ms=ms,
+                         plain_ms=plain_ms, library_ms=lib, bound_ms=b_ms,
+                         bound_by=b_by, bytes=nbytes, ops=ops))
+        log(f"{name} {rows[-1]['shape']} {key[2]} x{len(members)}: kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}), {ops / ms / 1e9:.1f} TOP/s")
+    summary = {}
+    for name in INT8_KERNELS:
+        mine = [r for r in rows if r["kernel"] == name]
+        per = {k: sum(r[k] * r["launches"] for r in mine)
+               for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes",
+                         "ops")}
+        t_bytes, t_ops = per["bytes"] / HBM_BYTES_S, per["ops"] / INT8_OPS_S
+        summary[name] = dict(per, bound_by="bytes" if t_bytes >= t_ops
+                             else "operations", max_abs_err=errs[name],
+                             library_max_err=lib_errs[name])
+        log(f"{name} per forward ({sum(r['launches'] for r in mine)} "
+            f"launches): kernel {per['ms']:.3f} ms, plain "
+            f"{per['plain_ms']:.3f} ms, library {per['library_ms']:.3f} ms, "
+            f"bound {per['bound_ms']:.3f} ms; max err vs plain "
+            f"{errs[name]}, library vs plain {lib_errs[name]}")
+    return summary, rows
+
+
+def phase_cli_int8(torch, inf, TQ, path, workdir):
+    """The --int8 CLI's per-batch step: z-score on the card, calibrate on
+    the batch, the fused serving function, rows per image; both CSVs."""
+    import numpy as np
+    from yolov3_tpu_torch.data.device_pipeline import zscore_images
+    rng = np.random.default_rng(5)
+    images = [rng.integers(0, 256, (512, 512, 3), dtype=np.uint8)
+              for _ in range(3)]
+    batch = zscore_images(torch.from_numpy(np.stack(images)).to(DEVICE))
+    serve, _, _ = TQ.make_quantized_serving_fn(path, batch, device=DEVICE)
+    rows, scores = inf.serve_batch(serve, batch, 4)
+    check_csvs(inf, rows, scores, workdir, "int8")
+    n = [r.shape[0] for r in rows]
+    log(f"CLI --int8 per-batch function: 3 images padded to 4, rows per "
+        f"image {n}, CSVs ok")
+    return n
+
+
+def check_csvs(inf, rows, scores, workdir, tag):
+    for i, (r, s) in enumerate(zip(rows, scores)):
+        for save_scores, header in ((False, "X,Y,W,H,C"),
+                                    (True, "X,Y,W,H,P,C")):
+            out = os.path.join(workdir, f"{tag}_im{i}_{int(save_scores)}.csv")
+            inf.write_detections_csv(r, s, out, save_scores)
+            with open(out) as fh:
+                lines = fh.read().splitlines()
+            if lines[0] != header or len(lines) != r.shape[0] + 1:
+                raise AssertionError(f"bad CSV {out}: {lines[:2]}")
+
+
 def phase_cli(torch, inf, InferenceConfig, path, workdir):
     import numpy as np
     detect, cfg = inf.make_detector_fn(path, device=DEVICE)
@@ -313,15 +664,7 @@ def phase_cli(torch, inf, InferenceConfig, path, workdir):
               for _ in range(4)]
     rows, scores = inf.detect_images(images, detect, cfg.number_classes,
                                      InferenceConfig(), 32, device=DEVICE)
-    for i, (r, s) in enumerate(zip(rows, scores)):
-        for save_scores, header in ((False, "X,Y,W,H,C"),
-                                    (True, "X,Y,W,H,P,C")):
-            out = os.path.join(workdir, f"im{i}_{int(save_scores)}.csv")
-            inf.write_detections_csv(r, s, out, save_scores)
-            with open(out) as fh:
-                lines = fh.read().splitlines()
-            if lines[0] != header or len(lines) != r.shape[0] + 1:
-                raise AssertionError(f"bad CSV {out}: {lines[:2]}")
+    check_csvs(inf, rows, scores, workdir, "bf16")
     n = [r.shape[0] for r in rows]
     log(f"CLI per-batch function: 4 images, rows per image {n}, CSVs ok")
     return n
@@ -334,6 +677,7 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
 
     sys.path.insert(0, HERE)
+    import numpy as np
     import torch
     if not os.path.isdir(os.path.join(HERE, "yolov3_tpu_torch")):
         print("chip_smoke: the yolov3_tpu_torch package is not beside this "
@@ -347,6 +691,7 @@ def main(argv=None) -> int:
 
     from yolov3_tpu_torch import inference as inf
     from yolov3_tpu_torch.config import InferenceConfig, ModelConfig
+    from yolov3_tpu_torch.models import quantized as TQ
     from yolov3_tpu_torch.ops.kernels import _build as build
     from yolov3_tpu_torch.utils import checkpoint as ckpt
 
@@ -371,8 +716,20 @@ def main(argv=None) -> int:
             pw, pw_rows = phase_pointwise(torch, calls["pw"])
             nms_rows = phase_nms(torch, calls["nms"])
         del calls
+        result["int8_reference"] = phase_int8_reference(torch, ckpt, TQ,
+                                                        ModelConfig)
+        images = torch.from_numpy(np.random.default_rng(2).standard_normal(
+            (BATCH, *FULL["img_size"]), dtype=np.float32)).to(DEVICE)
+        q_calls, q_launches, result["int8_serving"] = phase_int8_serving(
+            torch, inf, TQ, build, path, images, smi)
+        with torch.inference_mode():
+            q_summary, result["int8_calls"] = phase_int8_kernels(torch,
+                                                                 q_calls)
+        del q_calls, images
         result["cli_rows"] = phase_cli(torch, inf, InferenceConfig, path,
                                        workdir)
+        result["cli_int8_rows"] = phase_cli_int8(torch, inf, TQ, path,
+                                                 workdir)
     result["pointwise_calls"] = pw_rows
     result["nms_cases"] = nms_rows
 
@@ -394,6 +751,15 @@ def main(argv=None) -> int:
          "plain_ms": pw["plain_ms"], "bound_ms": pw["bound_ms"],
          "bound_by": pw["bound_by"], "library_ms": pw["library_ms"]},
     ]
+    for name, (_, replaces) in INT8_KERNELS.items():
+        q = q_summary[name]
+        kernels.append(
+            {"name": name, "route": "cuda",
+             "source": f"yolov3_tpu_torch/csrc/{name}.cu",
+             "replaces": replaces, "launches": q_launches[name],
+             "max_abs_err": q["max_abs_err"], "ms": q["ms"],
+             "plain_ms": q["plain_ms"], "bound_ms": q["bound_ms"],
+             "bound_by": q["bound_by"], "library_ms": q["library_ms"]})
     for kern in kernels:
         for key, v in kern.items():
             if isinstance(v, float) and not math.isfinite(v):

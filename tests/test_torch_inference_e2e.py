@@ -30,12 +30,11 @@ from yolov3_tpu_torch.utils import checkpoint as ckpt
 CPU = "cpu"
 
 
-@pytest.fixture(scope="module")
-def exports(tmp_path_factory):
+def export_both(tmp_path_factory, **kw):
     out = tmp_path_factory.mktemp("model")
     jcfg = JConfig(img_size=(64, 64, 3), number_classes=2,
                    anchors=((16, 16), (32, 32)), block_count=1,
-                   filter_count=32, compute_dtype="float32")
+                   filter_count=32, compute_dtype="float32", **kw)
     v = JYoloV3(jcfg).init(jax.random.PRNGKey(0),
                            np.zeros((1, 64, 64, 3), np.float32), train=False)
     jpath = jckpt.export_model(str(out / "jax"), v["params"],
@@ -45,6 +44,20 @@ def exports(tmp_path_factory):
     tpath = ckpt.export_model(str(out / "port"), to_np(p), to_np(s),
                               ModelConfig.from_json(cfg.to_json()))
     return jpath, tpath
+
+
+@pytest.fixture(scope="module")
+def exports(tmp_path_factory):
+    return export_both(tmp_path_factory)
+
+
+@pytest.fixture(scope="module")
+def exports_int8(tmp_path_factory):
+    """The toy export with the plain stem. The port always runs the plain
+    stem; at the space-to-depth stem (the JAX default) JAX quantizes the
+    lifted stem kernels, which tests/test_torch_quantized.py holds to its
+    decode-fidelity bound instead."""
+    return export_both(tmp_path_factory, stem_space_to_depth=False)
 
 
 @pytest.fixture(scope="module")
@@ -174,14 +187,124 @@ def test_overlays_and_main(exports, images, tmp_path):
     assert imread(os.path.join(ov, "im0.png")).shape[:2] == (64, 64)
 
 
-@pytest.mark.parametrize("flags", [["--int8"], ["--calib-percentile", "99.9"],
-                                   ["--num-devices", "2"]])
+@pytest.mark.parametrize("flags", [["--num-devices", "2"]])
 def test_unported_flags_raise(exports, images, tmp_path, flags):
     _, tpath = exports
-    with pytest.raises(NotImplementedError, match="slice 2"):
+    with pytest.raises(NotImplementedError, match="not ported"):
         tinf.main(["--saved-model-filepath", tpath, "--output-folder",
                    str(tmp_path / "o"), "--image-folder", images,
                    "--image-format", "png", "--device", CPU, *flags])
+
+
+@pytest.fixture
+def jax_int8_kernels(monkeypatch):
+    """The JAX int8 path under the port's wiring: its three kernel flags,
+    in interpret mode (on the CPU its default is the XLA mirror)."""
+    from yolov3_tpu.models import quantized as Q
+    kernels = dict(pointwise_pallas=True, conv3_pallas=True,
+                   down_pallas=True, fused_interpret=True)
+    monkeypatch.setattr(Q, "default_serving_kernels", lambda: dict(kernels))
+    return kernels
+
+
+def assert_same_csvs(got, want, save_scores):
+    """Boxes and classes identical. In the scored layout P within 2e-6 (the
+    float32 convolutions of the heads sum in different orders)."""
+    assert sorted(got) == sorted(want)
+    for fn in want:
+        g, w = got[fn].splitlines(), want[fn].splitlines()
+        assert g[0] == w[0] and len(g) == len(w), fn
+        if not save_scores:
+            assert g == w, fn
+            continue
+        g = np.array([line.split(",") for line in g[1:]]).reshape(-1, 6)
+        w = np.array([line.split(",") for line in w[1:]]).reshape(-1, 6)
+        np.testing.assert_array_equal(g[:, [0, 1, 2, 3, 5]],
+                                      w[:, [0, 1, 2, 3, 5]])
+        np.testing.assert_allclose(g[:, 4].astype(float),
+                                   w[:, 4].astype(float), rtol=0, atol=2e-6)
+
+
+@pytest.mark.parametrize("save_scores", [False, True])
+def test_int8_csvs_match_jax_cli(exports_int8, images, tmp_path,
+                                 save_scores, jax_int8_kernels, monkeypatch):
+    """--int8 (calibrated on the first batch; the last chunk of 3 images
+    padded to the batch of 2) against the JAX CLI with --int8. The port
+    calibrates with JAX's `calibrate` on the batch it is given: each
+    package's own calibration differs in the last bits of a few scales
+    (their float32 convolutions sum in different orders), which flips
+    codes on .5 boundaries and, on this export, one of 156 boxes
+    (ROADMAP Queue C)."""
+    from yolov3_tpu.models import quantized as Q
+    from yolov3_tpu_torch.models import quantized as TQ
+    jpath, tpath = exports_int8
+    p, st, jcfg = jckpt.load_model(jpath)
+    monkeypatch.setattr(TQ, "calibrate", lambda _, images, pct: Q.calibrate(
+        p, st, jcfg, images.numpy(), percentile=pct))
+    kw = dict(min_box_size=4, batch_size=2, use_int8=True,
+              save_scores=save_scores)
+    jax_inference(images, "png", jpath, str(tmp_path / "jax"), **kw)
+    tinf.inference(images, "png", tpath, str(tmp_path / "port"),
+                   device=CPU, **kw)
+    want, got = read_all(tmp_path / "jax"), read_all(tmp_path / "port")
+    assert sum(len(t.splitlines()) - 1 for t in want.values()) > 0
+    assert_same_csvs(got, want, save_scores)
+
+
+def test_int8_host_nms_matches_fused(exports, images, tmp_path):
+    """--int8 --host_nms (the int8 detector and the shared post-processing)
+    gives the boxes of --int8 (tests/test_inference_e2e.py:130-146)."""
+    _, tpath = exports
+    kw = dict(min_box_size=4, batch_size=2, use_int8=True, device=CPU)
+    tinf.inference(images, "png", tpath, str(tmp_path / "a"), **kw)
+    tinf.inference(images, "png", tpath, str(tmp_path / "b"),
+                   use_host_nms=True, **kw)
+    for fn in sorted(os.listdir(tmp_path / "a")):
+        np.testing.assert_array_equal(
+            bbox.load_boxes_to_xywhc(os.path.join(tmp_path / "a", fn)),
+            bbox.load_boxes_to_xywhc(os.path.join(tmp_path / "b", fn)))
+
+
+def test_int8_calib_percentile_flag(exports, images, tmp_path):
+    _, tpath = exports
+    out = str(tmp_path / "p")
+    tinf.main(["--saved-model-filepath", tpath, "--output-folder", out,
+               "--image-folder", images, "--image-format", "png",
+               "--min-box-size", "4", "--int8", "--calib-percentile", "99.9",
+               "--batch-size", "2", "--device", CPU])
+    assert sorted(os.listdir(out)) == ["im0.csv", "im1.csv", "im2.csv"]
+
+
+def test_int8_serving_fn_matches_jax(exports_int8, monkeypatch,
+                                     jax_int8_kernels):
+    """make_quantized_serving_fn on one export with JAX's scales (the port's
+    `calibrate` swapped for them): boxes, scores and keep, and the
+    raw-pixel variant equal to the z-scored one."""
+    from yolov3_tpu.models.quantized import (
+        make_quantized_serving_fn as jax_serving_fn)
+    from yolov3_tpu_torch.data.device_pipeline import zscore_images
+    from yolov3_tpu_torch.models import quantized as TQ
+    jpath, tpath = exports_int8
+    rng = np.random.RandomState(5)
+    raw = rng.randint(0, 256, (2, 64, 64, 3)).astype(np.uint8)
+    x = zscore_images(torch.from_numpy(raw)).numpy()
+    jserve, _, scales = jax_serving_fn(jpath, x, min_box_size=4,
+                                       kernels=jax_int8_kernels)
+    monkeypatch.setattr(TQ, "calibrate", lambda *a: dict(scales))
+    serve, _, got_scales = TQ.make_quantized_serving_fn(
+        tpath, x, min_box_size=4, device=CPU)
+    assert got_scales == scales
+    want = [np.asarray(o) for o in jserve(x)]
+    got = [o.numpy() for o in serve(x)]
+    np.testing.assert_array_equal(got[2], want[2])
+    assert want[2].sum() > 0
+    np.testing.assert_allclose(got[0][want[2]], want[0][want[2]], rtol=1e-5,
+                               atol=1e-4)
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-5, atol=1e-6)
+    raw_serve, _, _ = TQ.make_quantized_serving_fn(
+        tpath, x, min_box_size=4, raw_pixels=True, device=CPU)
+    for a, b in zip(raw_serve(raw), got):
+        np.testing.assert_array_equal(a.numpy(), b)
 
 
 def test_default_device_is_cuda(exports):
@@ -191,6 +314,19 @@ def test_default_device_is_cuda(exports):
     _, tpath = exports
     with pytest.raises((RuntimeError, AssertionError)):
         tinf.make_detector_fn(tpath)
+
+
+def test_int8_default_device_is_cuda(exports):
+    """The int8 entry points default to the card as well."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device works")
+    from yolov3_tpu_torch.models import quantized as TQ
+    _, tpath = exports
+    calib = np.zeros((1, 64, 64, 3), np.float32)
+    for make in (TQ.make_quantized_detector_fn,
+                 TQ.make_quantized_serving_fn):
+        with pytest.raises((RuntimeError, AssertionError)):
+            make(tpath, calib)
 
 
 @pytest.mark.parametrize("low_contrast", [False, True])

@@ -94,3 +94,129 @@ def test_pointwise_kernel_raises_on_f32_input(cuda):
     z = torch.zeros(64, device=cuda)
     with pytest.raises(TypeError):
         PW.pointwise_conv_block(x, w, z, z, z, 0.2, torch.float32)
+
+
+def int8_block(rng, k, ci, co, scale=0.05):
+    """s8 weights [k*k, co, ci] and the folded epi rows of a random block."""
+    from yolov3_tpu_torch.ops import quant
+    w = torch.from_numpy((rng.randn(co, ci, k, k) / np.sqrt(k * k * ci))
+                         .astype(np.float32))
+    b, g, o, m = (torch.from_numpy(v.astype(np.float32)) for v in (
+        0.1 * rng.randn(co), rng.uniform(0.8, 1.2, co), 0.1 * rng.randn(co),
+        0.1 * rng.randn(co)))
+    mul, add = quant.bn_affine(g, o, m, torch.from_numpy(
+        rng.uniform(0.5, 1.5, co).astype(np.float32)), 1e-3)
+    return quant.fold_conv_block(w, b, mul, add, scale)
+
+
+def int8_input(rng, shape, kind, cuda):
+    if kind == "s8":
+        return torch.from_numpy(rng.randint(-127, 128, shape).astype(
+            np.int8)).to(cuda)
+    x = torch.from_numpy((rng.randn(*shape) * 2).astype(np.float32))
+    return x.to(cuda, torch.bfloat16 if kind == "bf16" else torch.float32)
+
+
+def assert_int8_close(got, want):
+    """s8 codes within 1; float outputs within a bf16 ulp."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        if g.dtype == torch.int8:
+            assert (g.int() - w.int()).abs().max() <= 1
+        else:
+            d = (g.float() - w.float()).abs()
+            assert bool((d <= 2.0 ** -7 * w.float().abs() + 1e-6).all())
+
+
+def launched(mod, fn):
+    before = _build.launch_counts[mod.NAME]
+    out = fn()
+    torch.cuda.synchronize()
+    assert _build.launch_counts[mod.NAME] == before + 1
+    return out
+
+
+@pytest.mark.parametrize("shape,co,kind,res,emit_s8,out", [
+    ((2, 9, 7, 64), 32, "s8", False, True, None),
+    ((2, 16, 16, 64), 32, "bf16", True, True, None),
+    ((2, 16, 16, 256), 128, "bf16", False, True, torch.bfloat16),
+    ((1, 8, 8, 128), 256, "f32", False, False, torch.float32),
+    ((8, 16, 16, 1024), 512, "s8", False, True, None)])
+def test_pointwise_q_matches_plain(cuda, shape, co, kind, res, emit_s8, out):
+    from yolov3_tpu_torch.ops.kernels import pointwise_q as K
+    rng = np.random.RandomState(shape[-1] + co)
+    w_t, epi = int8_block(rng, 1, shape[-1], co)
+    x = int8_input(rng, shape, kind, cuda)
+    rq = int8_input(rng, shape, "s8", cuda) if res else None
+    kw = dict(inv_in=0.5, inv_next=9.0, alpha=0.2, residual_q=rq,
+              res_scale=0.03, emit_s8=emit_s8, out_dtype=out)
+    w_t, epi = w_t.to(cuda), epi.to(cuda)
+    got = launched(K, lambda: K.pointwise_conv_block_q(x, w_t, epi, **kw))
+    assert_int8_close(got, K.pointwise_conv_block_q_plain(x, w_t, epi, **kw))
+
+
+@pytest.mark.parametrize("shape,co,kind,res,emit_s8,out,cast", [
+    ((2, 16, 16, 32), 64, "s8", True, True, None, True),
+    ((2, 10, 12, 32), 64, "s8", True, False, torch.bfloat16, True),
+    ((2, 16, 16, 64), 128, "bf16", False, False, torch.bfloat16, True),
+    ((1, 8, 8, 32), 64, "f32", False, False, torch.float32, False),
+    ((2, 16, 16, 512), 1024, "s8", True, True, torch.bfloat16, False)])
+def test_conv3x3_q_matches_plain(cuda, shape, co, kind, res, emit_s8, out,
+                                 cast):
+    from yolov3_tpu_torch.ops.kernels import conv3x3_q as K
+    rng = np.random.RandomState(shape[1] + co)
+    w_t, epi = (t.to(cuda) for t in int8_block(rng, 3, shape[-1], co))
+    x = int8_input(rng, shape, kind, cuda)
+    rq = int8_input(rng, shape[:3] + (co,), "s8", cuda) if res else None
+    kw = dict(inv_in=0.5, inv_next=9.0, alpha=0.2, cast_bf16=cast,
+              residual_q=rq, res_scale=0.03, emit_s8=emit_s8, out_dtype=out)
+    got = launched(K, lambda: K.conv3x3_block_q(x, w_t, epi, **kw))
+    assert_int8_close(got, K.conv3x3_block_q_plain(x, w_t, epi, **kw))
+
+
+@pytest.mark.parametrize("shape,co,kind,emit_s8,out", [
+    ((2, 32, 32, 32), 64, "bf16", True, None),
+    ((1, 15, 17, 32), 64, "bf16", True, None),
+    ((2, 8, 8, 64), 128, "f32", False, torch.float32),
+    ((8, 32, 32, 512), 1024, "bf16", True, None)])
+def test_down_conv_q_matches_plain(cuda, shape, co, kind, emit_s8, out):
+    from yolov3_tpu_torch.ops.kernels import down_conv_q as K
+    rng = np.random.RandomState(shape[1] + co)
+    w_t, epi = (t.to(cuda) for t in int8_block(rng, 3, shape[-1], co))
+    x = int8_input(rng, shape, kind, cuda)
+    kw = dict(inv_in=0.5, inv_next=9.0, alpha=0.2, cast_bf16=kind == "bf16",
+              emit_s8=emit_s8, out_dtype=out)
+    got = launched(K, lambda: K.down_conv_block_q(x, w_t, epi, **kw))
+    assert_int8_close(got, K.down_conv_block_q_plain(x, w_t, epi, **kw))
+
+
+def test_int8_sums_exact_beyond_f32(cuda):
+    """9 * 1024 * 127^2 ~ 1.5e8 > 2^24: the kernel sums in int32."""
+    from yolov3_tpu_torch.ops.kernels import conv3x3_q as K
+    x = torch.full((1, 3, 3, 1024), 127, dtype=torch.int8, device=cuda)
+    w_t = torch.full((9, 16, 1024), 127, dtype=torch.int8, device=cuda)
+    w_t[0, 0, 0] = 126
+    epi = torch.stack([torch.zeros(16), torch.ones(16), torch.zeros(16)]).to(
+        cuda)
+    y = K.conv3x3_block_q(x, w_t, epi, inv_in=1.0, inv_next=1.0, alpha=0.2,
+                          cast_bf16=False, emit_s8=False,
+                          out_dtype=torch.float32)
+    assert y[0, 1, 1, 0].item() == np.float32(9 * 1024 * 127 * 127 - 127)
+
+
+def test_int8_kernels_raise_on_what_they_do_not_take(cuda):
+    from yolov3_tpu_torch.ops.kernels import down_conv_q, pointwise_q
+    w_t = torch.zeros(1, 16, 24, dtype=torch.int8, device=cuda)
+    epi = torch.zeros(3, 16, device=cuda)
+    with pytest.raises(ValueError):  # Ci = 24 is not a multiple of 16
+        pointwise_q.pointwise_conv_block_q(
+            torch.zeros(1, 4, 4, 24, dtype=torch.int8, device=cuda), w_t,
+            epi, inv_in=1.0, inv_next=1.0, alpha=0.2)
+    with pytest.raises(TypeError):  # the stride-2 block takes floats
+        down_conv_q.down_conv_block_q(
+            torch.zeros(1, 4, 4, 16, dtype=torch.int8, device=cuda),
+            torch.zeros(9, 16, 16, dtype=torch.int8, device=cuda), epi,
+            inv_in=1.0, inv_next=1.0, alpha=0.2, cast_bf16=True)

@@ -10,9 +10,12 @@ Every field of the JAX config is accepted, including the TPU-only ones
 `int8_train`, `int8_train_static`, `remat_blocks`). The inference forward
 of this port ignores them: the space-to-depth stem is the same math as the
 plain stem laid out for the TPU's 128-wide lanes (one variable tree for
-both), the two grad options change only how the TPU computes weight
-gradients, and the int8-training and remat options select the training
-forward, which the port does not run yet.
+both), and the two grad options change only how the TPU computes weight
+gradients. int8 post-training-quantized serving is ported
+(`models/quantized.py`, selected by the caller, not by the config);
+`int8_train` and `int8_train_static` (quantization-aware training) and
+`remat_blocks` select the training forward, which waits for the QAT and
+training ports.
 """
 
 from __future__ import annotations

@@ -1,15 +1,19 @@
 """Whole-image inference CLI: exported model -> per-class NMS -> CSV boxes.
 
-Port of `yolov3_tpu/inference.py` (bf16/f32 path). Pipeline: image ->
-whole-image z-score -> model -> clip corners to the image -> strict
-small-box filter -> per-class NMS (sqrt score rule) -> corners to xywh +
-class id -> 'X,Y,W,H,C' CSV named after the image (or 'X,Y,W,H,P,C' with
+Port of `yolov3_tpu/inference.py`. Pipeline: image -> whole-image
+z-score -> model -> clip corners to the image -> strict small-box filter
+-> per-class NMS (sqrt score rule) -> corners to xywh + class id ->
+'X,Y,W,H,C' CSV named after the image (or 'X,Y,W,H,P,C' with
 --save-scores).
 
-Everything runs on `device`, "cuda" unless the caller asks for "cpu"
-(the tests do). int8 serving and multi-device sharding are not ported
-yet: `--int8`, `--calib-percentile` and `--num-devices` > 1 raise
-NotImplementedError (slice 2 in ROADMAP.md).
+`--int8` serves the int8 post-training-quantized model
+(`models/quantized.py`), calibrated on the first batch (absmax, or
+`--calib-percentile`): through the fused serving function, the last
+chunk padded to the batch size, or with `--host_nms` through the int8
+detector and the shared post-processing. Everything runs on `device`,
+"cuda" unless the caller asks for "cpu" (the tests do). Multi-device
+sharding is not ported yet: `--num-devices` > 1 raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -24,12 +28,13 @@ import torch
 from yolov3_tpu_torch.config import InferenceConfig
 from yolov3_tpu_torch.data.device_pipeline import zscore_images
 from yolov3_tpu_torch.data.imaging import ensure_hwc, imread
+from yolov3_tpu_torch.models import quantized
 from yolov3_tpu_torch.ops import boxes as bbox
 from yolov3_tpu_torch.ops.nms import batched_nms_device, nms_to_host
 from yolov3_tpu_torch.utils import checkpoint as ckpt
 
-_NOT_PORTED = ("{} is not ported yet: int8 serving and multi-device "
-               "inference are slice 2 of the port (ROADMAP.md)")
+_NOT_PORTED = ("--num-devices > 1 is not ported yet: the port serves on "
+               "one card (ROADMAP.md)")
 
 
 def make_detector_fn(saved_model_filepath: str, num_devices: int = 1,
@@ -40,7 +45,7 @@ def make_detector_fn(saved_model_filepath: str, num_devices: int = 1,
     4+1+C] float32 on `device`.
     """
     if num_devices > 1:
-        raise NotImplementedError(_NOT_PORTED.format("--num-devices > 1"))
+        raise NotImplementedError(_NOT_PORTED)
     params, batch_stats, cfg = ckpt.load_model(saved_model_filepath)
     model = ckpt.build_model(params, batch_stats, cfg, device)
 
@@ -112,17 +117,21 @@ def detections_to_csv_rows(det: np.ndarray, img_hw, min_box_size: int,
                                  score_threshold=icfg.score_threshold,
                                  max_boxes=icfg.max_boxes_per_class)
         boxes, scores, labels = nms_to_host(out[0][0], out[1][0], out[2][0])
+    rows, scores = _csv_rows(boxes, scores, labels)
+    return (rows, scores) if return_scores else rows
+
+
+def _csv_rows(boxes, scores, labels) -> Tuple[np.ndarray, np.ndarray]:
+    """NMS survivors (ltrb boxes, scores, labels; None for none) -> the
+    [M, 5] xywhc int rows and the [M] scores."""
     if boxes is None:
-        rows = np.zeros((0, 5), dtype=np.int32)
-        return (rows, np.zeros((0,), np.float32)) if return_scores else rows
+        return np.zeros((0, 5), np.int32), np.zeros((0,), np.float32)
     boxes = boxes.copy()
     boxes[:, 2] = boxes[:, 2] - boxes[:, 0]
     boxes[:, 3] = boxes[:, 3] - boxes[:, 1]
     rows = np.concatenate([boxes, labels.reshape(-1, 1)],
                           axis=-1).astype(np.int32)
-    if return_scores:
-        return rows, np.asarray(scores, np.float32).reshape(-1)
-    return rows
+    return rows, np.asarray(scores, np.float32).reshape(-1)
 
 
 def detect_images(images: Sequence[np.ndarray], detect, num_classes: int,
@@ -137,6 +146,21 @@ def detect_images(images: Sequence[np.ndarray], detect, num_classes: int,
                                     use_host_nms, num_classes,
                                     return_scores=True, device=device)
              for det, img in zip(dets, images)]
+    return [p[0] for p in pairs], [p[1] for p in pairs]
+
+
+def serve_batch(serve, batch: torch.Tensor, batch_size: int
+                ) -> Tuple[List[np.ndarray], List[np.ndarray]]:
+    """One --int8 CLI batch through a fused serving function: the z-scored
+    batch, zero-padded to `batch_size` so every call has one shape -> per
+    image of the batch the [M, 5] xywhc rows and the [M] scores."""
+    count = batch.shape[0]
+    if count < batch_size:
+        batch = torch.cat([batch, batch.new_zeros(
+            (batch_size - count, *batch.shape[1:]))])
+    boxes, scores, keep = serve(batch)
+    pairs = [_csv_rows(*nms_to_host(boxes[i], scores[i], keep[i]))
+             for i in range(count)]
     return [p[0] for p in pairs], [p[1] for p in pairs]
 
 
@@ -177,8 +201,8 @@ def inference(image_folder: str, image_format: str,
               calib_percentile=None,
               save_scores: bool = False,
               device: str = "cuda") -> None:
-    if use_int8 or calib_percentile is not None:
-        raise NotImplementedError(_NOT_PORTED.format("--int8"))
+    if num_devices > 1:
+        raise NotImplementedError(_NOT_PORTED)
     os.makedirs(output_folder, exist_ok=True)
     icfg = icfg or InferenceConfig(min_box_size=min_box_size)
     image_format = image_format.lstrip(".")
@@ -186,16 +210,34 @@ def inference(image_folder: str, image_format: str,
     files = sorted(fn for fn in os.listdir(image_folder)
                    if fn.endswith(f".{image_format}"))
     paths = [os.path.join(image_folder, fn) for fn in files]
-    detect, cfg = make_detector_fn(saved_model_filepath, num_devices,
-                                   device=device)
+    # the int8 variants calibrate on the first batch, so they build lazily
+    serve = detect = None
+    if not use_int8:
+        detect, cfg = make_detector_fn(saved_model_filepath, device=device)
 
     print("Starting inference of file list")
     for start in range(0, len(paths), batch_size):
         chunk = paths[start:start + batch_size]
         images = [ensure_hwc(imread(fp)) for fp in chunk]
-        rows_per_image, scores_per_image = detect_images(
-            images, detect, cfg.number_classes, icfg, min_box_size,
-            use_host_nms, device)
+        if use_int8 and not use_host_nms:
+            batch = zscore_images(torch.from_numpy(np.stack(images)).to(
+                device))
+            if serve is None:
+                serve, cfg, _ = quantized.make_quantized_serving_fn(
+                    saved_model_filepath, batch, icfg=icfg,
+                    min_box_size=min_box_size,
+                    calib_percentile=calib_percentile, device=device)
+            rows_per_image, scores_per_image = serve_batch(serve, batch,
+                                                           batch_size)
+        else:
+            if detect is None:  # int8 with --host_nms
+                detect, cfg = quantized.make_quantized_detector_fn(
+                    saved_model_filepath, zscore_images(torch.from_numpy(
+                        np.stack(images)).to(device)),
+                    calib_percentile=calib_percentile, device=device)
+            rows_per_image, scores_per_image = detect_images(
+                images, detect, cfg.number_classes, icfg, min_box_size,
+                use_host_nms, device)
         for fp, rows, scores, img in zip(chunk, rows_per_image,
                                          scores_per_image, images):
             file_name = os.path.basename(fp)
@@ -236,10 +278,12 @@ def main(argv=None) -> None:
     parser.add_argument("--host_nms", action="store_true",
                         help="run NMS on the host (numpy) instead of on device")
     parser.add_argument("--calib-percentile", type=float, default=None,
-                        help="int8 calibration percentile (not ported yet)")
+                        help="int8 activation-scale calibration clips each "
+                             "tensor's range at this percentile of "
+                             "|activations| (default: absmax)")
     parser.add_argument("--int8", action="store_true",
-                        help="int8 post-training-quantized serving "
-                             "(not ported yet)")
+                        help="serve the int8 post-training-quantized path "
+                             "(calibrated on the first batch)")
     parser.add_argument("--num-devices", type=int, default=1,
                         help="shard image batches across N devices "
                              "(only 1 is ported)")

@@ -1,0 +1,420 @@
+"""Post-training-quantized (int8) serving (port of
+`yolov3_tpu/models/quantized.py`).
+
+`QuantizedYoloV3` is the port's `YoloV3` (the same modules, the same
+state_dict) with a serving forward that runs in one of three modes on one
+code path:
+
+- bf16    (no scales): the reference's math, the folded epilogue
+          `leaky(conv + b) * mul + add` in f32; the wiring oracle;
+- collect (inside `calibrate`): bf16 math while recording each conv
+          input's absmax, or its |activation| histogram;
+- int8    (after `set_act_scales`): per-output-channel symmetric weight
+          scales, per-tensor activation scales, int8 x int8 -> int32 convs
+          with the dequant, bias, LeakyReLU and affine BatchNorm folded
+          into the epilogue.
+
+The int8 wiring is the reference's under `pointwise_pallas`,
+`conv3_pallas` and `down_pallas` with the plain stem, every conv on a
+hand-written kernel (the wrappers in `ops/kernels/`, which take their
+plain versions on the CPU):
+
+- stem1 (`Darknet53_0/ConvBlock_0`) stays bf16 (`DEFAULT_QUANT_SKIP`);
+- each stride-2 block quantizes its bf16 input and emits the next feature
+  block's s8 input (`down_conv_q`);
+- a feature block runs s8 in, s8 out: each rep's 1x1 on `pointwise_q`,
+  its 3x3 with the residual of the dequantized block input and the next
+  rep's quantize on `conv3x3_q`; the last rep emits the bf16 block output;
+- a YoloBlock's mid 1x1s (CB2, CB4) emit the next 3x3's s8 input, CB4 also
+  the bf16 route; its other convs and the two FPN 1x1s are plain int8
+  conv blocks: `pointwise_q` / `conv3x3_q` with a float output only. The
+  concatenated input of a YoloBlock's CB0 is quantized half by half with
+  its one scale into one s8 tensor;
+- the detection heads and the decode stay in the compute dtype / f32.
+
+Activation scales are keyed by the JAX block paths
+(`Darknet53_0/FeatureBlock_1/ConvBlock_0`, `YoloBlock_2/ConvBlock_3`,
+`utils/checkpoint.py::flax_module_path`), so a dict from either package's
+`calibrate` serves both. Everything the forward needs beyond the
+activations (s8 weights in the kernels' layout, the folded epilogue rows,
+the scales' reciprocals) is derived once, on the CPU, by `prepare()`: at
+construction, after `load_state_dict` and in `set_act_scales`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from yolov3_tpu_torch.config import InferenceConfig, ModelConfig
+from yolov3_tpu_torch.models.yolo import (ConvBlock, YoloV3, conv2d_same,
+                                          upsample_2x)
+from yolov3_tpu_torch.ops import quant
+from yolov3_tpu_torch.ops.decode import decode_detections
+from yolov3_tpu_torch.ops.kernels.conv3x3_q import conv3x3_block_q
+from yolov3_tpu_torch.ops.kernels.down_conv_q import down_conv_block_q
+from yolov3_tpu_torch.ops.kernels.pointwise_q import pointwise_conv_block_q
+
+F32 = torch.float32
+BF16 = torch.bfloat16
+
+# conv blocks that stay bf16 in the int8 path: stem1 (contraction 9 x 3)
+DEFAULT_QUANT_SKIP: Tuple[str, ...] = ("Darknet53_0/ConvBlock_0",)
+
+
+def _next_blocks(cfg: ModelConfig) -> Dict[str, Optional[str]]:
+    """For each int8 conv block whose kernel emits the next conv's s8
+    input, that conv's name (None: the block emits its float output)."""
+    d = "Darknet53_0"
+    reps = [1, 2, cfg.block_count, cfg.block_count, cfg.block_count // 2]
+    nxt: Dict[str, Optional[str]] = {}
+    for i, r in enumerate(reps):
+        fb = f"{d}/FeatureBlock_{i}"
+        nxt[f"{d}/ConvBlock_{i + 1}"] = f"{fb}/ConvBlock_0" if r else None
+        for j in range(r):
+            nxt[f"{fb}/ConvBlock_{2 * j}"] = f"{fb}/ConvBlock_{2 * j + 1}"
+            nxt[f"{fb}/ConvBlock_{2 * j + 1}"] = (
+                f"{fb}/ConvBlock_{2 * j + 2}" if j < r - 1 else None)
+    for k in range(3):
+        for i in (2, 4):
+            nxt[f"YoloBlock_{k}/ConvBlock_{i}"] = (
+                f"YoloBlock_{k}/ConvBlock_{i + 1}")
+    return nxt
+
+
+class QuantizedYoloV3(YoloV3):
+    """NHWC image -> (fm @ stride 32, 16, 8) in the compute dtype, in the
+    mode set by `act_scales` (None: bf16) or by `calibrate`."""
+
+    def __init__(self, config: ModelConfig,
+                 act_scales: Optional[Dict[str, float]] = None):
+        super().__init__(dataclasses.replace(config,
+                                             use_pallas_pointwise=False))
+        self.alpha = config.leaky_relu_alpha
+        self.act_scales = act_scales
+        self._collect: Optional[dict] = None
+        self._hist = False
+        self.register_load_state_dict_post_hook(lambda m, _: m.prepare())
+        self.prepare()
+
+    @property
+    def int8(self) -> bool:
+        return self.act_scales is not None and self._collect is None
+
+    def conv_blocks(self) -> List[Tuple[str, ConvBlock]]:
+        """(JAX block path, module) of every conv block."""
+        from yolov3_tpu_torch.utils.checkpoint import flax_module_path
+        return [(flax_module_path(n), m) for n, m in self.named_modules()
+                if isinstance(m, ConvBlock)]
+
+    def set_act_scales(self, act_scales: Optional[Dict[str, float]]) -> None:
+        """Switch to int8 with these scales (None: back to bf16); raises
+        KeyError for a conv block without a scale."""
+        self.act_scales = act_scales
+        self.prepare()
+
+    @torch.no_grad()
+    def prepare(self) -> None:
+        """Derive every block's constants on the CPU and place them beside
+        its parameters: the bf16 epilogue's (mul, add) and, in int8 mode,
+        the s8 weights [taps, Co, Ci], the epi rows (b/dq, mul*dq, add),
+        1/s_x, 1/s_next and the residual's scale."""
+        cfg = self.config
+        scales = self.act_scales
+        nxt = _next_blocks(cfg)
+
+        def f32(name):
+            if name not in scales:
+                raise KeyError(f"no activation scale calibrated for {name}")
+            return float(np.float32(scales[name]))
+
+        for name, blk in self.conv_blocks():
+            dev = blk.conv.weight.device
+            cpu = {k: v.detach().to("cpu", F32) for k, v in (
+                ("w", blk.conv.weight), ("b", blk.conv.bias),
+                ("g", blk.bn.weight), ("o", blk.bn.bias),
+                ("m", blk.bn.running_mean), ("v", blk.bn.running_var))}
+            mul, add = quant.bn_affine(cpu["g"], cpu["o"], cpu["m"], cpu["v"],
+                                       cfg.bn_epsilon)
+            blk.q_name = name
+            blk.constant("q_mul", mul.to(dev))
+            blk.constant("q_add", add.to(dev))
+            blk.q_int8 = scales is not None and name not in DEFAULT_QUANT_SKIP
+            if not blk.q_int8:
+                continue
+            sx = f32(name)
+            w_t, epi = quant.fold_conv_block(cpu["w"], cpu["b"], mul, add, sx)
+            blk.constant("q_wt", w_t.to(dev))
+            blk.constant("q_epi", epi.to(dev))
+            blk.q_inv_in = quant.reciprocal(sx)
+            nb = nxt.get(name)
+            blk.q_emits_s8 = nb is not None
+            blk.q_inv_next = quant.reciprocal(f32(nb)) if nb else 0.0
+            blk.q_res_scale = 0.0
+            if "/FeatureBlock_" in name and int(name.rsplit("_", 1)[1]) % 2:
+                blk.q_res_scale = f32(name.rsplit("/", 1)[0] + "/ConvBlock_0")
+
+    # --- one conv block, any mode ------------------------------------------
+
+    def _record(self, name: str, *tensors: torch.Tensor) -> None:
+        if self._hist:
+            self._collect[name] = quant.abs_histogram(tensors)
+        else:
+            self._collect[name] = torch.stack(
+                [t.to(F32).abs().max() for t in tensors]).max()
+
+    def _epilogue(self, blk: ConvBlock, y: torch.Tensor) -> torch.Tensor:
+        """bias -> LeakyReLU -> affine BN on an f32 conv output."""
+        y = y + blk.conv.bias.to(F32)
+        y = torch.where(y >= 0, y, self.alpha * y)
+        return (y * blk.q_mul + blk.q_add).to(self.config.dtype)
+
+    def _kernel_kw(self, blk: ConvBlock, **kw) -> dict:
+        return dict(inv_in=blk.q_inv_in, inv_next=blk.q_inv_next,
+                    alpha=self.alpha, **kw)
+
+    def _conv_block(self, blk: ConvBlock, x: torch.Tensor) -> torch.Tensor:
+        """Conv -> LeakyReLU -> affine BN, output in the compute dtype."""
+        dtype = self.config.dtype
+        if self._collect is not None:
+            self._record(blk.q_name, x)
+        if not (self.int8 and blk.q_int8):
+            y = conv2d_same(x.to(dtype), blk.w, None, blk.stride).to(F32)
+            return self._epilogue(blk, y)
+        kw = self._kernel_kw(blk, emit_s8=False, out_dtype=dtype)
+        if blk.conv.weight.shape[-1] == 1:
+            return pointwise_conv_block_q(x, blk.q_wt, blk.q_epi, **kw)
+        kernel = conv3x3_block_q if blk.stride == 1 else down_conv_block_q
+        return kernel(x, blk.q_wt, blk.q_epi, cast_bf16=dtype == BF16, **kw)
+
+    def _pw_block(self, blk: ConvBlock, x: torch.Tensor,
+                  emit_bf16: bool = False):
+        """int8 1x1 block emitting the next conv's s8 input (and the bf16
+        block output with `emit_bf16`)."""
+        return pointwise_conv_block_q(
+            x, blk.q_wt, blk.q_epi,
+            **self._kernel_kw(blk, out_dtype=BF16 if emit_bf16 else None))
+
+    def _down_block(self, blk: ConvBlock, x: torch.Tensor) -> torch.Tensor:
+        if not (self.int8 and blk.q_int8 and blk.q_emits_s8):
+            return self._conv_block(blk, x)
+        dtype = self.config.dtype
+        return down_conv_block_q(x.to(dtype), blk.q_wt, blk.q_epi,
+                                 cast_bf16=dtype == BF16,
+                                 **self._kernel_kw(blk))
+
+    def _conv_block_cat2(self, blk: ConvBlock, a: torch.Tensor,
+                         b: torch.Tensor) -> torch.Tensor:
+        """The 1x1 block of concat([a, b], -1); in bf16 mode as two convs
+        over the split kernel, in int8 over both halves quantized with the
+        block's one scale."""
+        if self._collect is not None:
+            self._record(blk.q_name, a, b)
+        if self.int8 and blk.q_int8:
+            q = torch.cat([quant.quantize_act(t, blk.q_inv_in)
+                           for t in (a, b)], dim=-1)
+            return self._conv_block(blk, q)
+        dtype, ca = self.config.dtype, a.shape[-1]
+        y = (conv2d_same(a.to(dtype), blk.w[:, :ca], None, 1).to(F32)
+             + conv2d_same(b.to(dtype), blk.w[:, ca:], None, 1).to(F32))
+        return self._epilogue(blk, y)
+
+    # --- the network ---------------------------------------------------------
+
+    def _feature_block(self, fb, x: torch.Tensor) -> torch.Tensor:
+        convs = fb.convs
+        reps = len(convs) // 2
+        if reps == 0:
+            return x
+        if self.int8:
+            conv_in = x
+            if x.dtype != torch.int8:  # requantize the block input
+                conv_in = quant.quantize_act(x, convs[0].q_inv_in)
+            q = conv_in
+            for r in range(reps):
+                c3 = convs[2 * r + 1]
+                last = r == reps - 1
+                q = conv3x3_block_q(
+                    self._pw_block(convs[2 * r], q), c3.q_wt, c3.q_epi,
+                    cast_bf16=self.config.dtype == BF16, residual_q=conv_in,
+                    **self._kernel_kw(c3, res_scale=c3.q_res_scale,
+                                      emit_s8=not last,
+                                      out_dtype=BF16 if last else None))
+            return q
+        inputs = x
+        for r in range(reps):
+            y = self._conv_block(convs[2 * r], x)
+            x = inputs + self._conv_block(convs[2 * r + 1], y)
+        return x
+
+    def _yolo_block(self, yb, x: torch.Tensor,
+                    x2: Optional[torch.Tensor] = None):
+        c = yb.convs
+        start = 0
+        if x2 is not None:
+            x = self._conv_block_cat2(c[0], x, x2)
+            start = 1
+        if not self.int8:
+            for blk in c[start:5]:
+                x = self._conv_block(blk, x)
+            return x, self._conv_block(c[5], x)
+        for blk in c[start:2]:
+            x = self._conv_block(blk, x)
+        x = self._conv_block(c[3], self._pw_block(c[2], x))
+        q, route = self._pw_block(c[4], x, emit_bf16=True)
+        return route, self._conv_block(c[5], q)
+
+    def neck_outputs(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """Backbone + FPN up to the heads: the three neck outputs,
+        stride 32 first."""
+        cfg = self.config
+        d = self.darknet
+        y = self._conv_block(d.convs[0], x.to(cfg.dtype))
+        routes = []
+        for down, block in zip(d.convs[1:], d.blocks):
+            y = self._feature_block(block, self._down_block(down, y))
+            routes.append(y)
+        route_s8, route_s16, route_s32 = routes[2:]
+
+        def up(t):
+            return upsample_2x(t, cfg.upsample_channel_sum)
+
+        route, yb1 = self._yolo_block(self.yolo_blocks[0], route_s32)
+        y = self._conv_block(self.necks[0], route)
+        route, yb2 = self._yolo_block(self.yolo_blocks[1], up(y), route_s16)
+        y = self._conv_block(self.necks[1], route)
+        _, yb3 = self._yolo_block(self.yolo_blocks[2], up(y), route_s8)
+        return [yb1, yb2, yb3]
+
+    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        return [head(h) for head, h in zip(self.heads, self.neck_outputs(x))]
+
+    def forward_detections(self, x: torch.Tensor) -> torch.Tensor:
+        """Feature maps -> decoded detections [B, num_boxes, 4+1+C]."""
+        cfg = self.config
+        return decode_detections(self(x), cfg.anchors, cfg.number_classes,
+                                 cfg.strides)
+
+
+@torch.inference_mode()
+def calibrate(model: QuantizedYoloV3, images: torch.Tensor,
+              percentile: Optional[float] = None) -> Dict[str, float]:
+    """Per-tensor activation scales {block path: scale} from one batch
+    (z-scored NHWC f32), in the bf16 mode's math: absmax / 127, or with
+    `percentile` (e.g. 99.9) that percentile of |activations| from a
+    4096-bin histogram per conv input. QAT calibration (`train_mode`)
+    waits for the QAT port (ROADMAP Queue A 13)."""
+    collect: dict = {}
+    model._collect, model._hist = collect, percentile is not None
+    try:
+        model(images)
+    finally:
+        model._collect, model._hist = None, False
+    if percentile is None:
+        vals = {k: float(v) for k, v in collect.items()}
+    else:
+        vals = {k: float(quant.hist_percentile(c, m, percentile))
+                for k, (c, m) in collect.items()}
+    return {k: max(v, 1e-12) / 127.0 for k, v in vals.items()}
+
+
+def build_quantized_model(params: dict, batch_stats: dict, cfg: ModelConfig,
+                          device, act_scales: Optional[Dict[str, float]] = None
+                          ) -> QuantizedYoloV3:
+    """`QuantizedYoloV3` with Flax-shaped weights, in eval mode on
+    `device`; int8 when `act_scales` are given."""
+    from yolov3_tpu_torch.utils.checkpoint import params_from_jax
+    model = QuantizedYoloV3(cfg)
+    model.load_state_dict(params_from_jax(params, batch_stats, cfg))
+    model = model.to(device).eval()
+    if act_scales is not None:
+        model.set_act_scales(act_scales)
+    return model
+
+
+def _calibrated(saved_model_filepath: str, calib_images,
+                calib_percentile: Optional[float], device):
+    from yolov3_tpu_torch.utils import checkpoint as ckpt
+    params, batch_stats, cfg = ckpt.load_model(saved_model_filepath)
+    model = build_quantized_model(params, batch_stats, cfg, device)
+    scales = calibrate(model, torch.as_tensor(calib_images, device=device),
+                       calib_percentile)
+    model.set_act_scales(scales)
+    return model, cfg, scales
+
+
+def make_quantized_detector_fn(saved_model_filepath: str, calib_images,
+                               calib_percentile: Optional[float] = None,
+                               device: str = "cuda"):
+    """int8 twin of `inference.make_detector_fn`: detect(images NHWC f32)
+    -> decoded detections [B, num_boxes, 4+1+C] (no NMS), calibrated on
+    `calib_images` (a representative z-scored batch)."""
+    model, cfg, _ = _calibrated(saved_model_filepath, calib_images,
+                                calib_percentile, device)
+
+    @torch.inference_mode()
+    def detect(images) -> torch.Tensor:
+        return model.forward_detections(torch.as_tensor(images,
+                                                        device=device))
+
+    return detect, cfg
+
+
+def make_quantized_serving_fn(saved_model_filepath: str, calib_images,
+                              icfg: Optional[InferenceConfig] = None,
+                              min_box_size: Optional[int] = None,
+                              calib_percentile: Optional[float] = None,
+                              raw_pixels: bool = False,
+                              device: str = "cuda"):
+    """int8 twin of `inference.make_serving_fn`: z-scored images ->
+    (boxes, scores, keep) through the int8 backbone and neck, bf16 heads,
+    f32 decode, clip, small-box filter and per-class NMS, all on `device`.
+    With `raw_pixels`, serve() takes raw integer pixels and z-scores them
+    first (calibration still takes a z-scored batch).
+
+    Returns (serve, cfg, scales)."""
+    from yolov3_tpu_torch.data.device_pipeline import zscore_images
+    from yolov3_tpu_torch.ops.nms import batched_nms_device
+
+    icfg = icfg or InferenceConfig()
+    if min_box_size is None:
+        min_box_size = icfg.min_box_size
+    model, cfg, scales = _calibrated(saved_model_filepath, calib_images,
+                                     calib_percentile, device)
+
+    @torch.inference_mode()
+    def serve(images):
+        images = torch.as_tensor(images, device=device)
+        if raw_pixels:
+            images = zscore_images(images).to(cfg.dtype)
+        # clip to the served images' bounds: the network is fully
+        # convolutional
+        img_h, img_w = images.shape[1], images.shape[2]
+        det = model.forward_detections(images)
+        clipped = torch.cat([
+            det[..., 0:1].clamp(0, img_w), det[..., 1:2].clamp(0, img_h),
+            det[..., 2:3].clamp(0, img_w), det[..., 3:4].clamp(0, img_h),
+            det[..., 4:]], dim=-1)
+        return batched_nms_device(clipped, cfg.number_classes,
+                                  iou_threshold=icfg.iou_threshold,
+                                  score_threshold=icfg.score_threshold,
+                                  max_boxes=icfg.max_boxes_per_class,
+                                  min_box_size=float(min_box_size))
+
+    return serve, cfg, scales
+
+
+def decode_iou_fidelity(det_a: np.ndarray, det_b: np.ndarray,
+                        top_k: int = 20) -> float:
+    """Mean IoU between two paths' boxes at the top-K objectness slots of
+    `det_a`: the quantized path's quality guard."""
+    from yolov3_tpu_torch.ops.boxes import compute_iou
+    ious = []
+    for a, b in zip(np.asarray(det_a), np.asarray(det_b)):
+        for i in np.argsort(-a[:, 4])[:top_k]:
+            ious.append(float(compute_iou(a[i, 0:4], b[i:i + 1, 0:4])[0]))
+    return float(np.mean(ious))
+

@@ -9,9 +9,9 @@ with a plain C interface, for Hopper (`sm_90a`), and loaded with `ctypes`:
 `-fmad=false` keeps every multiply and add separately rounded, as the
 NMS kernel's bit-equality with the plain IoU needs; `--use_fast_math` is
 never passed (IEEE division). A library is built at first use and again
-whenever its source (or the flags) change, since the file name carries a
-hash of both. Nothing here runs at import time, so the CPU tests import
-every module without `nvcc`.
+whenever its source, the shared headers (`csrc/*.cuh`) or the flags
+change, since the file name carries a hash of them. Nothing here runs at
+import time, so the CPU tests import every module without `nvcc`.
 
 Each kernel wrapper adds one to `launch_counts[<name>]` where it launches
 its kernel, so a run can show that its path went through the kernels.
@@ -33,7 +33,8 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "yolov3_tpu_torch")
-KERNELS = ("nms_suppress", "pointwise_conv_block")
+KERNELS = ("nms_suppress", "pointwise_conv_block", "pointwise_conv_block_q",
+           "conv3x3_block_q", "down_conv_block_q")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
@@ -50,10 +51,13 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> str:
-    src = os.path.join(CSRC_DIR, f"{name}.cu")
+    """The library's path, named by a hash of its source, the shared
+    headers (`csrc/*.cuh`) and the flags."""
     h = hashlib.sha256()
-    with open(src, "rb") as fh:
-        h.update(fh.read())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for src in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC_DIR, src), "rb") as fh:
+            h.update(fh.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 

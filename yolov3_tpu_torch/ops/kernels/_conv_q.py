@@ -1,0 +1,181 @@
+"""What the three int8 ConvBlock kernels share: the plain PyTorch version
+of their arithmetic and the ctypes launch of their CUDA entry points.
+
+The kernels (`csrc/pointwise_conv_block_q.cu`, `conv3x3_block_q.cu`,
+`down_conv_block_q.cu`) are one implicit GEMM (`csrc/conv_block_q.cuh`)
+with an epilogue, each behind its own entry point and contract. The
+modules `pointwise_q`, `conv3x3_q` and `down_conv_q` are their public
+wrappers. Layouts: activations NHWC; weights `w_t` [taps, Co, Ci] s8
+(each output channel's K contiguous, the kernels' B layout); `epi`
+[3, Co] f32 rows (b/dq, mul*dq, add).
+
+The plain version sums the int8 products in float64, which is exact
+below 2^53 (the largest |acc| here is 9 * 1024 * 127^2 ~ 1.5e8), then runs
+the float32 epilogue op by op in the kernels' order.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from yolov3_tpu_torch.ops.kernels import _build
+from yolov3_tpu_torch.ops.quant import quantize_act
+
+F32 = torch.float32
+BF16 = torch.bfloat16
+IN_KINDS = {torch.int8: 0, BF16: 1, F32: 2}
+_fns = {}
+
+
+def same_pads(size: int, k: int, s: int) -> Tuple[int, int]:
+    """XLA/TF SAME padding (the end gets the odd pixel)."""
+    out = -(-size // s)
+    total = max((out - 1) * s + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def _bf16_round(t: torch.Tensor) -> torch.Tensor:
+    return t.to(BF16).to(F32)
+
+
+def quantized_input(x: torch.Tensor, inv_in: float,
+                    residual_in: Optional[torch.Tensor] = None,
+                    res_scale: float = 0.0) -> torch.Tensor:
+    """The s8 codes the kernels multiply: x itself when s8, else the
+    quantize of x (after the bf16 residual add of the 1x1 variant)."""
+    if x.dtype == torch.int8:
+        return x
+    if residual_in is not None:
+        x = (residual_in.to(F32) * res_scale).to(BF16) + x.to(BF16)
+    return quantize_act(x, inv_in)
+
+
+def epilogue(acc: torch.Tensor, epi: torch.Tensor, *, inv_next: float,
+             alpha: float, cast_bf16: bool,
+             residual_out: Optional[torch.Tensor] = None,
+             res_scale: float = 0.0, emit_s8: bool = True,
+             out_dtype: Optional[torch.dtype] = None):
+    """The kernels' f32 epilogue on exact sums `acc` [..., Co] (any
+    type), op by op in their order."""
+    y = acc.to(F32) + epi[0]
+    y = torch.where(y >= 0.0, y, alpha * y)
+    y = y * epi[1] + epi[2]
+    if cast_bf16:
+        y = _bf16_round(y)
+    if residual_out is not None:
+        res = residual_out.to(F32) * res_scale
+        if cast_bf16:
+            res = _bf16_round(res)
+        y = res + y
+        if cast_bf16:
+            y = _bf16_round(y)
+    outs = []
+    if emit_s8:
+        outs.append(quantize_act(y, inv_next))
+    if out_dtype is not None:
+        outs.append(y.to(out_dtype))
+    return outs[0] if len(outs) == 1 else tuple(outs)
+
+
+def conv_block_q_plain(x: torch.Tensor, w_t: torch.Tensor, epi: torch.Tensor,
+                       *, ksize: int, stride: int, inv_in: float,
+                       inv_next: float, alpha: float, cast_bf16: bool,
+                       residual_in: Optional[torch.Tensor] = None,
+                       residual_out: Optional[torch.Tensor] = None,
+                       res_scale: float = 0.0, emit_s8: bool = True,
+                       out_dtype: Optional[torch.dtype] = None):
+    """The kernels' function without their tiling: returns the s8 output,
+    the float output, or (s8, float) when both are asked for."""
+    q = quantized_input(x, inv_in, residual_in, res_scale)
+    n, h, w, _ = q.shape
+    co = w_t.shape[1]
+    (pt, pb), (pl, pr) = same_pads(h, ksize, stride), same_pads(w, ksize,
+                                                                 stride)
+    f64 = torch.float64
+    wk = w_t.reshape(ksize, ksize, co, -1).permute(2, 3, 0, 1).to(f64)
+    # not cuDNN, whose FFT or Winograd algorithms would not sum exactly
+    with torch.backends.cudnn.flags(enabled=False):
+        acc = F.conv2d(F.pad(q.permute(0, 3, 1, 2).to(f64),
+                             (pl, pr, pt, pb)), wk, stride=stride)
+    return epilogue(acc.permute(0, 2, 3, 1), epi, inv_next=inv_next,
+                    alpha=alpha, cast_bf16=cast_bf16,
+                    residual_out=residual_out, res_scale=res_scale,
+                    emit_s8=emit_s8, out_dtype=out_dtype)
+
+
+def _kernel_fn(name: str):
+    fn = _fns.get(name)
+    if fn is None:
+        fn = getattr(_build.load(name), name)
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [p, i, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i,
+                       i, i, f, f, f, f, i, p]
+        fn.restype = ctypes.c_int
+        _fns[name] = fn
+    return fn
+
+
+def launch(name: str, x: torch.Tensor, w_t: torch.Tensor, epi: torch.Tensor,
+           *, ksize: int, stride: int, inv_in: float, inv_next: float,
+           alpha: float, cast_bf16: bool,
+           residual_in: Optional[torch.Tensor] = None,
+           residual_out: Optional[torch.Tensor] = None,
+           res_scale: float = 0.0, emit_s8: bool = True,
+           out_dtype: Optional[torch.dtype] = None):
+    """Launch kernel `name` on CUDA tensors (same result layout as
+    `conv_block_q_plain`); raises on what the kernel does not take."""
+    if x.dtype not in IN_KINDS:
+        raise TypeError(f"{name}: x must be s8, bf16 or f32, got {x.dtype}")
+    if w_t.dtype != torch.int8 or epi.dtype != F32:
+        raise TypeError(f"{name}: need s8 weights and f32 epi, got "
+                        f"{w_t.dtype} and {epi.dtype}")
+    if out_dtype not in (None, BF16, F32) or not (emit_s8 or out_dtype):
+        raise ValueError(f"{name}: bad outputs (emit_s8={emit_s8}, "
+                         f"out_dtype={out_dtype})")
+    n, h, w, ci = x.shape
+    taps, co, wci = w_t.shape
+    if taps != ksize * ksize or wci != ci or tuple(epi.shape) != (3, co):
+        raise ValueError(f"{name}: w_t {tuple(w_t.shape)} / epi "
+                         f"{tuple(epi.shape)} do not fit x {tuple(x.shape)}")
+    if ci % 16 or co % 16:
+        raise ValueError(f"{name}: Ci = {ci} and Co = {co} must be "
+                         f"multiples of 16")
+    (pt, _), (pl, _) = same_pads(h, ksize, stride), same_pads(w, ksize,
+                                                              stride)
+    oh, ow = -(-h // stride), -(-w // stride)
+    for r, shape in ((residual_in, (n, h, w, ci)),
+                     (residual_out, (n, oh, ow, co))):
+        if r is not None and (r.dtype != torch.int8
+                              or tuple(r.shape) != shape):
+            raise ValueError(f"{name}: residual must be s8 {shape}")
+    tensors = [t for t in (x, w_t, epi, residual_in, residual_out)
+               if t is not None]
+    if any(t.device != x.device for t in tensors):
+        raise ValueError(f"{name}: all operands must be on one device")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
+               for t in tensors):
+        raise ValueError(f"{name}: operands must be contiguous and 16-byte "
+                         f"aligned")
+    out_s8 = (torch.empty((n, oh, ow, co), dtype=torch.int8, device=x.device)
+              if emit_s8 else None)
+    out_f = (torch.empty((n, oh, ow, co), dtype=out_dtype, device=x.device)
+             if out_dtype is not None else None)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _kernel_fn(name)(
+        x.data_ptr(), IN_KINDS[x.dtype], w_t.data_ptr(), epi.data_ptr(),
+        ptr(residual_in), ptr(residual_out), ptr(out_s8), ptr(out_f),
+        int(out_dtype == BF16), n, h, w, ci, co, oh, ow, ksize, stride, pt,
+        pl, float(inv_in), float(inv_next), float(res_scale), float(alpha),
+        int(cast_bf16), stream)
+    _build.check(err, name)
+    _build.launch_counts[name] += 1
+    outs = [t for t in (out_s8, out_f) if t is not None]
+    return outs[0] if len(outs) == 1 else tuple(outs)

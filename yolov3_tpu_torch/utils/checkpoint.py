@@ -56,17 +56,25 @@ _LEAVES = {
 }
 
 
+def flax_module_path(name: str) -> str:
+    """Port module name -> Flax module path, e.g. `darknet.blocks.2.convs.3`
+    -> `Darknet53_0/FeatureBlock_2/ConvBlock_3`: the keys of the int8
+    path's activation scales (`models/quantized.py`)."""
+    names, it = [], iter(name.split("."))
+    for p in it:
+        fmt = _MODULES[p]
+        names.append(fmt.format(next(it)) if "{}" in fmt else fmt)
+    return "/".join(names)
+
+
 def flax_path(key: str) -> str:
     """Port state_dict key -> "<collection>/<Flax path>", e.g.
     `darknet.blocks.2.convs.3.bn.running_var` ->
     `batch_stats/Darknet53_0/FeatureBlock_2/ConvBlock_3/BatchNorm_0/var`."""
     parts = key.split(".")
     collection, leaf = _LEAVES[(parts[-2], parts[-1])]
-    names, it = [], iter(parts[:-1])
-    for p in it:
-        fmt = _MODULES[p]
-        names.append(fmt.format(next(it)) if "{}" in fmt else fmt)
-    return "/".join([collection, *names, leaf])
+    return "/".join([collection, flax_module_path(".".join(parts[:-1])),
+                     leaf])
 
 
 def _flax_shape(value: torch.Tensor) -> Tuple[int, ...]:
