@@ -5,7 +5,8 @@
 
 Phases, in order; any failure exits non-zero:
   1. Print the card's name and power limit; build the CUDA kernels from
-     `yolov3_tpu_torch/csrc/` with nvcc, all five at once.
+     `yolov3_tpu_torch/csrc/` with nvcc, all eight libraries at once (the
+     region library holds the region and the tail entry points).
   2. Reference check at 64 px, full width, f32: the port on the card
      (plain path, and 1x1 blocks through the kernel) against the port's
      plain path on the CPU.
@@ -18,25 +19,37 @@ Phases, in order; any failure exits non-zero:
      calls under torch.profiler.
   4. Each bf16-path kernel against its plain version on the inputs the
      serving call handed it (recorded on a warm-up call), plus the NMS
-     kernel at the batch-64 shapes (C = 128, K = 512), saturated and
-     sparse: NMS keep masks bit-equal, the 1x1 block within rtol = atol =
-     2e-2 in bf16. Times from CUDA events after warm-up, beside each
-     call's bound.
-  5. int8 reference check at 64 px, full width, bf16: the port's int8
-     model on the card (kernels) and on the CPU (plain versions) with one
-     scale dict. Every kernel launch against its plain version on the same
-     inputs: s8 codes within 1, float outputs within a bf16 ulp; the share
-     of s8 codes that differ along the two chains; decode fidelity >= 0.99.
+     kernels at the batch-64 shapes (C = 128, K = 512), saturated and
+     sparse: the box kernel's keep masks bit-equal to its plain version;
+     the IoU-slab kernel (`greedy_suppress`, called once between the
+     counters' reset and read on the slab of `pairwise_iou`) bit-equal to
+     its plain version and to the box kernel; the 1x1 block within rtol =
+     atol = 2e-2 in bf16. Times from CUDA events after warm-up, beside
+     each call's bound.
+  5. int8 reference check at 64 px, full width, bf16, both sides under
+     the card's default kernel set: the port's int8 model on the card
+     (kernels) and on the CPU (plain versions) with one scale dict. Every
+     kernel launch against its plain version on the same inputs: s8 codes
+     within 1, float outputs within a bf16 ulp; the share of s8 codes that
+     differ along the two chains; decode fidelity >= 0.99.
   6. Full-width int8 serving (`make_quantized_serving_fn`, 512 px, batch
-     8), calibrated (absmax) on the served batch. Counters set to 0 just
-     before one call and read just after: 34 int8 1x1, 32 int8 3x3, 5
-     stride-2 and 1 NMS launch. images/s, the profile by kernel, and the
-     int8-vs-bf16 decode fidelity (> 0.9, top 20).
+     8, the default kernel set: the stem region in one launch with the
+     fast epilogue), calibrated (absmax) on the served batch. Counters set
+     to 0 just before one call and read just after: 33 int8 1x1, 31 int8
+     3x3, 3 stride-2, 1 region and 1 NMS launch. images/s, the profile by
+     kernel, and the int8-vs-bf16 decode fidelity (> 0.9, top 20). Then
+     one call under each of the other stem routes, its launches asserted
+     the same way: {region_pallas, exit_pallas} 33 / 31 / 4 and 1 tail;
+     {exit_pallas} 34 / 32 / 4 and 1 exit conv.
   7. Each int8 kernel against its plain version on every input the int8
-     serving call handed it (s8 within 1 code), and per shape the
+     serving calls handed it (s8 within 1 code; for the region, tail and
+     exit also the share of codes that differ), and per shape the
      kernel's, the plain version's and the library yardstick's time
-     (`torch._int_mm` on the rows or an im2col, plus the epilogue ops)
-     beside the bound.
+     (`torch._int_mm` on the rows or an im2col, plus the epilogue ops,
+     stage by stage for the region) beside the bound; for the region also
+     the unfused chain of the stride-2, 1x1, 3x3 and stride-2 kernels on
+     the same input, and PyTorch's quantize of its bf16 input followed by
+     the kernel on the s8 codes (equal codes).
   8. The CLI's per-batch functions on 4 uint8 images, bf16 and --int8;
      CSVs in both layouts.
   9. One JSON line of kernel results, then the last line
@@ -68,22 +81,37 @@ INT8_OPS_S = 1979e12
 # 2 clamp, 1 mul, 1 add, 1 sub, 1 div, 1 compare. The function tests each
 # valid candidate i only against the kept j < i.
 IOU_OPS = 13
+# f32 operations of quantizing one element: mul, round, 2 clamp
+QUANT_OPS = 4
 
 FULL = dict(img_size=(512, 512, 3), number_classes=2,
             anchors=((64, 384), (384, 64)), filter_count=1024, block_count=8,
             compute_dtype="bfloat16", use_pallas_pointwise=True)
 BATCH = 8
+# the NMS problems of a batch-64 serving call: 64 images x 2 classes, 512
+# candidates each
+NMS_C, NMS_K = 128, 512
 SEED = 0
 DEVICE = "cuda"
 # launches of one serving call at FULL: FeatureBlocks 1+2+8+8+4 1x1s,
 # three YoloBlocks of three 1x1s and two neck 1x1s; one NMS launch
 EXPECTED_LAUNCHES = {"pointwise_conv_block": 34, "nms_suppress": 1}
-# int8 serving at FULL: 1x1s = 23 feature-block + 6 YoloBlock mid + 3
-# YoloBlock entry + 2 neck; 3x3s = 23 feature-block + 9 YoloBlock;
-# 5 stride-2 blocks; one NMS launch
-EXPECTED_INT8_LAUNCHES = {"pointwise_conv_block_q": 34,
-                          "conv3x3_block_q": 32, "down_conv_block_q": 5,
-                          "nms_suppress": 1}
+# int8 serving at FULL under the reference's default kernel set: the stem
+# region (stem2, FeatureBlock_0's 1x1 and 3x3, ConvBlock_2) is one launch;
+# 1x1s = 22 feature-block + 6 YoloBlock mid + 3 YoloBlock entry + 2 neck;
+# 3x3s = 22 feature-block + 9 YoloBlock; 3 stride-2 blocks; one NMS launch
+EXPECTED_INT8_LAUNCHES = {"pointwise_conv_block_q": 33,
+                          "conv3x3_block_q": 31, "down_conv_block_q": 3,
+                          "s2d_region_block_q": 1, "nms_suppress": 1}
+# the other two stem routes: (kernel flags, launches of one serving call)
+INT8_SETS = (
+    ({"region_pallas": True, "exit_pallas": True},
+     {"pointwise_conv_block_q": 33, "conv3x3_block_q": 31,
+      "down_conv_block_q": 4, "s2d_tail_block_q": 1, "nms_suppress": 1}),
+    ({"exit_pallas": True},
+     {"pointwise_conv_block_q": 34, "conv3x3_block_q": 32,
+      "down_conv_block_q": 4, "exit_conv_block_q": 1, "nms_suppress": 1}),
+)
 # int8 kernel -> (wrapper module, the TPU kernel's pallas_call)
 INT8_KERNELS = {
     "pointwise_conv_block_q": (
@@ -92,7 +120,17 @@ INT8_KERNELS = {
         "conv3x3_q", "yolov3_tpu/ops/pallas/conv3x3_kernel.py:205"),
     "down_conv_block_q": (
         "down_conv_q", "yolov3_tpu/ops/pallas/down_conv_kernel.py:156"),
+    "s2d_region_block_q": (
+        "s2d_region_q", "yolov3_tpu/ops/pallas/s2d_region_kernel.py:798"),
+    "s2d_tail_block_q": (
+        "s2d_tail_q", "yolov3_tpu/ops/pallas/s2d_tail_kernel.py:214"),
+    "exit_conv_block_q": (
+        "exit_conv_q", "yolov3_tpu/ops/pallas/exit_conv_kernel.py:130"),
 }
+CONV_KERNELS = ("pointwise_conv_block_q", "conv3x3_block_q",
+                "down_conv_block_q")
+REGION_KERNELS = ("s2d_region_block_q", "s2d_tail_block_q",
+                  "exit_conv_block_q")
 
 
 def log(*a):
@@ -114,8 +152,12 @@ def cuda_ms(fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes, ops, rate):
-    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / rate * 1e3
+def bound(nbytes, ops, rate, f32_ops=0.0):
+    """The least time (ms, and what sets it) for `nbytes` of memory
+    traffic, `ops` operations at `rate` and `f32_ops` more at the f32
+    rate."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = (ops / rate + f32_ops / F32_OPS_S) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
                                  "operations")
 
@@ -323,21 +365,66 @@ def nms_case(torch, cand, valid, label):
                 bound_by=b_by, iou_tests=pairs, max_abs_err=err)
 
 
+def greedy_case(torch, cand, valid, label):
+    """The IoU-slab kernel (greedy_suppress) on the slab of `cand`: keep
+    bit-equal to its plain version and to the box kernel (nms_suppress)."""
+    from yolov3_tpu_torch.ops.kernels import nms_suppress as K
+    from yolov3_tpu_torch.ops.nms import pairwise_iou
+    from yolov3_tpu_torch.ops.kernels import _build as build
+    # the entry as a caller holding an IoU slab calls it, between the
+    # counters' reset and read
+    iou = pairwise_iou(cand).contiguous()
+    build.launch_counts.clear()
+    got = K.greedy_suppress(iou, valid, 0.3)
+    torch.cuda.synchronize()
+    launches = build.launch_counts[K.GREEDY]
+    if launches != 1:
+        raise AssertionError(f"greedy_suppress launched {launches} times")
+    want = K.greedy_suppress_plain(iou, valid, 0.3)
+    boxes = K.suppress_boxes_t(cand, valid, 0.3)
+    err = float((got.int() - want.int()).abs().max())
+    if not (err == 0 and torch.equal(got, boxes)):
+        raise AssertionError(f"greedy_suppress keep mask differs ({label}): "
+                             f"{int((got != want).sum())} slots from plain, "
+                             f"{int((got != boxes).sum())} from nms_suppress")
+    ms = cuda_ms(lambda: K.greedy_suppress(iou, valid, 0.3), 20)
+    plain = cuda_ms(lambda: K.greedy_suppress_plain(iou, valid, 0.3), 2, 1)
+    c, k = valid.shape
+    # as for the box kernel: the function needs iou[i, j] only for each
+    # valid i and kept j < i (4 bytes and one compare each), plus valid
+    # and keep
+    kept = want.to(torch.float64)
+    pairs = float(((kept.cumsum(dim=1) - kept) * valid).sum())
+    b_ms, b_by = bound(pairs * 4 + 2 * c * k, pairs, F32_OPS_S)
+    log(f"greedy_suppress {label} C={c} K={k} valid={int(valid.sum())}: "
+        f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.6f} ms "
+        f"({b_by}, {pairs:.0f} IoU entries; the whole slab "
+        f"{c * k * k * 4 / 1e6:.1f} MB), keep bit-equal to plain and "
+        f"nms_suppress ({int(got.sum())} kept)")
+    return dict(label=label, c=c, k=k, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, iou_entries=pairs, slab_bytes=c * k * k * 4,
+                max_abs_err=err, launches=launches)
+
+
 def phase_nms(torch, calls):
+    """Kernel 1 on the serving call's candidates and both kernels at the
+    batch-64 shapes; returns (nms rows, greedy rows)."""
     import numpy as np
     (cand, valid, _), _ = calls[0]
     rows = [nms_case(torch, cand, valid, f"serving b{BATCH}")]
     rng = np.random.default_rng(3)
-    c, k = 128, 512
+    c, k = NMS_C, NMS_K
     xy = rng.random((c, k, 2), np.float32) * 400
     wh = rng.random((c, k, 2), np.float32) * 100 + 5
     cand = torch.from_numpy(np.concatenate([xy, xy + wh], -1)).to(DEVICE)
     counts = torch.from_numpy(rng.integers(0, k + 1, c)).to(DEVICE)
     sparse = torch.arange(k, device=DEVICE)[None, :] < counts[:, None]
-    rows.append(nms_case(torch, cand, torch.ones_like(sparse),
-                         "b64 saturated"))
-    rows.append(nms_case(torch, cand, sparse.contiguous(), "b64 sparse"))
-    return rows
+    greedy = []
+    for valid, label in ((torch.ones_like(sparse), "b64 saturated"),
+                         (sparse.contiguous(), "b64 sparse")):
+        rows.append(nms_case(torch, cand, valid, label))
+        greedy.append(greedy_case(torch, cand, valid, label))
+    return rows, greedy
 
 
 def record_io(module, name, store):
@@ -391,10 +478,14 @@ def phase_int8_reference(torch, ckpt, TQ, ModelConfig):
     params, stats = ckpt.init_params(cfg, SEED)
     x = torch.from_numpy(np.random.default_rng(1).standard_normal(
         (2, 64, 64, 3), dtype=np.float32))
-    cpu = TQ.build_quantized_model(params, stats, cfg, "cpu")
+    # both sides under the card's default kernel set (the CPU's is {})
+    kernels = TQ.default_serving_kernels("cuda")
+    cpu = TQ.build_quantized_model(params, stats, cfg, "cpu",
+                                   kernels=kernels)
     scales = TQ.calibrate(cpu, x)
     cpu.set_act_scales(scales)
-    card = TQ.build_quantized_model(params, stats, cfg, DEVICE, scales)
+    card = TQ.build_quantized_model(params, stats, cfg, DEVICE, scales,
+                                    kernels=kernels)
     runs, dets = {"cpu": [], "card": []}, {}
     for side, model, xin in (("cpu", cpu, x), ("card", card, x.to(DEVICE))):
         origs = {n: record_io(TQ, n, runs[side]) for n in INT8_KERNELS}
@@ -432,16 +523,17 @@ def phase_int8_reference(torch, ckpt, TQ, ModelConfig):
         f"max float diff {fl:.3e}; card vs CPU chains: max code diff "
         f"{chain[0]}, {100 * out['chain_codes_differing']:.4f}% of "
         f"{chain[2]} s8 codes differ; decode fidelity {fid:.6f}")
-    if len(runs["card"]) != len(runs["cpu"]) or code > 1 or fid < 0.99:
+    if (len(runs["card"]) != len(runs["cpu"]) or code > 1 or fid < 0.99
+            or sum(r[0] == "s2d_region_block_q" for r in runs["card"]) != 1):
         raise AssertionError(f"int8 card disagrees with the CPU: {out}")
     return out
 
 
-def phase_int8_serving(torch, inf, TQ, build, path, images, card):
+def int8_serving_call(torch, TQ, build, serve, images, expected, label):
+    """A warm-up call that records what the path hands each kernel, then
+    one call between the counters' reset and read; both must launch
+    `expected`. Returns (recorded calls, launches, outputs)."""
     from yolov3_tpu_torch.ops.kernels import nms_suppress
-    serve, cfg, scales = TQ.make_quantized_serving_fn(path, images,
-                                                      device=DEVICE)
-    # warm-up call that records what the path hands each kernel
     calls, nms_calls = [], []
     origs = {n: record_io(TQ, n, calls) for n in INT8_KERNELS}
     orig_nms = record(nms_suppress, "suppress_boxes_t", nms_calls)
@@ -454,18 +546,46 @@ def phase_int8_serving(torch, inf, TQ, build, path, images, card):
     torch.cuda.synchronize()
     recorded = {n: sum(c[0] == n for c in calls) for n in INT8_KERNELS}
     recorded["nms_suppress"] = len(nms_calls)
-    if recorded != EXPECTED_INT8_LAUNCHES:
-        raise AssertionError(f"recorded int8 kernel calls {recorded} != "
-                             f"{EXPECTED_INT8_LAUNCHES}")
+    recorded = {n: v for n, v in recorded.items() if v}
+    if recorded != expected:
+        raise AssertionError(f"{label}: recorded int8 kernel calls "
+                             f"{recorded} != {expected}")
 
     build.launch_counts.clear()
-    boxes, scores, keep = serve(images)
+    outputs = serve(images)
     torch.cuda.synchronize()
     launches = dict(build.launch_counts)
-    log(f"serving b{BATCH} 512px int8 launches: {launches}")
-    if launches != EXPECTED_INT8_LAUNCHES:
-        raise AssertionError(f"expected launches {EXPECTED_INT8_LAUNCHES}, "
-                             f"got {launches}")
+    log(f"serving b{BATCH} 512px {label} launches: {launches}")
+    if launches != expected:
+        raise AssertionError(f"{label}: expected launches {expected}, got "
+                             f"{launches}")
+    return calls, launches, outputs
+
+
+def phase_int8_sets(torch, TQ, build, path, images):
+    """One full-width serving call under each of the other two stem
+    routes' kernel sets; returns the tail's and the exit's recorded calls
+    and their launches."""
+    calls, launches = [], {}
+    for kernels, expected in INT8_SETS:
+        serve, _, _ = TQ.make_quantized_serving_fn(path, images,
+                                                   device=DEVICE,
+                                                   kernels=kernels)
+        rec, got, (boxes, scores, keep) = int8_serving_call(
+            torch, TQ, build, serve, images, expected, f"int8 {kernels}")
+        if not (torch.isfinite(boxes).all() and int(keep.sum()) > 0):
+            raise AssertionError(f"int8 {kernels}: bad serving output")
+        calls += [c for c in rec if c[0] in REGION_KERNELS]
+        launches.update({n: v for n, v in got.items() if n in REGION_KERNELS})
+    return calls, launches
+
+
+def phase_int8_serving(torch, inf, TQ, build, path, images, card):
+    serve, cfg, scales = TQ.make_quantized_serving_fn(path, images,
+                                                      device=DEVICE)
+    calls, launches, (boxes, scores, keep) = int8_serving_call(
+        torch, TQ, build, serve, images, EXPECTED_INT8_LAUNCHES,
+        "int8 (default kernels)")
     k = min(inf.InferenceConfig().max_boxes_per_class,
             cfg.number_output_boxes)
     for t, shape in ((boxes, (BATCH, 2, k, 4)), (scores, (BATCH, 2, k)),
@@ -502,62 +622,77 @@ def phase_int8_serving(torch, inf, TQ, build, path, images, card):
     if not fid > 0.9:
         raise AssertionError(f"int8 decode fidelity {fid} <= 0.9")
     serving["fidelity"] = fid
-    return calls, launches, serving
+    # the exact epilogue table of the served model (the chain of phase 7)
+    from yolov3_tpu_torch.utils import checkpoint as ckpt
+    params, stats, _ = ckpt.load_model(path)
+    exact_epi = TQ.build_quantized_model(params, stats, cfg, DEVICE,
+                                         scales).q_region_epi
+    return calls, launches, serving, exact_epi
 
 
-def int8_work(name, args, kw):
-    """(bytes moved, int8 operations) of one int8 kernel call: each input
-    read once, each output written once; the products of the taps that
-    fall inside the image."""
+def conv_macs(n, h, w, ci, co, k, s):
+    """Multiply-adds of an NHWC SAME conv: the taps inside the image."""
     from yolov3_tpu_torch.ops.kernels._conv_q import same_pads
-    x, w_t, epi = args
-    taps, co, ci = w_t.shape
-    k = 1 if taps == 1 else 3
-    s = 2 if name == "down_conv_block_q" else 1
-    n, h, w, _ = x.shape
     oh, ow = -(-h // s), -(-w // s)
     pt, pl = same_pads(h, k, s)[0], same_pads(w, k, s)[0]
 
     def inside(size, out, pad, u):
         return sum(0 <= i * s - pad + u < size for i in range(out))
 
-    macs = n * ci * co * sum(inside(h, oh, pt, u) * inside(w, ow, pl, v)
+    return n * ci * co * sum(inside(h, oh, pt, u) * inside(w, ow, pl, v)
                              for u in range(k) for v in range(k))
+
+
+def int8_work(name, args, kw):
+    """(bytes moved, int8 operations) of one int8 kernel call: each input
+    read once, each output written once; the products of the taps that
+    fall inside the image."""
+    x, w_t, epi = args
+    taps, co, ci = w_t.shape
+    k = 1 if taps == 1 else 3
+    s = 2 if name == "down_conv_block_q" else 1
+    n, h, w, _ = x.shape
+    oh, ow = -(-h // s), -(-w // s)
     res = kw.get("residual_q")
     out_f = kw.get("out_dtype")
     nbytes = (x.numel() * x.element_size() + w_t.numel() + epi.numel() * 4
               + (res.numel() if res is not None else 0)
               + n * oh * ow * co * (int(kw.get("emit_s8", True))
                                     + (out_f.itemsize if out_f else 0)))
-    return nbytes, 2 * macs
+    return nbytes, 2 * conv_macs(n, h, w, ci, co, k, s)
 
 
-def int8_library(torch, name, args, kw):
-    """The library yardstick: the same function with torch._int_mm (cuBLAS
-    int8) on the rows, or on an im2col of the taps, plus the epilogue as
-    PyTorch ops. Timed here only; the port never calls it."""
+def int8_sums(torch, q, w_t, stride):
+    """Exact int32 sums of an s8 SAME conv with torch._int_mm (cuBLAS
+    int8) on the rows, or on an im2col of the 3x3 taps."""
     import torch.nn.functional as F
     from yolov3_tpu_torch.ops.kernels import _conv_q
-    x, w_t, epi = args
     taps, co, ci = w_t.shape
-    res = kw.get("residual_q")
-    pointwise = name == "pointwise_conv_block_q"
-    q = _conv_q.quantized_input(x, kw["inv_in"], res if pointwise else None,
-                                kw.get("res_scale", 0.0))
     n, h, w, _ = q.shape
     if taps == 1:
         oh, ow, a = h, w, q.reshape(-1, ci)
     else:
-        s = 2 if name == "down_conv_block_q" else 1
-        (pt, pb), (pl, pr) = _conv_q.same_pads(h, 3, s), _conv_q.same_pads(
-            w, 3, s)
-        oh, ow = -(-h // s), -(-w // s)
+        (pt, pb), (pl, pr) = (_conv_q.same_pads(h, 3, stride),
+                              _conv_q.same_pads(w, 3, stride))
+        oh, ow = -(-h // stride), -(-w // stride)
         cols = F.unfold(F.pad(q.permute(0, 3, 1, 2).to(torch.float16),
-                              (pl, pr, pt, pb)), 3, stride=s)
+                              (pl, pr, pt, pb)), 3, stride=stride)
         a = cols.transpose(1, 2).reshape(-1, ci * 9).to(torch.int8)
     # column-major [K, Co], K in unfold's (channel, tap) order
     b = w_t.permute(1, 2, 0).reshape(co, ci * taps).t()
-    acc = torch._int_mm(a, b).reshape(n, oh, ow, co)
+    return torch._int_mm(a, b).reshape(n, oh, ow, co)
+
+
+def int8_library(torch, name, args, kw):
+    """The library yardstick: the same function with `int8_sums` plus the
+    epilogue as PyTorch ops. Timed here only; the port never calls it."""
+    from yolov3_tpu_torch.ops.kernels import _conv_q
+    x, w_t, epi = args
+    res = kw.get("residual_q")
+    pointwise = name == "pointwise_conv_block_q"
+    q = _conv_q.quantized_input(x, kw["inv_in"], res if pointwise else None,
+                                kw.get("res_scale", 0.0))
+    acc = int8_sums(torch, q, w_t, 2 if name == "down_conv_block_q" else 1)
     out_f = kw.get("out_dtype")
     cast = kw.get("cast_bf16", out_f != torch.float32)
     return _conv_q.epilogue(acc, epi, inv_next=kw["inv_next"],
@@ -572,6 +707,8 @@ def phase_int8_kernels(torch, calls):
     shape, the kernel's, plain and library times beside the bound."""
     errs, lib_errs, groups = {}, {}, {}
     for name, args, kw, out in calls:
+        if name not in CONV_KERNELS:
+            continue
         mod = int8_module(name)
         want = getattr(mod, f"{name}_plain")(*args, **kw)
         c, _, _, f = int8_compare(torch, out, want)
@@ -609,7 +746,7 @@ def phase_int8_kernels(torch, calls):
             f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib:.4f} ms, "
             f"bound {b_ms:.4f} ms ({b_by}), {ops / ms / 1e9:.1f} TOP/s")
     summary = {}
-    for name in INT8_KERNELS:
+    for name in CONV_KERNELS:
         mine = [r for r in rows if r["kernel"] == name]
         per = {k: sum(r[k] * r["launches"] for r in mine)
                for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes",
@@ -626,13 +763,142 @@ def phase_int8_kernels(torch, calls):
     return summary, rows
 
 
+def region_work(name, args):
+    """(bytes moved, int8 operations, f32 operations) of one stem-region
+    launch: its input, weights and epi read once and its output written
+    once; each stage's products of the taps inside the image; the quantize
+    of a float input."""
+    x, *weights, epi = args
+    f32_ops = QUANT_OPS * x.numel() if x.dtype.is_floating_point else 0
+    strides = {"s2d_region_block_q": (2, 1, 1, 2),
+               "s2d_tail_block_q": (1, 1, 2), "exit_conv_block_q": (2,)}
+    n, h, w, ci = x.shape
+    macs = 0
+    for wt, st in zip(weights, strides[name]):
+        co = wt.shape[1]
+        macs += conv_macs(n, h, w, ci, co, 1 if wt.shape[0] == 1 else 3, st)
+        h, w, ci = -(-h // st), -(-w // st), co
+    nbytes = (x.numel() * x.element_size() + sum(wt.numel() for wt in weights)
+              + epi.numel() * 4 + n * h * w * ci)
+    return nbytes, 2 * macs, f32_ops
+
+
+def region_library(torch, name, args, kw):
+    """The library yardstick of a stem-region launch: its stages one at a
+    time, each as `int8_library` computes a ConvBlock (torch._int_mm sums,
+    then the epilogue as PyTorch ops): the plain version with its exact
+    float64 sums replaced by `int8_sums`. Timed here only."""
+    return getattr(int8_module(name), f"{name}_plain")(
+        *args, **kw, sums=lambda q, w_t, k, st: int8_sums(torch, q, w_t, st))
+
+
+def region_chain(torch, args, kw, epi):
+    """The region's function as the unfused chain of the port's own
+    kernels (stride-2 -> 1x1 -> 3x3 + residual -> stride-2), with the
+    exact epilogue table `epi`; returns a function of no arguments."""
+    from yolov3_tpu_torch.ops.kernels import (conv3x3_q, down_conv_q,
+                                              pointwise_q)
+    x, w_s2, w_pw, w_fb0, w_ex, _ = args
+    c, cm, co = w_s2.shape[1], w_pw.shape[1], w_ex.shape[1]
+    rows = {i: epi[i:i + 3, :n].contiguous()
+            for i, n in ((13, c), (0, cm), (4, c), (9, co))}
+    inv = {i: float(epi[i, 0]) for i in (3, 7, 8, 12, 16)}
+    a, cast = dict(alpha=kw["alpha"]), kw["cast_bf16"]
+
+    def run():
+        q2 = down_conv_q.down_conv_block_q(
+            x, w_s2, rows[13], inv_in=kw["inv_in"], inv_next=inv[16],
+            cast_bf16=cast, **a)
+        q3 = pointwise_q.pointwise_conv_block_q(q2, w_pw, rows[0], inv_in=1.0,
+                                                inv_next=inv[3], **a)
+        y = conv3x3_q.conv3x3_block_q(
+            q3, w_fb0, rows[4], inv_in=1.0, inv_next=0.0, cast_bf16=cast,
+            residual_q=q2, res_scale=inv[7], emit_s8=False,
+            out_dtype=torch.bfloat16, **a)
+        return down_conv_q.down_conv_block_q(
+            y, w_ex, rows[9], inv_in=inv[8], inv_next=inv[12],
+            cast_bf16=cast, **a)
+
+    return run
+
+
+def phase_region_kernels(torch, calls, exact_epi):
+    """Every recorded stem-region launch (region, tail, exit) against its
+    plain version on the serving inputs (s8 within 1 code, and the share
+    of codes that differ); the kernel's, plain and library times beside
+    the bound; for the region also the unfused chain of kernels 7, 5, 6
+    and 7 on the same input."""
+    summary = {}
+    for name, args, kw, out in calls:
+        mod = int8_module(name)
+        kern, plain = getattr(mod, name), getattr(mod, f"{name}_plain")
+        want = plain(*args, **kw)
+        code, differ, total, _ = int8_compare(torch, out, want)
+        if code > 1:
+            raise AssertionError(f"{name}: s8 codes differ from the plain "
+                                 f"version by {code}")
+        lib_c, lib_differ, _, _ = int8_compare(
+            torch, region_library(torch, name, args, kw), want)
+        ms = cuda_ms(lambda: kern(*args, **kw), 20)
+        plain_ms = cuda_ms(lambda: plain(*args, **kw), 2, 1)
+        lib = cuda_ms(lambda: region_library(torch, name, args, kw), 5)
+        nbytes, ops, f32_ops = region_work(name, args)
+        b_ms, b_by = bound(nbytes, ops, INT8_OPS_S, f32_ops)
+        row = dict(shape=f"{tuple(args[0].shape)}->{tuple(out.shape)}",
+                   x_dtype=str(args[0].dtype), f32_ops=f32_ops,
+                   fast=kw.get("fast", False), ms=ms, plain_ms=plain_ms,
+                   library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                   bytes=nbytes, ops=ops, max_abs_err=float(code),
+                   codes_differing=differ / total,
+                   library_codes_differing=lib_differ / total)
+        log(f"{name} {row['shape']} fast={row['fast']}: kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, library {lib:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}), {ops / ms / 1e9:.1f} TOP/s; vs plain "
+            f"max code diff {code}, {100 * differ / total:.4f}% of {total} "
+            f"codes differ (library {lib_c}, {lib_differ})")
+        if name == "s2d_region_block_q":
+            chain = region_chain(torch, args, kw, exact_epi)
+            exact = kern(*args[:-1], exact_epi, **dict(kw, fast=False))
+            c_code, c_differ, _, _ = int8_compare(torch, chain(), exact)
+            f_code, f_differ, _, _ = int8_compare(torch, out, exact)
+            row.update(chain_ms=cuda_ms(chain, 20),
+                       exact_ms=cuda_ms(lambda: kern(
+                           *args[:-1], exact_epi, **dict(kw, fast=False)),
+                           20),
+                       chain_vs_exact_codes=c_differ / total,
+                       fast_vs_exact_max=f_code,
+                       fast_vs_exact_codes=f_differ / total)
+            log(f"  the unfused chain 7->5->6->7 on the same input "
+                f"{row['chain_ms']:.4f} ms ({100 * c_differ / total:.4f}% "
+                f"of codes differ from the exact region, max {c_code}); "
+                f"exact region {row['exact_ms']:.4f} ms; fast vs exact max "
+                f"{f_code}, {100 * f_differ / total:.4f}% of codes")
+            # the bf16 input quantized by PyTorch first, then the kernel on
+            # the s8 codes: the same codes out
+            from yolov3_tpu_torch.ops.quant import quantize_act
+
+            def s8_route():
+                q1 = quantize_act(args[0], kw["inv_in"])
+                return kern(q1, *args[1:], **dict(kw, inv_in=None))
+
+            s_code, _, _, _ = int8_compare(torch, s8_route(), out)
+            if s_code:
+                raise AssertionError(f"region on s8 codes differs from the "
+                                     f"region on floats by {s_code}")
+            row["quantize_then_s8_ms"] = cuda_ms(s8_route, 20)
+            log(f"  PyTorch's quantize, then the region on the s8 codes: "
+                f"{row['quantize_then_s8_ms']:.4f} ms (equal codes)")
+        summary[name] = row
+    return summary
+
+
 def phase_cli_int8(torch, inf, TQ, path, workdir):
     """The --int8 CLI's per-batch step: z-score on the card, calibrate on
     the batch, the fused serving function, rows per image; both CSVs."""
     import numpy as np
     from yolov3_tpu_torch.data.device_pipeline import zscore_images
     rng = np.random.default_rng(5)
-    images = [rng.integers(0, 256, (512, 512, 3), dtype=np.uint8)
+    images = [rng.integers(0, 256, FULL["img_size"], dtype=np.uint8)
               for _ in range(3)]
     batch = zscore_images(torch.from_numpy(np.stack(images)).to(DEVICE))
     serve, _, _ = TQ.make_quantized_serving_fn(path, batch, device=DEVICE)
@@ -714,24 +980,31 @@ def main(argv=None) -> int:
         result["serving"] = serving
         with torch.inference_mode():
             pw, pw_rows = phase_pointwise(torch, calls["pw"])
-            nms_rows = phase_nms(torch, calls["nms"])
+            nms_rows, greedy_rows = phase_nms(torch, calls["nms"])
         del calls
         result["int8_reference"] = phase_int8_reference(torch, ckpt, TQ,
                                                         ModelConfig)
         images = torch.from_numpy(np.random.default_rng(2).standard_normal(
             (BATCH, *FULL["img_size"]), dtype=np.float32)).to(DEVICE)
-        q_calls, q_launches, result["int8_serving"] = phase_int8_serving(
-            torch, inf, TQ, build, path, images, smi)
+        q_calls, q_launches, result["int8_serving"], exact_epi = \
+            phase_int8_serving(torch, inf, TQ, build, path, images, smi)
+        set_calls, set_launches = phase_int8_sets(torch, TQ, build, path,
+                                                  images)
         with torch.inference_mode():
             q_summary, result["int8_calls"] = phase_int8_kernels(torch,
                                                                  q_calls)
-        del q_calls, images
+            r_summary = phase_region_kernels(
+                torch, [c for c in q_calls if c[0] in REGION_KERNELS]
+                + set_calls, exact_epi)
+        result["region_calls"] = r_summary
+        del q_calls, set_calls, images
         result["cli_rows"] = phase_cli(torch, inf, InferenceConfig, path,
                                        workdir)
         result["cli_int8_rows"] = phase_cli_int8(torch, inf, TQ, path,
                                                  workdir)
     result["pointwise_calls"] = pw_rows
     result["nms_cases"] = nms_rows
+    result["greedy_cases"] = greedy_rows
 
     nms = nms_rows[0]
     kernels = [
@@ -751,15 +1024,29 @@ def main(argv=None) -> int:
          "plain_ms": pw["plain_ms"], "bound_ms": pw["bound_ms"],
          "bound_by": pw["bound_by"], "library_ms": pw["library_ms"]},
     ]
+    # launches: the region's from the default serving call, the tail's and
+    # the exit's from the serving calls of their kernel sets
+    path_launches = dict(q_launches, **set_launches)
     for name, (_, replaces) in INT8_KERNELS.items():
-        q = q_summary[name]
+        q = q_summary.get(name) or r_summary[name]
+        src = "s2d_region_block_q" if name == "s2d_tail_block_q" else name
         kernels.append(
             {"name": name, "route": "cuda",
-             "source": f"yolov3_tpu_torch/csrc/{name}.cu",
-             "replaces": replaces, "launches": q_launches[name],
+             "source": f"yolov3_tpu_torch/csrc/{src}.cu",
+             "replaces": replaces, "launches": path_launches[name],
              "max_abs_err": q["max_abs_err"], "ms": q["ms"],
              "plain_ms": q["plain_ms"], "bound_ms": q["bound_ms"],
              "bound_by": q["bound_by"], "library_ms": q["library_ms"]})
+    greedy = greedy_rows[0]
+    kernels.append(
+        {"name": "greedy_suppress", "route": "cuda",
+         "source": "yolov3_tpu_torch/csrc/greedy_suppress.cu",
+         "replaces": "yolov3_tpu/ops/pallas/nms_kernel.py:295",
+         "launches": greedy["launches"],
+         "max_abs_err": max(r["max_abs_err"] for r in greedy_rows),
+         "ms": greedy["ms"], "plain_ms": greedy["plain_ms"],
+         "bound_ms": greedy["bound_ms"], "bound_by": greedy["bound_by"],
+         "library_ms": None})
     for kern in kernels:
         for key, v in kern.items():
             if isinstance(v, float) and not math.isfinite(v):

@@ -220,3 +220,126 @@ def test_int8_kernels_raise_on_what_they_do_not_take(cuda):
             torch.zeros(1, 4, 4, 16, dtype=torch.int8, device=cuda),
             torch.zeros(9, 16, 16, dtype=torch.int8, device=cuda), epi,
             inv_in=1.0, inv_next=1.0, alpha=0.2, cast_bf16=True)
+
+
+def region_case(rng, n, h1, w1, c1, c, cm, co, cuda, tail=False,
+                kind="s8"):
+    """Random input (s8, bf16 or f32) and stage weights of the stem
+    region, with its epi table (exact and fast) from random folded
+    blocks."""
+    from yolov3_tpu_torch.ops import quant
+    stages = [int8_block(rng, k, ci, cout) for k, ci, cout in (
+        (3, c1, c), (1, c, cm), (3, cm, c), (3, c, co))]
+    scales = (0.04, 0.05, 0.06, 0.07)
+    rows = [e for _, e in stages] + list(scales)
+    shape = (n, h1 // 2, w1 // 2, c) if tail else (n, h1, w1, c1)
+    x = int8_input(rng, shape, kind, cuda)
+    ws = [w.to(cuda) for w, _ in stages]
+    epis = {fast: quant.region_epi(*rows, fast=fast).to(cuda)
+            for fast in (False, True)}
+    return x, ws, epis, quant.tail_epi(*rows[1:]).to(cuda)
+
+
+@pytest.mark.parametrize("n,h1,w1,c1,c,cm,co", [
+    (2, 16, 16, 16, 32, 16, 64),     # one tile
+    (1, 44, 36, 32, 64, 32, 128),    # ragged tiles (11 x 9 out)
+    (3, 20, 28, 16, 16, 32, 48),     # odd out size, narrow stages
+    (8, 128, 128, 32, 64, 32, 128)])  # flagship channels
+@pytest.mark.parametrize("fast,cast,kind", [
+    (False, True, "s8"), (False, False, "s8"), (True, True, "s8"),
+    (True, True, "bf16"), (False, False, "f32")])
+def test_s2d_region_matches_plain(cuda, n, h1, w1, c1, c, cm, co, fast,
+                                  cast, kind):
+    from yolov3_tpu_torch.ops.kernels import s2d_region_q as K
+    x, ws, epis, _ = region_case(np.random.RandomState(h1 + c), n, h1, w1,
+                                 c1, c, cm, co, cuda, kind=kind)
+    # a float x is quantized in the kernel with 1/s = 40
+    kw = dict(alpha=0.2, cast_bf16=cast, fast=fast,
+              inv_in=None if kind == "s8" else 40.0)
+    got = launched(K, lambda: K.s2d_region_block_q(x, *ws, epis[fast],
+                                                   **kw))
+    want = K.s2d_region_block_q_plain(x, *ws, epis[fast], **kw)
+    assert got.shape == (n, h1 // 4, w1 // 4, co)
+    assert_int8_close(got, want)
+
+
+@pytest.mark.parametrize("n,h1,w1", [(2, 16, 16), (1, 44, 36), (3, 20, 28)])
+def test_s2d_tail_matches_plain(cuda, n, h1, w1):
+    from yolov3_tpu_torch.ops.kernels import s2d_tail_q as K
+    x, ws, _, epi = region_case(np.random.RandomState(h1), n, h1, w1, 32,
+                                64, 32, 128, cuda, tail=True)
+    kw = dict(alpha=0.2, cast_bf16=True)
+    got = launched(K, lambda: K.s2d_tail_block_q(x, *ws[1:], epi, **kw))
+    assert_int8_close(got, K.s2d_tail_block_q_plain(x, *ws[1:], epi, **kw))
+
+
+@pytest.mark.parametrize("shape,co,cast", [((2, 16, 16, 64), 128, True),
+                                           ((1, 9, 13, 32), 64, False),
+                                           ((8, 64, 64, 64), 128, True)])
+def test_exit_conv_matches_plain(cuda, shape, co, cast):
+    from yolov3_tpu_torch.ops import quant
+    from yolov3_tpu_torch.ops.kernels import exit_conv_q as K
+    rng = np.random.RandomState(shape[1] + co)
+    w_t, epi3 = int8_block(rng, 3, shape[-1], co)
+    epi = quant.exit_epi(epi3, 0.07).to(cuda)
+    x = int8_input(rng, shape, "s8", cuda)
+    w_t = w_t.to(cuda)
+    kw = dict(alpha=0.2, cast_bf16=cast)
+    got = launched(K, lambda: K.exit_conv_block_q(x, w_t, epi, **kw))
+    assert_int8_close(got, K.exit_conv_block_q_plain(x, w_t, epi, **kw))
+
+
+@pytest.mark.parametrize("c,k,sparse", [(128, 512, False), (128, 512, True),
+                                        (5, 37, True)])
+def test_greedy_kernel_bit_equal(cuda, c, k, sparse):
+    from yolov3_tpu_torch.ops.nms import pairwise_iou
+    cand, valid = sorted_candidates(np.random.RandomState(c + k + 1), c, k)
+    if not sparse:
+        valid[:] = True
+    ct, vt = torch.from_numpy(cand).to(cuda), torch.from_numpy(valid).to(cuda)
+    iou = pairwise_iou(ct).contiguous()
+    before = _build.launch_counts[NMS.GREEDY]
+    got = NMS.greedy_suppress(iou, vt, 0.3)
+    torch.cuda.synchronize()
+    assert _build.launch_counts[NMS.GREEDY] == before + 1
+    assert torch.equal(got.cpu(), NMS.greedy_suppress_plain(
+        iou.cpu(), vt.cpu(), 0.3))
+    assert torch.equal(got, NMS.suppress_boxes_t(ct, vt, 0.3))
+    # an asymmetric slab: the kernel reads row i for candidate i
+    rnd = torch.rand(c, k, k, device=cuda, generator=torch.Generator(
+        cuda).manual_seed(c))
+    assert torch.equal(NMS.greedy_suppress(rnd, vt, 0.9).cpu(),
+                       NMS.greedy_suppress_plain(rnd.cpu(), vt.cpu(), 0.9))
+
+
+def test_region_kernels_raise_on_what_they_do_not_take(cuda):
+    from yolov3_tpu_torch.ops.kernels import exit_conv_q, s2d_region_q
+    x, ws, epis, _ = region_case(np.random.RandomState(0), 1, 16, 16, 16, 32,
+                                 16, 64, cuda)
+    with pytest.raises(ValueError):  # H = 18 is not a multiple of 4
+        s2d_region_q.s2d_region_block_q(
+            torch.zeros(1, 18, 16, 16, dtype=torch.int8, device=cuda), *ws,
+            epis[False], alpha=0.2, cast_bf16=True)
+    with pytest.raises(TypeError):  # the region takes s8, bf16 or f32
+        s2d_region_q.s2d_region_block_q(x.double(), *ws, epis[False],
+                                        alpha=0.2, cast_bf16=True,
+                                        inv_in=1.0)
+    with pytest.raises(ValueError):  # a float x needs its 1/s
+        s2d_region_q.s2d_region_block_q(x.float(), *ws, epis[False],
+                                        alpha=0.2, cast_bf16=True)
+    with pytest.raises(ValueError):  # 8 channels are not a multiple of 16
+        s2d_region_q.launch(
+            s2d_region_q.NAME, torch.zeros(1, 16, 16, 8, dtype=torch.int8,
+                                           device=cuda),
+            [torch.zeros(9, 32, 8, dtype=torch.int8, device=cuda)] + ws[1:],
+            epis[False], alpha=0.2, cast_bf16=True)
+    with pytest.raises(TypeError):  # the exit conv takes s8
+        exit_conv_q.exit_conv_block_q(
+            torch.zeros(1, 8, 8, 64, device=cuda),
+            torch.zeros(9, 64, 64, dtype=torch.int8, device=cuda),
+            torch.zeros(4, 64, device=cuda), alpha=0.2, cast_bf16=True)
+    with pytest.raises(TypeError):  # the greedy kernel takes f32 and bool
+        NMS.greedy_suppress(torch.zeros(2, 8, 8, dtype=torch.float64,
+                                        device=cuda),
+                            torch.ones(2, 8, dtype=torch.bool, device=cuda),
+                            0.3)

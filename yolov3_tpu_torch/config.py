@@ -7,12 +7,14 @@ package unchanged.
 
 Every field of the JAX config is accepted, including the TPU-only ones
 (`stem_space_to_depth`, `s2d_base_grads`, `stem1_im2row_grads`,
-`int8_train`, `int8_train_static`, `remat_blocks`). The inference forward
-of this port ignores them: the space-to-depth stem is the same math as the
+`int8_train`, `int8_train_static`, `remat_blocks`). The float forward of
+this port ignores them: the space-to-depth stem is the same math as the
 plain stem laid out for the TPU's 128-wide lanes (one variable tree for
 both), and the two grad options change only how the TPU computes weight
 gradients. int8 post-training-quantized serving is ported
-(`models/quantized.py`, selected by the caller, not by the config);
+(`models/quantized.py`, selected by the caller, not by the config); as in
+the reference, `stem_space_to_depth` is where its stem-region kernels
+apply (computed in the plain layout);
 `int8_train` and `int8_train_static` (quantization-aware training) and
 `remat_blocks` select the training forward, which waits for the QAT and
 training ports.
@@ -50,7 +52,8 @@ class ModelConfig:
     block_count: int = BLOCK_COUNT
     filter_count: int = FILTER_COUNT
     kernel_size: int = KERNEL_SIZE
-    # TPU layout of the stem; ignored here (same math, same tree)
+    # TPU layout of the stem (same math, same tree); the int8 stem-region
+    # kernels apply under it, as in the reference
     stem_space_to_depth: bool = True
     # inference 1x1 ConvBlocks through the fused pointwise kernel
     use_pallas_pointwise: bool = False

@@ -1,8 +1,9 @@
-// Shared core of the port's three int8 ConvBlock kernels for Hopper
+// Shared core of the port's four int8 ConvBlock kernels for Hopper
 // (sm_90a): pointwise_conv_block_q.cu (1x1), conv3x3_block_q.cu (3x3
-// stride 1) and down_conv_block_q.cu (3x3 stride 2). Each .cu file
-// includes this header and exposes one C entry point that checks its own
-// contract before it launches.
+// stride 1), down_conv_block_q.cu (3x3 stride 2, float in) and
+// exit_conv_block_q.cu (3x3 stride 2, s8 in). Each .cu file includes this
+// header and exposes one C entry point that checks its own contract before
+// it launches.
 //
 // One implicit GEMM over NHWC tensors, exact in int32:
 //
@@ -59,7 +60,7 @@ enum InKind { kS8 = 0, kBF16 = 1, kF32 = 2 };
 struct Params {
   const void* x;          // [n, h, w, ci] s8, bf16 or f32
   const int8_t* w;        // [taps, co, ci] s8
-  const float* epi;       // [3, co] f32: b/dq, mul*dq, add
+  const float* epi;       // [3, co] f32: b/dq, mul*dq, add (+ 1/s_next)
   const int8_t* res_in;   // [n, h, w, ci] s8 or null
   const int8_t* res_out;  // [n, oh, ow, co] s8 or null
   int8_t* out_s8;         // [n, oh, ow, co] or null
@@ -68,6 +69,7 @@ struct Params {
   int n, h, w_, ci, co, oh, ow, ksize, stride, pad_t, pad_l;
   float inv_in, inv_next, res_scale, alpha;
   int cast_bf16;
+  int inv_next_row;       // 1: out_s8's 1/s is epi row 3 ([4, co] epi)
 };
 
 __device__ __forceinline__ float bf16_round(float v) {
@@ -255,7 +257,9 @@ conv_block_q_kernel(const Params p) {
       else
         static_cast<float*>(p.out_f)[o] = y;
     }
-    if (p.out_s8 != nullptr) p.out_s8[o] = quantize(y, p.inv_next);
+    if (p.out_s8 != nullptr)
+      p.out_s8[o] =
+          quantize(y, p.inv_next_row ? p.epi[3 * p.co + gc] : p.inv_next);
   }
 }
 

@@ -1,0 +1,567 @@
+// The int8 stem region as one kernel for Hopper (sm_90a), with the tail as
+// a second entry point.
+//
+// Replaces yolov3_tpu/ops/pallas/s2d_region_kernel.py::s2d_region_block_q
+// (entry `s2d_region_block_q`) and s2d_tail_kernel.py::s2d_tail_block_q
+// (entry `s2d_tail_block_q`). The TPU kernels work on the space-to-depth
+// view of the stem; here the same function runs in the plain NHWC layout,
+// where each lifted convolution is the plain one (SAME padding: (0, 1) for
+// both stride-2 convs on even sizes, (1, 1) for the 3x3):
+//
+//   x   [n, 2h2, 2w2, c1]       stem1's output: s8 at ConvBlock_1's scale
+//                               s1, or bf16 / f32 quantized to it while
+//                               the tile is loaded, clip(rint(x * 1/s1))
+//   q2  = stage(conv3x3 s2 (x, w_s2), rows 13-16)    stem2,   scale s2
+//   q3  = stage(conv1x1 (q2, w_pw),   rows 0-3)      FB0 1x1, scale s3
+//         (zero off the image: FB0's 3x3 pads with zeros, not pw(0))
+//   q4  = fb0(conv3x3 (q3, w_fb0), residual q2, rows 4-8)      scale s4
+//         (zero on the exit's bottom/right pad row and column)
+//   out = stage(conv3x3 s2 (q4, w_ex), rows 9-12)    s8 [n, h2/2, w2/2, co]
+//
+// The tail entry starts at q2 = its input (stem2's s8 output). The
+// epilogues are the JAX kernels', op for op and each op separately
+// rounded (-fmad=false):
+//   exact: y = leaky(acc + b) * m + a; [cast] bf16(y); q = clip(rint(y*inv))
+//          fb0: bf16(bf16(q2 * s2) + bf16(z)), then quantized with 1/s4
+//   fast:  y = max(y, alpha*y) with 1/s folded into m and a; q = clip(rint(
+//          y*m + a)); fb0 adds q2 * (s2/s4) before the rounding
+// rintf rounds half to even, as jnp.round does.
+//
+// What bounds it: at the flagship (b8, stem1 out 8x512x512x32) 30.1 G MACs
+// (60.1 G int8 operations, 0.030 ms at 1979 TOP/s) against 134 MB in
+// (bf16) and 17 MB out (0.045 ms at 3.35 TB/s): neither, by much; the four
+// unfused launches it replaces move 0.42 GB between stages.
+//
+// Design: one block of sixteen warps per (image, T x T tile of output
+// pixels). The block copies its input tile with the halo (4T+7 square for
+// the region; quantized on the way when x is a float) into shared memory
+// and recomputes the halo of every stage (q2/q3 on (2T+3)^2, q4 on
+// (2T+1)^2), so no stage boundary reaches device memory and no block
+// depends on another. Each stage is an implicit GEMM over the shared tiles
+// with mma.sync m16n8k16 s8 -> s32: a warp takes 32 pixels (16 in the
+// exit) x 32 channels (16 where the stage is narrower), its A and B
+// fragments loaded with ldmatrix, A's rows being any pixels of the tile (a
+// tap's shifted or strided window needs no copy). Each pixel's channels and
+// each weight row are padded by 16 bytes, which spreads ldmatrix's eight
+// rows over the banks. Copies go through cp.async: the epi table, the
+// first two stages' weights and an s8 input tile up front (a float tile is
+// read and quantized meanwhile), FB0's 3x3 and the exit's weights while
+// the 1x1 runs (into the buffer the input tile leaves). The epilogue reads
+// each channel pair's constants
+// once per warp tile. T = 8 at the flagship: 196 KB of shared memory, one
+// block per SM, 1.41x stem2 and 1.13x fb0 recompute. wgmma, TMA and
+// overlapping one tile's copies with another's products are later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kWarps = 16;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kPad = 16;  // bytes after each pixel's channels in smem
+constexpr int kSmemMax = 232448;
+
+enum InKind { kS8 = 0, kBF16 = 1, kF32 = 2 };
+
+struct Params {
+  const void* x;        // region: [n, 2h2, 2w2, c1]; tail: [n, h2, w2, c]
+  const int8_t* w_s2;   // [9, c, c1]
+  const int8_t* w_pw;   // [1, cm, c]
+  const int8_t* w_fb0;  // [9, c, cm]
+  const int8_t* w_ex;   // [9, co, c]
+  const float* epi;     // [17 or 13, e]
+  int8_t* out;          // [n, h3, w3, co]
+  int h2, w2, h3, w3, c1, c, cm, co, e, tile;
+  float alpha;
+  int cast_bf16, fast;
+  int x_kind;           // InKind of x (the tail takes s8)
+  float inv_in;         // 1/s1, the quantize of a float x
+};
+
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__device__ __forceinline__ int8_t clip_rint(float y) {
+  const float q = fminf(fmaxf(rintf(y), -127.0f), 127.0f);
+  return static_cast<int8_t>(static_cast<int>(q));
+}
+
+// a conv stage's epilogue and requantize (stem2, pw, exit)
+__device__ __forceinline__ int8_t stage_q(int acc, float b, float m, float a,
+                                          float inv, const Params& p) {
+  float y = __fadd_rn(__int2float_rn(acc), b);
+  if (p.fast) {
+    y = fmaxf(y, __fmul_rn(p.alpha, y));
+    return clip_rint(__fadd_rn(__fmul_rn(y, m), a));
+  }
+  y = y >= 0.0f ? y : __fmul_rn(p.alpha, y);
+  y = __fadd_rn(__fmul_rn(y, m), a);
+  if (p.cast_bf16) y = bf16_round(y);
+  return clip_rint(__fmul_rn(y, inv));
+}
+
+// FB0's 3x3 epilogue with the block's residual (q2's code `res`)
+__device__ __forceinline__ int8_t fb0_q(int acc, float b, float m, float a,
+                                        float r, float inv, float res,
+                                        const Params& p) {
+  float z = __fadd_rn(__int2float_rn(acc), b);
+  if (p.fast) {
+    z = fmaxf(z, __fmul_rn(p.alpha, z));
+    return clip_rint(
+        __fadd_rn(__fadd_rn(__fmul_rn(z, m), a), __fmul_rn(res, r)));
+  }
+  z = z >= 0.0f ? z : __fmul_rn(p.alpha, z);
+  z = __fadd_rn(__fmul_rn(z, m), a);
+  if (p.cast_bf16) z = bf16_round(z);
+  float rs = __fmul_rn(res, r);
+  if (p.cast_bf16) rs = bf16_round(rs);
+  float y = __fadd_rn(rs, z);
+  if (p.cast_bf16) y = bf16_round(y);
+  return clip_rint(__fmul_rn(y, inv));
+}
+
+__device__ __forceinline__ void mma16816(int* d, uint32_t a0, uint32_t a1,
+                                         uint32_t b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a0), "r"(a1), "r"(b0));
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ldmatrix: lane l gives the 16-byte row address of matrix l / 8; each
+// thread receives, of every matrix, row lane / 4, bytes 4 (lane % 4) + 0..3
+// -- exactly an mma.sync m16n8k16 s8 fragment register.
+__device__ __forceinline__ void ldsm_x4(uint32_t& r0, uint32_t& r1,
+                                        uint32_t& r2, uint32_t& r3,
+                                        uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t& r0, uint32_t& r1,
+                                        uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(addr));
+}
+
+// The epilogue constants of two adjacent channels: rows b, m, a, the
+// residual dequant r (FB0's 3x3 only) and inv, of the epi table.
+struct Cols {
+  float2 b, m, a, r, inv;
+};
+
+__device__ __forceinline__ Cols cols_at(const float* E, int e, int row0,
+                                        int o, bool residual) {
+  const auto at = [&](int row) {
+    return *reinterpret_cast<const float2*>(E + row * e + o);
+  };
+  Cols c;
+  c.b = at(row0);
+  c.m = at(row0 + 1);
+  c.a = at(row0 + 2);
+  c.r = residual ? at(row0 + 3) : make_float2(0.0f, 0.0f);
+  c.inv = at(row0 + (residual ? 4 : 3));
+  return c;
+}
+
+// a stage's two channels: epilogue and requantize
+__device__ __forceinline__ char2 stage_q2(int a0, int a1, const Cols& c,
+                                          const Params& p) {
+  return make_char2(stage_q(a0, c.b.x, c.m.x, c.a.x, c.inv.x, p),
+                    stage_q(a1, c.b.y, c.m.y, c.a.y, c.inv.y, p));
+}
+
+// One stage as an implicit GEMM over shared-memory tiles:
+//   acc[m, o] = sum_{u, v < KS} sum_k in[(i*S + u)*inw + j*S + v][k]
+//                                     * w[u*KS + v][o][k]
+// for grid pixel m = i*gw + j (gh x gw pixels), o < N; K channels in. The
+// input pixels are `ips` bytes apart, the weights' rows (o) `wps` bytes
+// (both K + kPad). `fin(m, m / gw, o, load_cols(o), acc_o, acc_o+1)` takes
+// every pair of sums, with the epilogue constants of channels o, o+1. A
+// warp holds 16*MT pixels x 8*NT channels (N % (8*NT) == 0): per 16-deep K
+// step one ldmatrix for A (rows = pixels, any addresses), one for B, and
+// MT*NT mma.sync m16n8k16; C (g, 2t..2t+1) and (g+8, 2t..2t+1).
+template <int KS, int S, int MT, int NT, class LoadCols, class Fin>
+__device__ __forceinline__ void conv_stage(const int8_t* in, int ips, int inw,
+                                           int gh, int gw, const int8_t* w,
+                                           int wps, int K, int N,
+                                           LoadCols load_cols, Fin fin) {
+  static_assert(NT == 2 || NT == 4, "B is one ldmatrix of 2 or 4 matrices");
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int M = gh * gw;
+  const int mitems = (M + 16 * MT - 1) / (16 * MT);
+  const int nitems = N / (8 * NT);
+  for (int item = warp; item < mitems * nitems; item += kWarps) {
+    const int mi = item / nitems;
+    const int n0 = (item - mi * nitems) * 8 * NT;
+    const int m0 = mi * 16 * MT;
+    // this lane's A row (a pixel) and B row (an output channel)
+    const int r = min(m0 + (lane & (16 * MT - 1)), M - 1);
+    const int ri = r / gw;
+    const uint32_t a_base =
+        smem_u32(in + ((ri * S) * inw + (r - ri * gw) * S) * ips);
+    const uint32_t b_base = smem_u32(w + (n0 + (lane & (8 * NT - 1))) * wps);
+    int acc[MT][NT][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[i][j][q] = 0;
+#pragma unroll
+    for (int u = 0; u < KS; ++u) {
+#pragma unroll
+      for (int v = 0; v < KS; ++v) {
+        const uint32_t a_tap = a_base + (u * inw + v) * ips;
+        const uint32_t b_tap = b_base + (u * KS + v) * N * wps;
+        for (int k0 = 0; k0 < K; k0 += 16) {
+          uint32_t a[MT][2], b[NT];
+          if constexpr (MT == 2)
+            ldsm_x4(a[0][0], a[0][1], a[MT - 1][0], a[MT - 1][1],
+                    a_tap + k0);
+          else
+            ldsm_x2(a[0][0], a[0][1], a_tap + k0);
+          if constexpr (NT == 4)
+            ldsm_x4(b[0], b[1], b[2], b[NT - 1], b_tap + k0);
+          else
+            ldsm_x2(b[0], b[NT - 1], b_tap + k0);
+#pragma unroll
+          for (int i = 0; i < MT; ++i)
+#pragma unroll
+            for (int j = 0; j < NT; ++j)
+              mma16816(acc[i][j], a[i][0], a[i][1], b[j]);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int o = n0 + 8 * j + 2 * t;
+      const Cols cols = load_cols(o);
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const int r0 = m0 + 16 * i + g, r1 = r0 + 8;
+        if (r0 < M) fin(r0, r0 / gw, o, cols, acc[i][j][0], acc[i][j][1]);
+        if (r1 < M) fin(r1, r1 / gw, o, cols, acc[i][j][2], acc[i][j][3]);
+      }
+    }
+  }
+}
+
+// The stage with the widest channel blocks N allows (32, else 16).
+template <int KS, int S, int MT, class LoadCols, class Fin>
+__device__ __forceinline__ void stage(const int8_t* in, int ips, int inw,
+                                      int gh, int gw, const int8_t* w,
+                                      int K, int N, LoadCols load_cols,
+                                      Fin fin) {
+  if (N % 32 == 0)
+    conv_stage<KS, S, MT, 4>(in, ips, inw, gh, gw, w, K + kPad, K, N,
+                             load_cols, fin);
+  else
+    conv_stage<KS, S, MT, 2>(in, ips, inw, gh, gw, w, K + kPad, K, N,
+                             load_cols, fin);
+}
+
+// 16 bytes global -> shared without a register round trip; src_bytes 0
+// fills zeros.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
+}
+
+// Copy a (side x side)-pixel tile of an s8 NHWC image, origin (r0, c0),
+// into shared memory at `ps` bytes a pixel; zeros off the image.
+__device__ __forceinline__ void load_tile(int8_t* dst, int ps, int side,
+                                          const int8_t* __restrict__ src,
+                                          int h, int w, int ch, int r0,
+                                          int c0) {
+  const int vecs = ch >> 4;
+  for (int idx = threadIdx.x; idx < side * side * vecs; idx += kThreads) {
+    const int pix = idx / vecs, vec = idx - pix * vecs;
+    const int i = pix / side, j = pix - i * side;
+    const int gr = r0 + i, gc = c0 + j;
+    const bool in = gr >= 0 && gr < h && gc >= 0 && gc < w;
+    cp_async16(dst + pix * ps + vec * 16,
+               in ? src + (static_cast<size_t>(gr) * w + gc) * ch + vec * 16
+                  : src,
+               in ? 16 : 0);
+  }
+}
+
+// 16 channels of a bf16 or f32 x from element `off`, quantized to s8:
+// clip(rint(x * inv)), each product rounded on its own (-fmad=false).
+template <int KIND>
+__device__ __forceinline__ uint4 quantize16(const void* __restrict__ src,
+                                            size_t off, float inv) {
+  float f[16];
+  if constexpr (KIND == kBF16) {
+    // a bf16 is the top half of the f32 with the same value
+    const uint4* s = reinterpret_cast<const uint4*>(
+        static_cast<const __nv_bfloat16*>(src) + off);
+    const uint4 lo = __ldg(s), hi = __ldg(s + 1);
+    const uint32_t words[8] = {lo.x, lo.y, lo.z, lo.w,
+                               hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      f[2 * i] = __uint_as_float(words[i] << 16);
+      f[2 * i + 1] = __uint_as_float(words[i] & 0xffff0000u);
+    }
+  } else {
+    const float4* s =
+        reinterpret_cast<const float4*>(static_cast<const float*>(src) + off);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float4 v = __ldg(s + j);
+      f[4 * j] = v.x;
+      f[4 * j + 1] = v.y;
+      f[4 * j + 2] = v.z;
+      f[4 * j + 3] = v.w;
+    }
+  }
+  union {
+    uint4 u;
+    int8_t s8[16];
+  } out;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) out.s8[i] = clip_rint(__fmul_rn(f[i], inv));
+  return out.u;
+}
+
+// load_tile for a bf16 or f32 image: each 16 channels read, quantized with
+// `inv` and stored as s8 codes; zeros off the image.
+template <int KIND>
+__device__ __forceinline__ void load_tile_q(int8_t* dst, int ps, int side,
+                                            const void* __restrict__ src,
+                                            int h, int w, int ch, int r0,
+                                            int c0, float inv) {
+  const int vecs = ch >> 4;
+  for (int idx = threadIdx.x; idx < side * side * vecs; idx += kThreads) {
+    const int pix = idx / vecs, vec = idx - pix * vecs;
+    const int i = pix / side, j = pix - i * side;
+    const int gr = r0 + i, gc = c0 + j;
+    uint4 q = make_uint4(0, 0, 0, 0);
+    if (gr >= 0 && gr < h && gc >= 0 && gc < w)
+      q = quantize16<KIND>(
+          src, (static_cast<size_t>(gr) * w + gc) * ch + vec * 16, inv);
+    *reinterpret_cast<uint4*>(dst + pix * ps + vec * 16) = q;
+  }
+}
+
+// Copy `rows` rows of k bytes (a stage's [taps * N, K] weights) into
+// shared memory at k + kPad bytes a row.
+__device__ __forceinline__ void load_rows(int8_t* dst,
+                                          const int8_t* __restrict__ src,
+                                          int rows, int k) {
+  const int vecs = k >> 4;
+  for (int idx = threadIdx.x; idx < rows * vecs; idx += kThreads) {
+    const int row = idx / vecs, vec = idx - row * vecs;
+    cp_async16(dst + row * (k + kPad) + vec * 16,
+               src + static_cast<size_t>(row) * k + vec * 16, 16);
+  }
+}
+
+// Shared memory of one block, in order: a buffer that first holds the
+// input tile and stem2's weights (region only), then FB0's 3x3 and the
+// exit's weights; the 1x1's weights; q2, q3, q4; the epi table.
+struct Layout {
+  size_t x, ws2, wfb, wex, wpw, q2, q3, q4, epi, total;
+};
+
+__host__ __device__ inline Layout layout(bool region, int tile, int c1, int c,
+                                         int cm, int co, int rows, int e) {
+  const size_t xw = 4 * tile + 7, qw = 2 * tile + 3, q4w = 2 * tile + 1;
+  Layout l;
+  l.x = 0;
+  l.ws2 = region ? xw * xw * (c1 + kPad) : 0;
+  const size_t first = region ? l.ws2 + 9 * static_cast<size_t>(c) *
+                                            (c1 + kPad)
+                              : 0;
+  l.wfb = 0;
+  l.wex = 9 * static_cast<size_t>(c) * (cm + kPad);
+  const size_t second = l.wex + 9 * static_cast<size_t>(co) * (c + kPad);
+  l.wpw = first > second ? first : second;
+  l.q2 = l.wpw + static_cast<size_t>(cm) * (c + kPad);
+  l.q3 = l.q2 + qw * qw * (c + kPad);
+  l.q4 = l.q3 + qw * qw * (cm + kPad);
+  l.epi = l.q4 + q4w * q4w * (c + kPad);
+  l.total = l.epi + static_cast<size_t>(rows) * e * 4;
+  return l;
+}
+
+template <bool kRegion>
+__global__ void __launch_bounds__(kThreads, 1) region_kernel(const Params p) {
+  extern __shared__ __align__(16) int8_t smem[];
+  const int T = p.tile;
+  const int XW = 4 * T + 7, QW = 2 * T + 3, Q4W = 2 * T + 1;
+  const int xs = p.c1 + kPad, s2s = p.c + kPad, s3s = p.cm + kPad;
+  const int s4s = p.c + kPad;
+  const int rows = kRegion ? 17 : 13;
+  const int e = p.e;
+  const Layout L = layout(kRegion, T, p.c1, p.c, p.cm, p.co, rows, e);
+  int8_t* q2 = smem + L.q2;
+  int8_t* q3 = smem + L.q3;
+  int8_t* q4 = smem + L.q4;
+  float* E = reinterpret_cast<float*>(smem + L.epi);
+  const int img = blockIdx.z;
+  const int R0 = blockIdx.y * T, C0 = blockIdx.x * T;
+
+  // epi table, the 1x1's weights, and the first stage's operands
+  for (int i = threadIdx.x; i < rows * e / 4; i += kThreads)
+    cp_async16(E + 4 * i, p.epi + 4 * i, 16);
+  load_rows(smem + L.wpw, p.w_pw, p.cm, p.c);
+  if (kRegion) {
+    // stem1 rows/cols 4R0-2 .. 4R0+4T+4 feed q2 rows 2R0-1 .. 2R0+2T+1
+    const int h1 = 2 * p.h2, w1 = 2 * p.w2;
+    const size_t x0 = static_cast<size_t>(img) * h1 * w1 * p.c1;
+    load_rows(smem + L.ws2, p.w_s2, 9 * p.c, p.c1);
+    if (p.x_kind == kS8)
+      load_tile(smem + L.x, xs, XW, static_cast<const int8_t*>(p.x) + x0, h1,
+                w1, p.c1, 4 * R0 - 2, 4 * C0 - 2);
+    else if (p.x_kind == kBF16)
+      load_tile_q<kBF16>(smem + L.x, xs, XW,
+                         static_cast<const __nv_bfloat16*>(p.x) + x0, h1, w1,
+                         p.c1, 4 * R0 - 2, 4 * C0 - 2, p.inv_in);
+    else
+      load_tile_q<kF32>(smem + L.x, xs, XW,
+                        static_cast<const float*>(p.x) + x0, h1, w1, p.c1,
+                        4 * R0 - 2, 4 * C0 - 2, p.inv_in);
+    cp_async_wait_all();
+    __syncthreads();
+    stage<3, 2, 2>(smem + L.x, xs, XW, QW, QW, smem + L.ws2, p.c1, p.c,
+                   [&](int o) { return cols_at(E, e, 13, o, false); },
+                   [&](int r, int, int o, const Cols& c, int a0, int a1) {
+                     *reinterpret_cast<char2*>(q2 + r * s2s + o) =
+                         stage_q2(a0, a1, c, p);
+                   });
+    __syncthreads();  // the input tile and stem2's weights are dead
+  } else {
+    load_tile(q2, s2s, QW,
+              static_cast<const int8_t*>(p.x) +
+                  static_cast<size_t>(img) * p.h2 * p.w2 * p.c,
+              p.h2, p.w2, p.c, 2 * R0 - 1, 2 * C0 - 1);
+    cp_async_wait_all();
+    __syncthreads();
+  }
+  // FB0's 3x3 and the exit's weights arrive while the 1x1 runs
+  load_rows(smem + L.wfb, p.w_fb0, 9 * p.c, p.cm);
+  load_rows(smem + L.wex, p.w_ex, 9 * p.co, p.c);
+  asm volatile("cp.async.commit_group;\n" ::);
+  stage<1, 1, 2>(q2, s2s, QW, QW, QW, smem + L.wpw, p.c, p.cm,
+                 [&](int o) { return cols_at(E, e, 0, o, false); },
+                 [&](int r, int i, int o, const Cols& c, int a0, int a1) {
+                   const int gr = 2 * R0 - 1 + i;
+                   const int gc = 2 * C0 - 1 + r - i * QW;
+                   const bool in =
+                       gr >= 0 && gr < p.h2 && gc >= 0 && gc < p.w2;
+                   *reinterpret_cast<char2*>(q3 + r * s3s + o) =
+                       in ? stage_q2(a0, a1, c, p) : make_char2(0, 0);
+                 });
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();
+  stage<3, 1, 2>(q3, s3s, QW, Q4W, Q4W, smem + L.wfb, p.cm, p.c,
+                 [&](int o) { return cols_at(E, e, 4, o, true); },
+                 [&](int r, int i, int o, const Cols& c, int a0, int a1) {
+                   const int j = r - i * Q4W;
+                   char2 q = make_char2(0, 0);
+                   if (2 * R0 + i < p.h2 && 2 * C0 + j < p.w2) {
+                     const char2 res = *reinterpret_cast<const char2*>(
+                         q2 + ((i + 1) * QW + j + 1) * s2s + o);
+                     q.x = fb0_q(a0, c.b.x, c.m.x, c.a.x, c.r.x, c.inv.x,
+                                 static_cast<float>(res.x), p);
+                     q.y = fb0_q(a1, c.b.y, c.m.y, c.a.y, c.r.y, c.inv.y,
+                                 static_cast<float>(res.y), p);
+                   }
+                   *reinterpret_cast<char2*>(q4 + r * s4s + o) = q;
+                 });
+  __syncthreads();
+  stage<3, 2, 1>(q4, s4s, Q4W, T, T, smem + L.wex, p.c, p.co,
+                 [&](int o) { return cols_at(E, e, 9, o, false); },
+                 [&](int r, int i, int o, const Cols& c, int a0, int a1) {
+                   const int gr = R0 + i, gc = C0 + r - i * T;
+                   if (gr < p.h3 && gc < p.w3)
+                     *reinterpret_cast<char2*>(
+                         p.out + ((static_cast<size_t>(img) * p.h3 + gr) *
+                                      p.w3 + gc) * p.co + o) =
+                         stage_q2(a0, a1, c, p);
+                 });
+}
+
+template <bool kRegion>
+int launch(const Params& p, int n, cudaStream_t stream) {
+  const size_t smem = layout(kRegion, p.tile, p.c1, p.c, p.cm, p.co,
+                             kRegion ? 17 : 13, p.e).total;
+  if (smem > static_cast<size_t>(kSmemMax))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0 || p.h3 == 0 || p.w3 == 0) return 0;
+  const cudaError_t e = cudaFuncSetAttribute(
+      region_kernel<kRegion>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((p.w3 + p.tile - 1) / p.tile, (p.h3 + p.tile - 1) / p.tile,
+                  n);
+  region_kernel<kRegion><<<grid, kThreads, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool channels_ok(int c1, int c, int cm, int co) {
+  return c1 > 0 && c > 0 && cm > 0 && co > 0 && c1 % 16 == 0 &&
+         c % 16 == 0 && cm % 16 == 0 && co % 16 == 0;
+}
+
+}  // namespace
+
+// x [n, h1, w1, c1] (h1, w1 multiples of 4) of kind x_kind (0 s8, 1 bf16,
+// 2 f32: quantized with inv_in) -> out s8 [n, h1/4, w1/4, co]. epi f32
+// [17, e], e >= max(c, cm, co). Returns a cudaError_t code.
+extern "C" int s2d_region_block_q(const void* x, int x_kind, float inv_in,
+                                  const int8_t* w_s2, const int8_t* w_pw,
+                                  const int8_t* w_fb0, const int8_t* w_ex,
+                                  const float* epi, int epi_rows, int e,
+                                  int8_t* out, int n, int h1, int w1, int c1,
+                                  int c, int cm, int co, int tile,
+                                  float alpha, int cast_bf16, int fast,
+                                  cudaStream_t stream) {
+  if (h1 % 4 || w1 % 4 || !channels_ok(c1, c, cm, co) || epi_rows != 17 ||
+      e < c || e < cm || e < co || e % 4 || tile < 1 || n > 65535 ||
+      x_kind < kS8 || x_kind > kF32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Params p{x,      w_s2,   w_pw,   w_fb0,  w_ex,  epi,   out,
+                 h1 / 2, w1 / 2, h1 / 4, w1 / 4, c1,    c,     cm,
+                 co,     e,      tile,   alpha,  cast_bf16, fast, x_kind,
+                 inv_in};
+  return launch<true>(p, n, stream);
+}
+
+// x s8 [n, h2, w2, c] (stem2's output; h2, w2 even) -> out s8
+// [n, h2/2, w2/2, co]; epi f32 [13, e], the exact epilogue.
+extern "C" int s2d_tail_block_q(const int8_t* x, const int8_t* w_pw,
+                                const int8_t* w_fb0, const int8_t* w_ex,
+                                const float* epi, int epi_rows, int e,
+                                int8_t* out, int n, int h2, int w2, int c,
+                                int cm, int co, int tile, float alpha,
+                                int cast_bf16, cudaStream_t stream) {
+  if (h2 % 2 || w2 % 2 || !channels_ok(16, c, cm, co) || epi_rows != 13 ||
+      e < c || e < cm || e < co || e % 4 || tile < 1 || n > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Params p{x,  nullptr, w_pw,   w_fb0,  w_ex, epi,   out,
+                 h2, w2,      h2 / 2, w2 / 2, 0,    c,     cm,
+                 co, e,       tile,   alpha,  cast_bf16, 0, kS8, 1.0f};
+  return launch<false>(p, n, stream);
+}

@@ -15,9 +15,9 @@ code path:
           into the epilogue.
 
 The int8 wiring is the reference's under `pointwise_pallas`,
-`conv3_pallas` and `down_pallas` with the plain stem, every conv on a
-hand-written kernel (the wrappers in `ops/kernels/`, which take their
-plain versions on the CPU):
+`conv3_pallas` and `down_pallas`, every conv on a hand-written kernel (the
+wrappers in `ops/kernels/`, which take their plain versions on the CPU),
+plus the stem region of the reference's kernel set (below):
 
 - stem1 (`Darknet53_0/ConvBlock_0`) stays bf16 (`DEFAULT_QUANT_SKIP`);
 - each stride-2 block quantizes its bf16 input and emits the next feature
@@ -31,6 +31,32 @@ plain versions on the CPU):
   concatenated input of a YoloBlock's CB0 is quantized half by half with
   its one scale into one s8 tensor;
 - the detection heads and the decode stay in the compute dtype / f32.
+
+The stem region (stem2 -> FeatureBlock_0 -> ConvBlock_2) follows the
+reference's `_s2d_region`, and so only when `cfg.stem_space_to_depth`
+(the default; the port computes it in the plain layout, where the lifted
+convs are the plain ones). `kernels` is the reference's flag dict, None
+meaning `default_serving_kernels(device)`: the reference's set on a CUDA
+device, `{}` on the CPU, as JAX gates its set to the TPU. The flags that
+change the wiring:
+- `region_full` (+ `region_fast`): the whole region is one launch
+  (`s2d_region_q`) on stem1's output, which the kernel quantizes with
+  ConvBlock_1's scale as it loads it; the fast epilogue with
+  `region_fast`;
+- otherwise stem2 emits FeatureBlock_0's s8 input, and `region_pallas`
+  runs the rest as one launch (`s2d_tail_q`);
+- otherwise FeatureBlock_0 runs on the 1x1 and 3x3 kernels, and with
+  `exit_pallas` its 3x3 emits ConvBlock_2's s8 input for the exit kernel
+  (`exit_conv_q`); otherwise ConvBlock_2 is a stride-2 block.
+Each step needs its blocks int8 and the kernel's limits (H and W multiples
+of 4 or 2, channels multiples of 16, its shared-memory plan) on every
+device, so the CPU takes the route the card takes. `region_pipe`,
+`region_pipe2`, `rep_requant` and `rep_requant_final` are TPU scheduling
+or storage folds the reference calls bit-identical, and
+`pointwise_pallas`, `conv3_pallas` and `down_pallas` are always on here:
+all seven are accepted and change nothing. `region_affine2`,
+`region_rawin`, `region_rawimg`, `head_matmul` and `head_pad` are not
+ported (NotImplementedError); any other name is a KeyError.
 
 Activation scales are keyed by the JAX block paths
 (`Darknet53_0/FeatureBlock_1/ConvBlock_0`, `YoloBlock_2/ConvBlock_3`,
@@ -56,13 +82,60 @@ from yolov3_tpu_torch.ops import quant
 from yolov3_tpu_torch.ops.decode import decode_detections
 from yolov3_tpu_torch.ops.kernels.conv3x3_q import conv3x3_block_q
 from yolov3_tpu_torch.ops.kernels.down_conv_q import down_conv_block_q
+from yolov3_tpu_torch.ops.kernels.exit_conv_q import exit_conv_block_q
 from yolov3_tpu_torch.ops.kernels.pointwise_q import pointwise_conv_block_q
+from yolov3_tpu_torch.ops.kernels.s2d_region_q import (plan_tile,
+                                                       s2d_region_block_q)
+from yolov3_tpu_torch.ops.kernels.s2d_tail_q import s2d_tail_block_q
 
 F32 = torch.float32
 BF16 = torch.bfloat16
 
 # conv blocks that stay bf16 in the int8 path: stem1 (contraction 9 x 3)
 DEFAULT_QUANT_SKIP: Tuple[str, ...] = ("Darknet53_0/ConvBlock_0",)
+# the blocks `quant_skip` may name here: stem1 and the stride-2 blocks (the
+# port's feature blocks and YoloBlocks run int8 throughout)
+SKIPPABLE = tuple(f"Darknet53_0/ConvBlock_{i}" for i in range(6))
+
+_D = "Darknet53_0"
+STEM2 = f"{_D}/ConvBlock_1"
+FB0_PW, FB0_C3 = (f"{_D}/FeatureBlock_0/ConvBlock_0",
+                  f"{_D}/FeatureBlock_0/ConvBlock_1")
+EXIT, FB1_IN = f"{_D}/ConvBlock_2", f"{_D}/FeatureBlock_1/ConvBlock_0"
+
+# the reference's kernel flags (yolov3_tpu/models/quantized.py::_Ctx)
+WIRING_FLAGS = ("region_full", "region_fast", "region_pallas", "exit_pallas")
+NO_OP_FLAGS = ("region_pipe", "region_pipe2", "rep_requant",
+               "rep_requant_final", "pointwise_pallas", "conv3_pallas",
+               "down_pallas")
+UNPORTED_FLAGS = ("region_affine2", "region_rawin", "region_rawimg",
+                  "head_matmul", "head_pad")
+
+
+def default_serving_kernels(device) -> Dict[str, bool]:
+    """The reference's int8 serving set (`default_serving_kernels`,
+    quantized.py:1346-1374) on a CUDA device; `{}` on the CPU, as the
+    reference returns `{}` off the TPU."""
+    if torch.device(device).type == "cuda":
+        return {"exit_pallas": True, "region_full": True,
+                "region_fast": True, "rep_requant": True,
+                "region_pipe": True}
+    return {}
+
+
+def check_kernels(kernels: Dict[str, bool]) -> Dict[str, bool]:
+    """The flag dict, validated: KeyError for a name the reference does not
+    have, NotImplementedError for a set flag the port does not have."""
+    out = {}
+    for name, on in kernels.items():
+        if name in UNPORTED_FLAGS:
+            if on:
+                raise NotImplementedError(
+                    f"kernel flag {name} is not ported (ROADMAP Queue B)")
+        elif name not in WIRING_FLAGS + NO_OP_FLAGS:
+            raise KeyError(f"unknown kernel flag {name}")
+        out[name] = bool(on)
+    return out
 
 
 def _next_blocks(cfg: ModelConfig) -> Dict[str, Optional[str]]:
@@ -90,11 +163,20 @@ class QuantizedYoloV3(YoloV3):
     mode set by `act_scales` (None: bf16) or by `calibrate`."""
 
     def __init__(self, config: ModelConfig,
-                 act_scales: Optional[Dict[str, float]] = None):
+                 act_scales: Optional[Dict[str, float]] = None,
+                 kernels: Optional[Dict[str, bool]] = None,
+                 quant_skip: Tuple[str, ...] = DEFAULT_QUANT_SKIP):
         super().__init__(dataclasses.replace(config,
                                              use_pallas_pointwise=False))
+        bad = set(quant_skip) - set(SKIPPABLE)
+        if bad:
+            raise NotImplementedError(
+                f"quant_skip {sorted(bad)}: only stem1 and the stride-2 "
+                f"blocks may stay bf16 in the port's int8 wiring")
         self.alpha = config.leaky_relu_alpha
         self.act_scales = act_scales
+        self.quant_skip = frozenset(quant_skip)
+        self.kernels = None if kernels is None else check_kernels(kernels)
         self._collect: Optional[dict] = None
         self._hist = False
         self.register_load_state_dict_post_hook(lambda m, _: m.prepare())
@@ -131,6 +213,7 @@ class QuantizedYoloV3(YoloV3):
                 raise KeyError(f"no activation scale calibrated for {name}")
             return float(np.float32(scales[name]))
 
+        folded = {}
         for name, blk in self.conv_blocks():
             dev = blk.conv.weight.device
             cpu = {k: v.detach().to("cpu", F32) for k, v in (
@@ -142,11 +225,12 @@ class QuantizedYoloV3(YoloV3):
             blk.q_name = name
             blk.constant("q_mul", mul.to(dev))
             blk.constant("q_add", add.to(dev))
-            blk.q_int8 = scales is not None and name not in DEFAULT_QUANT_SKIP
+            blk.q_int8 = scales is not None and name not in self.quant_skip
             if not blk.q_int8:
                 continue
             sx = f32(name)
             w_t, epi = quant.fold_conv_block(cpu["w"], cpu["b"], mul, add, sx)
+            folded[name] = epi
             blk.constant("q_wt", w_t.to(dev))
             blk.constant("q_epi", epi.to(dev))
             blk.q_inv_in = quant.reciprocal(sx)
@@ -156,6 +240,27 @@ class QuantizedYoloV3(YoloV3):
             blk.q_res_scale = 0.0
             if "/FeatureBlock_" in name and int(name.rsplit("_", 1)[1]) % 2:
                 blk.q_res_scale = f32(name.rsplit("/", 1)[0] + "/ConvBlock_0")
+        self._prepare_region(folded, f32)
+
+    def _prepare_region(self, folded: dict, f32) -> None:
+        """The stem region kernels' epi tables (ops/quant.py), where their
+        blocks run int8; None where they do not."""
+        dev = self.darknet.convs[2].conv.weight.device
+        tables = dict.fromkeys(("q_region_epi", "q_region_epi_fast",
+                                "q_tail_epi", "q_exit_epi"))
+        if EXIT in folded:
+            tables["q_exit_epi"] = quant.exit_epi(folded[EXIT], f32(FB1_IN))
+            tail = (folded[FB0_PW], folded[FB0_C3], folded[EXIT],
+                    *(f32(n) for n in (FB0_PW, FB0_C3, EXIT, FB1_IN)))
+            tables["q_tail_epi"] = quant.tail_epi(*tail)
+            if STEM2 in folded:
+                for key, fast in (("q_region_epi", False),
+                                  ("q_region_epi_fast", True)):
+                    tables[key] = quant.region_epi(folded[STEM2], *tail,
+                                                   fast=fast)
+        for key, t in tables.items():
+            self.register_buffer(key, None if t is None else t.to(dev),
+                                 persistent=False)
 
     # --- one conv block, any mode ------------------------------------------
 
@@ -267,15 +372,82 @@ class QuantizedYoloV3(YoloV3):
         q, route = self._pw_block(c[4], x, emit_bf16=True)
         return route, self._conv_block(c[5], q)
 
+    def _stem_kernels(self) -> Tuple[ConvBlock, ...]:
+        d = self.darknet
+        return (d.convs[1], *d.blocks[0].convs, d.convs[2])
+
+    def region_route(self, h: int, w: int, kernels: Dict[str, bool]) -> str:
+        """Which stem-region route the int8 forward takes for a stem1
+        output of h x w: "region", "tail", "exit" or "blocks"."""
+        if not (self.int8 and self.config.stem_space_to_depth):
+            return "blocks"
+        down1, pw, c3, down2 = self._stem_kernels()
+        c1, c = down1.conv.weight.shape[1], down1.conv.weight.shape[0]
+        cm, co = pw.conv.weight.shape[0], down2.conv.weight.shape[0]
+        if (kernels.get("region_full") and self.q_region_epi is not None
+                and h % 4 == 0 and w % 4 == 0
+                and plan_tile(c1, c, cm, co, region=True)):
+            return "region"
+        h2, w2 = -(-h // 2), -(-w // 2)
+        if (kernels.get("region_pallas") and self.q_tail_epi is not None
+                and h2 % 2 == 0 and w2 % 2 == 0
+                and plan_tile(0, c, cm, co, region=False)):
+            return "tail"
+        if (kernels.get("exit_pallas") and self.q_exit_epi is not None
+                and c % 16 == 0 and co % 16 == 0):
+            return "exit"
+        return "blocks"
+
+    def _stem_region(self, y: torch.Tensor) -> torch.Tensor:
+        """stem1's output -> FeatureBlock_1's input, the reference's
+        `_s2d_region` in int8 mode."""
+        kernels = (self.kernels if self.kernels is not None
+                   else default_serving_kernels(y.device))
+        route = self.region_route(y.shape[1], y.shape[2], kernels)
+        down1, pw, c3, down2 = self._stem_kernels()
+        cast = self.config.dtype == BF16
+        if route == "region":
+            fast = kernels.get("region_fast", False)
+            return s2d_region_block_q(
+                y, down1.q_wt, pw.q_wt, c3.q_wt, down2.q_wt,
+                self.q_region_epi_fast if fast else self.q_region_epi,
+                alpha=self.alpha, cast_bf16=cast, fast=fast,
+                inv_in=down1.q_inv_in)
+        q2 = self._down_block(down1, y)
+        if q2.dtype != torch.int8:  # stem2 stayed bf16
+            q2 = quant.quantize_act(q2, pw.q_inv_in)
+        if route == "tail":
+            return s2d_tail_block_q(q2, pw.q_wt, c3.q_wt, down2.q_wt,
+                                    self.q_tail_epi, alpha=self.alpha,
+                                    cast_bf16=cast)
+        if route == "exit":
+            q4 = conv3x3_block_q(
+                self._pw_block(pw, q2), c3.q_wt, c3.q_epi, cast_bf16=cast,
+                residual_q=q2, inv_in=c3.q_inv_in,
+                inv_next=down2.q_inv_in, alpha=self.alpha,
+                res_scale=c3.q_res_scale)
+            return exit_conv_block_q(q4, down2.q_wt, self.q_exit_epi,
+                                     alpha=self.alpha, cast_bf16=cast)
+        return self._down_block(down2,
+                                self._feature_block(self.darknet.blocks[0],
+                                                    q2))
+
     def neck_outputs(self, x: torch.Tensor) -> List[torch.Tensor]:
         """Backbone + FPN up to the heads: the three neck outputs,
         stride 32 first."""
         cfg = self.config
         d = self.darknet
         y = self._conv_block(d.convs[0], x.to(cfg.dtype))
+        stages = list(zip(d.convs[1:], d.blocks))
         routes = []
-        for down, block in zip(d.convs[1:], d.blocks):
-            y = self._feature_block(block, self._down_block(down, y))
+        if self.int8 and cfg.stem_space_to_depth:
+            y = self._stem_region(y)
+            routes.append(None)  # FeatureBlock_0's output stays inside
+            stages[:2] = [(None, d.blocks[1])]
+        for down, block in stages:
+            if down is not None:
+                y = self._down_block(down, y)
+            y = self._feature_block(block, y)
             routes.append(y)
         route_s8, route_s16, route_s32 = routes[2:]
 
@@ -322,12 +494,17 @@ def calibrate(model: QuantizedYoloV3, images: torch.Tensor,
 
 
 def build_quantized_model(params: dict, batch_stats: dict, cfg: ModelConfig,
-                          device, act_scales: Optional[Dict[str, float]] = None
+                          device,
+                          act_scales: Optional[Dict[str, float]] = None,
+                          kernels: Optional[Dict[str, bool]] = None,
+                          quant_skip: Tuple[str, ...] = DEFAULT_QUANT_SKIP
                           ) -> QuantizedYoloV3:
     """`QuantizedYoloV3` with Flax-shaped weights, in eval mode on
-    `device`; int8 when `act_scales` are given."""
+    `device`; int8 when `act_scales` are given. `kernels`: the reference's
+    kernel flags (None: `default_serving_kernels` of the device the
+    forward runs on)."""
     from yolov3_tpu_torch.utils.checkpoint import params_from_jax
-    model = QuantizedYoloV3(cfg)
+    model = QuantizedYoloV3(cfg, kernels=kernels, quant_skip=quant_skip)
     model.load_state_dict(params_from_jax(params, batch_stats, cfg))
     model = model.to(device).eval()
     if act_scales is not None:
@@ -336,10 +513,12 @@ def build_quantized_model(params: dict, batch_stats: dict, cfg: ModelConfig,
 
 
 def _calibrated(saved_model_filepath: str, calib_images,
-                calib_percentile: Optional[float], device):
+                calib_percentile: Optional[float], device,
+                kernels: Optional[Dict[str, bool]]):
     from yolov3_tpu_torch.utils import checkpoint as ckpt
     params, batch_stats, cfg = ckpt.load_model(saved_model_filepath)
-    model = build_quantized_model(params, batch_stats, cfg, device)
+    model = build_quantized_model(params, batch_stats, cfg, device,
+                                  kernels=kernels)
     scales = calibrate(model, torch.as_tensor(calib_images, device=device),
                        calib_percentile)
     model.set_act_scales(scales)
@@ -348,12 +527,14 @@ def _calibrated(saved_model_filepath: str, calib_images,
 
 def make_quantized_detector_fn(saved_model_filepath: str, calib_images,
                                calib_percentile: Optional[float] = None,
-                               device: str = "cuda"):
+                               device: str = "cuda",
+                               kernels: Optional[Dict[str, bool]] = None):
     """int8 twin of `inference.make_detector_fn`: detect(images NHWC f32)
     -> decoded detections [B, num_boxes, 4+1+C] (no NMS), calibrated on
-    `calib_images` (a representative z-scored batch)."""
+    `calib_images` (a representative z-scored batch). `kernels`: kernel
+    flag overrides (default: `default_serving_kernels(device)`)."""
     model, cfg, _ = _calibrated(saved_model_filepath, calib_images,
-                                calib_percentile, device)
+                                calib_percentile, device, kernels)
 
     @torch.inference_mode()
     def detect(images) -> torch.Tensor:
@@ -368,12 +549,14 @@ def make_quantized_serving_fn(saved_model_filepath: str, calib_images,
                               min_box_size: Optional[int] = None,
                               calib_percentile: Optional[float] = None,
                               raw_pixels: bool = False,
-                              device: str = "cuda"):
+                              device: str = "cuda",
+                              kernels: Optional[Dict[str, bool]] = None):
     """int8 twin of `inference.make_serving_fn`: z-scored images ->
     (boxes, scores, keep) through the int8 backbone and neck, bf16 heads,
     f32 decode, clip, small-box filter and per-class NMS, all on `device`.
     With `raw_pixels`, serve() takes raw integer pixels and z-scores them
-    first (calibration still takes a z-scored batch).
+    first (calibration still takes a z-scored batch). `kernels`: kernel
+    flag overrides (default: `default_serving_kernels(device)`).
 
     Returns (serve, cfg, scales)."""
     from yolov3_tpu_torch.data.device_pipeline import zscore_images
@@ -383,7 +566,7 @@ def make_quantized_serving_fn(saved_model_filepath: str, calib_images,
     if min_box_size is None:
         min_box_size = icfg.min_box_size
     model, cfg, scales = _calibrated(saved_model_filepath, calib_images,
-                                     calib_percentile, device)
+                                     calib_percentile, device, kernels)
 
     @torch.inference_mode()
     def serve(images):

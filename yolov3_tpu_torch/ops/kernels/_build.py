@@ -33,8 +33,11 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "yolov3_tpu_torch")
+# the libraries; `s2d_region_block_q` also holds the `s2d_tail_block_q`
+# entry point
 KERNELS = ("nms_suppress", "pointwise_conv_block", "pointwise_conv_block_q",
-           "conv3x3_block_q", "down_conv_block_q")
+           "conv3x3_block_q", "down_conv_block_q", "exit_conv_block_q",
+           "s2d_region_block_q", "greedy_suppress")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 

@@ -91,6 +91,16 @@ def conv_block_q_plain(x: torch.Tensor, w_t: torch.Tensor, epi: torch.Tensor,
     """The kernels' function without their tiling: returns the s8 output,
     the float output, or (s8, float) when both are asked for."""
     q = quantized_input(x, inv_in, residual_in, res_scale)
+    return epilogue(conv_sums(q, w_t, ksize, stride), epi, inv_next=inv_next,
+                    alpha=alpha, cast_bf16=cast_bf16,
+                    residual_out=residual_out, res_scale=res_scale,
+                    emit_s8=emit_s8, out_dtype=out_dtype)
+
+
+def conv_sums(q: torch.Tensor, w_t: torch.Tensor, ksize: int,
+              stride: int) -> torch.Tensor:
+    """Exact sums of an s8 NHWC tensor's SAME conv with s8 w_t
+    [taps, Co, Ci], as float64 NHWC."""
     n, h, w, _ = q.shape
     co = w_t.shape[1]
     (pt, pb), (pl, pr) = same_pads(h, ksize, stride), same_pads(w, ksize,
@@ -101,10 +111,7 @@ def conv_block_q_plain(x: torch.Tensor, w_t: torch.Tensor, epi: torch.Tensor,
     with torch.backends.cudnn.flags(enabled=False):
         acc = F.conv2d(F.pad(q.permute(0, 3, 1, 2).to(f64),
                              (pl, pr, pt, pb)), wk, stride=stride)
-    return epilogue(acc.permute(0, 2, 3, 1), epi, inv_next=inv_next,
-                    alpha=alpha, cast_bf16=cast_bf16,
-                    residual_out=residual_out, res_scale=res_scale,
-                    emit_s8=emit_s8, out_dtype=out_dtype)
+    return acc.permute(0, 2, 3, 1)
 
 
 def _kernel_fn(name: str):

@@ -1,0 +1,96 @@
+"""The stem region's exit ConvBlock (s8 in, s8 out): the CUDA kernel's
+wrapper and its plain version.
+
+Replaces `yolov3_tpu/ops/pallas/exit_conv_kernel.py::exit_conv_block_q`.
+In the plain NHWC layout the TPU kernel's [2, 2, 4Ci, Co] window conv is
+the 3x3 stride-2 SAME conv of ConvBlock_2; the s8 input is FeatureBlock_0's
+output quantized with ConvBlock_2's scale, and the output FeatureBlock_1's
+s8 input:
+
+    y   = leaky(acc + b/dq) * (mul*dq) + add;  [cast_bf16] y = bf16(y)
+    out = clip(round(y * inv_next), +-127)
+
+epi f32 [4, Co] = (b/dq, mul*dq, add, 1/s_next), the JAX contract
+(`ops/quant.py::exit_epi`). The kernel is `csrc/exit_conv_block_q.cu`, an
+entry onto the implicit GEMM of `csrc/conv_block_q.cuh`; a CUDA tensor
+goes through it or the wrapper raises, a CPU tensor goes through
+`exit_conv_block_q_plain`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from yolov3_tpu_torch.ops.kernels import _build, _conv_q
+
+NAME = "exit_conv_block_q"
+_fns = {}
+
+
+def _check(x: torch.Tensor, w_t: torch.Tensor, epi: torch.Tensor) -> None:
+    if x.dtype != torch.int8 or w_t.dtype != torch.int8:
+        raise TypeError(f"{NAME}: x and w_t must be s8, got {x.dtype} and "
+                        f"{w_t.dtype}")
+    if epi.dtype != torch.float32:
+        raise TypeError(f"{NAME}: epi must be f32, got {epi.dtype}")
+    if x.dim() != 4 or w_t.dim() != 3 or w_t.shape[0] != 9 \
+            or w_t.shape[2] != x.shape[-1] \
+            or tuple(epi.shape) != (4, w_t.shape[1]):
+        raise ValueError(f"{NAME}: x {tuple(x.shape)}, w_t "
+                         f"{tuple(w_t.shape)} and epi {tuple(epi.shape)} do "
+                         f"not fit [N,H,W,Ci], [9,Co,Ci] and [4,Co]")
+
+
+def exit_conv_block_q_plain(x: torch.Tensor, w_t: torch.Tensor,
+                            epi: torch.Tensor, *, alpha: float,
+                            cast_bf16: bool,
+                            sums=_conv_q.conv_sums) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch (exact int32 sums from
+    `sums(q, w_t, ksize, stride)`)."""
+    _check(x, w_t, epi)
+    return _conv_q.epilogue(sums(x, w_t, 3, 2), epi[:3],
+                            inv_next=epi[3], alpha=alpha,
+                            cast_bf16=cast_bf16)
+
+
+def _kernel_fn():
+    fn = _fns.get(NAME)
+    if fn is None:
+        fn = getattr(_build.load(NAME), NAME)
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, i, i, i, i, i, ctypes.c_float, i, p]
+        fn.restype = ctypes.c_int
+        _fns[NAME] = fn
+    return fn
+
+
+def exit_conv_block_q(x: torch.Tensor, w_t: torch.Tensor, epi: torch.Tensor,
+                      *, alpha: float, cast_bf16: bool) -> torch.Tensor:
+    """x s8 [N,H,W,Ci]; w_t s8 [9, Co, Ci] ((u, v) major); epi f32
+    [4, Co]. Returns s8 [N, ceil(H/2), ceil(W/2), Co]."""
+    if x.device.type == "cpu":
+        return exit_conv_block_q_plain(x, w_t, epi, alpha=alpha,
+                                       cast_bf16=cast_bf16)
+    _check(x, w_t, epi)
+    n, h, w, ci = x.shape
+    co = w_t.shape[1]
+    if ci % 16 or co % 16:
+        raise ValueError(f"{NAME}: Ci = {ci} and Co = {co} must be "
+                         f"multiples of 16")
+    if any(t.device != x.device for t in (w_t, epi)):
+        raise ValueError(f"{NAME}: all operands must be on one device")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
+               for t in (x, w_t, epi)):
+        raise ValueError(f"{NAME}: operands must be contiguous and 16-byte "
+                         f"aligned")
+    out = torch.empty((n, -(-h // 2), -(-w // 2), co), dtype=torch.int8,
+                      device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _kernel_fn()(x.data_ptr(), w_t.data_ptr(), epi.data_ptr(),
+                       out.data_ptr(), n, h, w, ci, co, float(alpha),
+                       int(cast_bf16), stream)
+    _build.check(err, NAME)
+    _build.launch_counts[NAME] += 1
+    return out

@@ -1,14 +1,21 @@
-"""Greedy NMS suppression: the CUDA kernel's wrapper and its plain version.
+"""Greedy NMS suppression: the CUDA kernels' wrappers and their plain
+versions.
 
-Replaces `yolov3_tpu/ops/pallas/nms_kernel.py::suppress_boxes_pallas_t`
-(and `suppress_boxes_pallas`, the same contract in row layout). The kernel
-is `csrc/nms_suppress.cu`: one thread block per (image, class) problem,
-the boxes in shared memory as l/t/r/b planes, and one block-wide OR per
-candidate up to the problem's highest valid slot. It is bound by that
-latency chain of K reductions, not by bytes; the source note says more.
+`suppress_boxes_t` replaces `yolov3_tpu/ops/pallas/nms_kernel.py::
+suppress_boxes_pallas_t` (and `suppress_boxes_pallas`, the same contract
+in row layout). Its kernel is `csrc/nms_suppress.cu`: one thread block per
+(image, class) problem, the boxes in shared memory as l/t/r/b planes, and
+one block-wide OR per candidate up to the problem's highest valid slot. It
+is bound by that latency chain of K reductions, not by bytes; the source
+note says more.
 
-A CUDA tensor goes through the kernel, or the wrapper raises; a CPU tensor
-goes through `suppress_boxes_plain`.
+`greedy_suppress` replaces `nms_kernel.py::greedy_suppress_pallas`, the
+same recurrence from a precomputed IoU slab (`csrc/greedy_suppress.cu`).
+No path of the package calls it; it keeps the reference's entry for
+callers that already hold the IoU matrices.
+
+A CUDA tensor goes through a kernel, or the wrapper raises; a CPU tensor
+goes through the plain version.
 """
 
 from __future__ import annotations
@@ -21,19 +28,20 @@ from yolov3_tpu_torch.ops.kernels import _build
 from yolov3_tpu_torch.ops.nms import _greedy_suppress, pairwise_iou
 
 NAME = "nms_suppress"
-_fn = None
+GREEDY = "greedy_suppress"
+_fns = {}
 
 
-def _kernel_fn():
-    global _fn
-    if _fn is None:
-        fn = _build.load(NAME).nms_suppress
+def _kernel_fn(name: str = NAME):
+    fn = _fns.get(name)
+    if fn is None:
+        fn = getattr(_build.load(name), name)
         p = ctypes.c_void_p
         fn.argtypes = [p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
                        p]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return fn
 
 
 def suppress_boxes_plain(cand: torch.Tensor, valid: torch.Tensor,
@@ -88,3 +96,44 @@ def suppress_boxes(cand: torch.Tensor, valid: torch.Tensor,
     """Row-layout entry (the `suppress_boxes_pallas` contract): the same
     function as `suppress_boxes_t`, onto the same CUDA kernel."""
     return suppress_boxes_t(cand, valid, iou_threshold)
+
+
+def greedy_suppress_plain(iou: torch.Tensor, valid: torch.Tensor,
+                          iou_threshold: float) -> torch.Tensor:
+    """iou [C, K, K], valid [C, K] -> keep [C, K] bool: the recurrence of
+    `_greedy_suppress`, reading row i of the slab for candidate i as the
+    reference's kernel does (the transpose of `_greedy_suppress`'s column
+    read; a slab from `pairwise_iou` is symmetric)."""
+    return _greedy_suppress(iou.to(torch.float32).transpose(-1, -2),
+                            valid.to(torch.bool), iou_threshold)
+
+
+def greedy_suppress(iou: torch.Tensor, valid: torch.Tensor,
+                    iou_threshold: float) -> torch.Tensor:
+    """iou [C, K, K] f32, valid [C, K] bool -> keep [C, K] bool (the
+    `greedy_suppress_pallas` contract)."""
+    if iou.dim() != 3 or iou.shape[1] != iou.shape[2]:
+        raise ValueError(f"iou must be [C, K, K], got {tuple(iou.shape)}")
+    if tuple(valid.shape) != tuple(iou.shape[:2]):
+        raise ValueError(f"valid must be {tuple(iou.shape[:2])}, got "
+                         f"{tuple(valid.shape)}")
+    if valid.device != iou.device:
+        raise ValueError("iou and valid must be on one device")
+    if iou.device.type == "cpu":
+        return greedy_suppress_plain(iou, valid, iou_threshold)
+    if iou.dtype != torch.float32 or valid.dtype != torch.bool:
+        raise TypeError(f"need float32 iou and bool valid, got {iou.dtype} "
+                        f"and {valid.dtype}")
+    if not (iou.is_contiguous() and valid.is_contiguous()):
+        raise ValueError("iou and valid must be contiguous")
+    c, k = valid.shape
+    if k > 48 * 1024:
+        raise ValueError(f"K = {k} candidates do not fit in shared memory")
+    keep = torch.empty((c, k), dtype=torch.bool, device=iou.device)
+    stream = torch.cuda.current_stream(iou.device).cuda_stream
+    err = _kernel_fn(GREEDY)(iou.data_ptr(), valid.data_ptr(),
+                             keep.data_ptr(), c, k, float(iou_threshold),
+                             stream)
+    _build.check(err, GREEDY)
+    _build.launch_counts[GREEDY] += 1
+    return keep

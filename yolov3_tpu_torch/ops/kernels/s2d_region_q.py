@@ -1,0 +1,242 @@
+"""The int8 stem region (stem2 -> FeatureBlock_0 -> exit conv) as one
+kernel: the CUDA kernel's wrapper and its plain version.
+
+Replaces `yolov3_tpu/ops/pallas/s2d_region_kernel.py::s2d_region_block_q`
+(its default variants: the exact and the `fast` epilogue). The TPU kernel
+runs on the space-to-depth view of the stem; here the same function runs
+in the plain NHWC layout, where each lifted convolution is the plain one
+with SAME padding. From stem1's output x to FeatureBlock_1's s8 input:
+
+    q1  = x, or clip(round(x * inv_in)) for a bf16/f32 x  ConvBlock_1's scale
+    q2  = stage(conv3x3/2(q1, w_s2), epi rows 13-16)     stem2
+    q3  = stage(conv1x1(q2, w_pw),   rows 0-3)           FB0 1x1
+    q4  = fb0(conv3x3(q3, w_fb0), q2, rows 4-8)          FB0 3x3 + residual
+    out = stage(conv3x3/2(q4, w_exit), rows 9-12)        exit conv
+
+    exact stage: y = leaky(acc + b) * m + a; [cast_bf16] bf16(y);
+                 q = clip(round(y * inv))
+    exact fb0:   z as a stage's y; y = bf16(bf16(q2 * s2) + z) (casts with
+                 cast_bf16); q = clip(round(y * 1/s4))
+    fast stage:  y = max(y, alpha*y), 1/s folded into m and a;
+                 q = clip(round(y * m + a))
+    fast fb0:    q = clip(round(z * m + a + q2 * (s2/s4)))
+
+Off-image pixels of q3 are zero (FB0's zero padding) and so is the exit's
+bottom/right pad of q4: in the plain layout both are the convolutions' own
+zero padding. The epi table is `ops/quant.py::region_epi`. The kernel
+quantizes a float x while it loads its tile, so stem1's output never goes
+to device memory as s8.
+
+The kernel is `csrc/s2d_region_block_q.cu`; a CUDA tensor goes through it
+or the wrapper raises, a CPU tensor goes through
+`s2d_region_block_q_plain`. `s2d_tail_q` is the same kernel entered at q2.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from yolov3_tpu_torch.ops.kernels import _build, _conv_q
+
+NAME = "s2d_region_block_q"
+F32 = torch.float32
+# shared memory a block may use on the H100 (227 KB)
+SMEM_LIMIT = 232448
+# bytes after each pixel's channels and each weight row in shared memory
+# (csrc kPad)
+_PAD = 16
+TILES = (8, 4, 2, 1)
+_fns = {}
+
+
+def smem_bytes(tile: int, c1: int, c: int, cm: int, co: int,
+               region: bool, e: int = 0) -> int:
+    """Shared memory of one block at output tile `tile` x `tile`
+    (`csrc/s2d_region_block_q.cu::layout`): one buffer that first holds
+    the input tile with its halo and stem2's weights (region only), then
+    FB0's 3x3 and the exit's weights; the 1x1's weights; q2, q3 and q4;
+    the epi table (e: its width, default the widest stage)."""
+    xw, qw, q4w = 4 * tile + 7, 2 * tile + 3, 2 * tile + 1
+    first = xw * xw * (c1 + _PAD) + 9 * c * (c1 + _PAD) if region else 0
+    second = 9 * c * (cm + _PAD) + 9 * co * (c + _PAD)
+    rows = 17 if region else 13
+    return (max(first, second) + cm * (c + _PAD) + qw * qw * (c + _PAD)
+            + qw * qw * (cm + _PAD) + q4w * q4w * (c + _PAD)
+            + rows * (e or max(c, cm, co)) * 4)
+
+
+def plan_tile(c1: int, c: int, cm: int, co: int, region: bool = True,
+              e: int = 0) -> int:
+    """The largest output tile whose block fits in shared memory, or 0
+    when the channels are not what the kernel takes (multiples of 16)."""
+    if any(ch <= 0 or ch % 16 for ch in (c1 if region else 16, c, cm, co)):
+        return 0
+    for tile in TILES:
+        if smem_bytes(tile, c1, c, cm, co, region, e) <= SMEM_LIMIT:
+            return tile
+    return 0
+
+
+def stage_plain(acc: torch.Tensor, rows: torch.Tensor, *, alpha: float,
+                cast_bf16: bool, fast: bool) -> torch.Tensor:
+    """A conv stage's epilogue and requantize on exact sums `acc`; rows
+    [4, >= Co] = (b, m, a, inv)."""
+    co = acc.shape[-1]
+    b, m, a, inv = (r[:co] for r in rows)
+    if fast:
+        y = acc.to(F32) + b
+        y = torch.maximum(y, alpha * y)
+        return torch.clamp(torch.round(y * m + a), -127, 127).to(torch.int8)
+    return _conv_q.epilogue(acc, torch.stack([b, m, a]), inv_next=inv,
+                            alpha=alpha, cast_bf16=cast_bf16)
+
+
+def tail_plain(q2: torch.Tensor, w_pw: torch.Tensor, w_fb0: torch.Tensor,
+               w_exit: torch.Tensor, epi: torch.Tensor, *, alpha: float,
+               cast_bf16: bool, fast: bool, sums=_conv_q.conv_sums
+               ) -> torch.Tensor:
+    """pw -> FB0 3x3 + residual -> exit from q2 (stem2's s8 output);
+    `sums(q, w_t, ksize, stride)` gives each stage's exact sums."""
+    kw = dict(alpha=alpha, cast_bf16=cast_bf16, fast=fast)
+    q3 = stage_plain(sums(q2, w_pw, 1, 1), epi[0:4], **kw)
+    acc = sums(q3, w_fb0, 3, 1)
+    c = acc.shape[-1]
+    b, m, a, r, inv = (row[:c] for row in epi[4:9])
+    if fast:
+        z = acc.to(F32) + b
+        z = torch.maximum(z, alpha * z)
+        y = z * m + a + q2.to(F32) * r
+        q4 = torch.clamp(torch.round(y), -127, 127).to(torch.int8)
+    else:
+        q4 = _conv_q.epilogue(acc, torch.stack([b, m, a]), inv_next=inv,
+                              alpha=alpha, cast_bf16=cast_bf16,
+                              residual_out=q2, res_scale=r)
+    return stage_plain(sums(q4, w_exit, 3, 2), epi[9:13], **kw)
+
+
+def s2d_region_block_q_plain(x: torch.Tensor, w_s2: torch.Tensor,
+                             w_pw: torch.Tensor, w_fb0: torch.Tensor,
+                             w_exit: torch.Tensor, epi: torch.Tensor, *,
+                             alpha: float, cast_bf16: bool,
+                             fast: bool = False,
+                             inv_in: Optional[float] = None,
+                             sums=_conv_q.conv_sums) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch (exact int32 sums from
+    `sums`, the four stages one after another)."""
+    check(x, (w_s2, w_pw, w_fb0, w_exit), epi, 17, inv_in)
+    q1 = _conv_q.quantized_input(x, inv_in)
+    q2 = stage_plain(sums(q1, w_s2, 3, 2), epi[13:17], alpha=alpha,
+                     cast_bf16=cast_bf16, fast=fast)
+    return tail_plain(q2, w_pw, w_fb0, w_exit, epi, alpha=alpha,
+                      cast_bf16=cast_bf16, fast=fast, sums=sums)
+
+
+# the input types the region's kernel takes (csrc InKind)
+X_KINDS = {torch.int8: 0, torch.bfloat16: 1, F32: 2}
+
+
+def check(x: torch.Tensor, weights, epi: torch.Tensor, rows: int,
+          inv_in: Optional[float] = None) -> None:
+    """The shapes and types the region's and the tail's contracts take:
+    x NHWC, s8 (the region also takes bf16 or f32 with `inv_in`), weights
+    [taps, Co, Ci] s8 chained stage to stage, epi [rows, >= max Co] f32."""
+    kinds = (torch.int8,) if rows == 13 else tuple(X_KINDS)
+    if x.dtype not in kinds or x.dim() != 4:
+        raise TypeError(f"the stem region takes an NHWC x of {kinds}, got "
+                        f"{x.dtype} {tuple(x.shape)}")
+    if x.dtype != torch.int8 and inv_in is None:
+        raise ValueError(f"a {x.dtype} x needs inv_in, the 1/s it is "
+                         f"quantized with")
+    ci = x.shape[-1]
+    for w, taps in zip(weights, (9, 1, 9, 9)[-len(weights):]):
+        if w.dtype != torch.int8 or w.dim() != 3 or w.shape[0] != taps \
+                or w.shape[2] != ci:
+            raise ValueError(f"weights {tuple(w.shape)} {w.dtype} do not "
+                             f"take {ci} channels in {taps} taps")
+        ci = w.shape[1]
+    widest = max(w.shape[1] for w in weights)
+    if epi.dtype != F32 or epi.dim() != 2 or epi.shape[0] != rows \
+            or epi.shape[1] < widest:
+        raise ValueError(f"epi must be f32 [{rows}, >= {widest}], got "
+                         f"{epi.dtype} {tuple(epi.shape)}")
+
+
+def launch(name: str, x: torch.Tensor, weights, epi: torch.Tensor, *,
+           alpha: float, cast_bf16: bool, fast: bool = False,
+           inv_in: Optional[float] = None) -> torch.Tensor:
+    """Launch the region (4 weights) or the tail (3) on CUDA tensors;
+    raises on what the kernel does not take."""
+    region = len(weights) == 4
+    tensors = (x, *weights, epi)
+    if any(t.device != x.device for t in tensors):
+        raise ValueError(f"{name}: all operands must be on one device")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
+               for t in tensors):
+        raise ValueError(f"{name}: operands must be contiguous and 16-byte "
+                         f"aligned")
+    n, h, w, cin = x.shape
+    step = 4 if region else 2
+    if h % step or w % step:
+        raise ValueError(f"{name}: H = {h} and W = {w} must be multiples of "
+                         f"{step}")
+    c1 = cin if region else 0
+    c = weights[0].shape[1] if region else cin
+    cm, co = weights[-3].shape[1], weights[-1].shape[1]
+    tile = plan_tile(c1, c, cm, co, region, epi.shape[1])
+    if tile == 0:
+        raise ValueError(f"{name}: channels {c1, c, cm, co} must be "
+                         f"multiples of 16 and fit in shared memory")
+    out = torch.empty((n, h // step, w // step, co), dtype=torch.int8,
+                      device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    fn = _kernel_fn(name)
+    ptrs = [t.data_ptr() for t in (x, *weights, epi)]
+    if region:
+        err = fn(ptrs[0], X_KINDS[x.dtype],
+                 1.0 if inv_in is None else float(inv_in), *ptrs[1:],
+                 epi.shape[0], epi.shape[1], out.data_ptr(), n, h, w, c1, c,
+                 cm, co, tile, float(alpha), int(cast_bf16), int(fast),
+                 stream)
+    else:
+        err = fn(*ptrs, epi.shape[0], epi.shape[1], out.data_ptr(), n, h, w,
+                 c, cm, co, tile, float(alpha), int(cast_bf16), stream)
+    _build.check(err, name)
+    _build.launch_counts[name] += 1
+    return out
+
+
+def _kernel_fn(name: str):
+    fn = _fns.get(name)
+    if fn is None:
+        fn = getattr(_build.load(NAME), name)
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        if name == NAME:
+            fn.argtypes = [p, i, f] + [p] * 5 + [i, i, p] + [i] * 8 + [
+                f, i, i, p]
+        else:
+            fn.argtypes = [p] * 5 + [i, i, p] + [i] * 7 + [f, i, p]
+        fn.restype = ctypes.c_int
+        _fns[name] = fn
+    return fn
+
+
+def s2d_region_block_q(x: torch.Tensor, w_s2: torch.Tensor,
+                       w_pw: torch.Tensor, w_fb0: torch.Tensor,
+                       w_exit: torch.Tensor, epi: torch.Tensor, *,
+                       alpha: float, cast_bf16: bool, fast: bool = False,
+                       inv_in: Optional[float] = None) -> torch.Tensor:
+    """x [N,H,W,c1] (stem1's output; H, W multiples of 4): s8 at
+    ConvBlock_1's scale, or bf16/f32 with inv_in = 1/s of that scale
+    (`ops/quant.py::reciprocal`); w_s2 [9, c, c1], w_pw [1, cm, c], w_fb0
+    [9, c, cm], w_exit [9, co, c] s8 ((u, v) major); epi f32 [17, >= max(c,
+    cm, co)]. Returns s8 [N, H/4, W/4, co] at FeatureBlock_1/ConvBlock_0's
+    scale."""
+    kw = dict(alpha=alpha, cast_bf16=cast_bf16, fast=fast, inv_in=inv_in)
+    if x.device.type == "cpu":
+        return s2d_region_block_q_plain(x, w_s2, w_pw, w_fb0, w_exit, epi,
+                                        **kw)
+    check(x, (w_s2, w_pw, w_fb0, w_exit), epi, 17, inv_in)
+    return launch(NAME, x, (w_s2, w_pw, w_fb0, w_exit), epi, **kw)

@@ -108,3 +108,81 @@ def fold_conv_block(weight: torch.Tensor, bias: torch.Tensor,
     dq = sw * float(np.float32(act_scale))
     epi = torch.stack([bias.to(F32) / dq, mul * dq, add])
     return w_t, epi
+
+
+# --- the stem region's epilogue rows ----------------------------------------
+#
+# The fused stem-region kernels (stem2 -> FeatureBlock_0 1x1 -> its 3x3 ->
+# residual -> exit conv) take one f32 table of per-channel rows, each
+# zero-padded to the widest stage, in the order of the JAX kernels'
+# docstrings (yolov3_tpu/ops/pallas/s2d_region_kernel.py, s2d_tail_kernel.py,
+# exit_conv_kernel.py). A stage's (b/dq, mul*dq, add) rows are its block's
+# `fold_conv_block` epi; s2..s5 are the activation scales of
+# FeatureBlock_0/ConvBlock_0, FeatureBlock_0/ConvBlock_1, ConvBlock_2 and
+# FeatureBlock_1/ConvBlock_0.
+
+
+def _f32(v: float) -> torch.Tensor:
+    return torch.tensor(np.float32(v), dtype=F32)
+
+
+def _rows(rows, width: int) -> torch.Tensor:
+    """Stack 1-D f32 rows, each zero-padded to `width`."""
+    out = torch.zeros((len(rows), width), dtype=F32)
+    for i, r in enumerate(rows):
+        out[i, :r.shape[0]] = r
+    return out
+
+
+def _tail_rows(pw: torch.Tensor, fb0: torch.Tensor, exit_: torch.Tensor,
+               s2: float, s3: float, s4: float, s5: float,
+               fast: bool = False):
+    """Rows 0-12 as 1-D tensors:
+      0-3   pw:   b/dq, mul*dq, add, 1/s3
+      4-8   fb0:  b/dq, mul*dq, add, s2 (residual dequant), 1/s4
+      9-12  exit: b/dq, mul*dq, add, 1/s5
+    With `fast`, each stage's 1/s is folded into its mul and add
+    (f32 divisions, as quantized.py:905-913) and row 7 is s2/s4; rows
+    3, 8 and 12 are then unused by the kernels."""
+    cm, c, co = pw.shape[1], fb0.shape[1], exit_.shape[1]
+    s2_, s3_, s4_, s5_ = (_f32(s) for s in (s2, s3, s4, s5))
+    (b1, m1, a1), (bf, mf, af), (b3, m3, a3) = pw, fb0, exit_
+    if fast:
+        m1, a1 = m1 / s3_, a1 / s3_
+        mf, af = mf / s4_, af / s4_
+        res = (s2_ / s4_).expand(c)
+        m3, a3 = m3 / s5_, a3 / s5_
+    else:
+        res = s2_.expand(c)
+    one = _f32(1.0)
+    return [b1, m1, a1, (one / s3_).expand(cm),
+            bf, mf, af, res, (one / s4_).expand(c),
+            b3, m3, a3, (one / s5_).expand(co)]
+
+
+def region_epi(stem2: torch.Tensor, pw: torch.Tensor, fb0: torch.Tensor,
+               exit_: torch.Tensor, s2: float, s3: float, s4: float,
+               s5: float, fast: bool = False) -> torch.Tensor:
+    """The region kernel's f32 [17, max_c] table: `_tail_rows`, then
+      13-16 stem2: b/dq, mul*dq, add, 1/s2
+    (`fast`: mul and add divided by s2)."""
+    rows = _tail_rows(pw, fb0, exit_, s2, s3, s4, s5, fast)
+    b2, m2, a2 = stem2
+    s2_ = _f32(s2)
+    if fast:
+        m2, a2 = m2 / s2_, a2 / s2_
+    rows += [b2, m2, a2, (_f32(1.0) / s2_).expand(stem2.shape[1])]
+    return _rows(rows, max(r.shape[0] for r in rows))
+
+
+def tail_epi(pw: torch.Tensor, fb0: torch.Tensor, exit_: torch.Tensor,
+             s2: float, s3: float, s4: float, s5: float) -> torch.Tensor:
+    """The tail kernel's f32 [13, max_c] table (exact epilogue)."""
+    rows = _tail_rows(pw, fb0, exit_, s2, s3, s4, s5)
+    return _rows(rows, max(r.shape[0] for r in rows))
+
+
+def exit_epi(exit_: torch.Tensor, s5: float) -> torch.Tensor:
+    """The exit kernel's f32 [4, co] table: b/dq, mul*dq, add, 1/s5."""
+    inv = (_f32(1.0) / _f32(s5)).expand(exit_.shape[1])
+    return torch.cat([exit_, inv[None]]).contiguous()
