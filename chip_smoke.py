@@ -24,14 +24,15 @@ Phases, in order; any failure exits non-zero:
      the IoU-slab kernel (`greedy_suppress`, called once between the
      counters' reset and read on the slab of `pairwise_iou`) bit-equal to
      its plain version and to the box kernel; the 1x1 block within rtol =
-     atol = 2e-2 in bf16. Times from CUDA events after warm-up, beside
-     each call's bound.
+     atol = 2e-2 in bf16. Each kernel's time beside each call's bound.
   5. int8 reference check at 64 px, full width, bf16, both sides under
      the card's default kernel set: the port's int8 model on the card
      (kernels) and on the CPU (plain versions) with one scale dict. Every
      kernel launch against its plain version on the same inputs: s8 codes
-     within 1, float outputs within a bf16 ulp; the share of s8 codes that
-     differ along the two chains; decode fidelity >= 0.99.
+     within 1, float outputs within a bf16 ulp, and the int8 1x1 and 3x3
+     (the wgmma core) exactly: 0 codes differ, floats bit-equal, also
+     against their WMMA twins; the share of s8 codes that differ along the
+     two chains; decode fidelity >= 0.99.
   6. Full-width int8 serving (`make_quantized_serving_fn`, 512 px, batch
      8, the default kernel set: the stem region in one launch with the
      fast epilogue), calibrated (absmax) on the served batch. Counters set
@@ -42,9 +43,12 @@ Phases, in order; any failure exits non-zero:
      the same way: {region_pallas, exit_pallas} 33 / 31 / 4 and 1 tail;
      {exit_pallas} 34 / 32 / 4 and 1 exit conv.
   7. Each int8 kernel against its plain version on every input the int8
-     serving calls handed it (s8 within 1 code; for the region, tail and
-     exit also the share of codes that differ), and per shape the
-     kernel's, the plain version's and the library yardstick's time
+     serving calls handed it (s8 within 1 code, the 1x1 and 3x3 exactly
+     and equal to their WMMA twins; for the region, tail and exit also
+     the share of codes that differ), and per shape the kernel's (with the
+     1x1's and 3x3's tile plan, and their WMMA twins timed in turns, twin,
+     kernel, kernel, twin, as `previous_ms`), the plain version's and the
+     library yardstick's time
      (`torch._int_mm` on the rows or an im2col, plus the epilogue ops,
      stage by stage for the region) beside the bound; for the region also
      the unfused chain of the stride-2, 1x1, 3x3 and stride-2 kernels on
@@ -54,6 +58,12 @@ Phases, in order; any failure exits non-zero:
      CSVs in both layouts.
   9. One JSON line of kernel results, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+
+A kernel's `ms` is device time: `device_ms` captures 20 calls in a CUDA
+graph and times its replays with CUDA events, so the Python wrapper's
+dispatch is not counted. `event_ms` beside it is the older measure, CUDA
+events around 20 calls issued from Python after warm-up. Plain and
+library times are event times. Inputs are warm in the 50 MB L2.
 """
 
 from __future__ import annotations
@@ -129,6 +139,9 @@ INT8_KERNELS = {
 }
 CONV_KERNELS = ("pointwise_conv_block_q", "conv3x3_block_q",
                 "down_conv_block_q")
+# the kernels on the wgmma core: exact against their plain versions and
+# against their WMMA twins (entry NAME + "_wmma")
+WGMMA_KERNELS = ("pointwise_conv_block_q", "conv3x3_block_q")
 REGION_KERNELS = ("s2d_region_block_q", "s2d_tail_block_q",
                   "exit_conv_block_q")
 
@@ -150,6 +163,33 @@ def cuda_ms(fn, reps, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps=20, replays=5):
+    """Device time of one call of `fn` (ms): `reps` calls captured in a
+    CUDA graph, replayed `replays` times between CUDA events, so the
+    host's dispatch of each call is not timed."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
 
 
 def bound(nbytes, ops, rate, f32_ops=0.0):
@@ -314,8 +354,10 @@ def phase_pointwise(torch, calls):
             y = torch.matmul(x, w).float() + b
             return (F.leaky_relu(y, alpha) * mul + add).to(out_dtype)
 
-        ms = cuda_ms(lambda: K.pointwise_conv_block(x, w, b, mul, add, alpha,
-                                                    out_dtype), 20)
+        def kern():
+            return K.pointwise_conv_block(x, w, b, mul, add, alpha, out_dtype)
+
+        ms, event = device_ms(kern), cuda_ms(kern, 20)
         plain = cuda_ms(lambda: K.pointwise_conv_block_plain(
             x, w, b, mul, add, alpha, out_dtype), 5)
         lib = cuda_ms(library, 20)
@@ -323,15 +365,16 @@ def phase_pointwise(torch, calls):
         nbytes = (m * ci + ci * co) * 2 + 3 * co * 4 + m * co * out_bytes
         ops = 2 * m * ci * co + 5 * m * co
         b_ms, b_by = bound(nbytes, ops, BF16_OPS_S)
-        rows.append(dict(m=m, ci=ci, co=co, ms=ms, plain_ms=plain,
-                         library_ms=lib, bound_ms=b_ms, bound_by=b_by,
-                         bytes=nbytes, ops=ops))
+        rows.append(dict(m=m, ci=ci, co=co, ms=ms, event_ms=event,
+                         plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                         bound_by=b_by, bytes=nbytes, ops=ops))
         log(f"pointwise_conv_block M={m} Ci={ci} Co={co}: kernel {ms:.4f} ms, "
             f"plain {plain:.4f} ms, library {lib:.4f} ms, bound {b_ms:.4f} ms "
             f"({b_by}), {ops / ms / 1e9:.1f} TFLOP/s")
     t_bytes = sum(r["bytes"] for r in rows) / HBM_BYTES_S
     t_ops = sum(r["ops"] for r in rows) / BF16_OPS_S
     summary = dict(ms=sum(r["ms"] for r in rows),
+                   event_ms=sum(r["event_ms"] for r in rows),
                    plain_ms=sum(r["plain_ms"] for r in rows),
                    library_ms=sum(r["library_ms"] for r in rows),
                    bound_ms=sum(r["bound_ms"] for r in rows),
@@ -352,7 +395,8 @@ def nms_case(torch, cand, valid, label):
     if err != 0:
         raise AssertionError(f"NMS kernel keep mask differs ({label}): "
                              f"{int((got != want).sum())} slots")
-    ms = cuda_ms(lambda: K.suppress_boxes_t(cand, valid, 0.3), 20)
+    ms = device_ms(lambda: K.suppress_boxes_t(cand, valid, 0.3))
+    event = cuda_ms(lambda: K.suppress_boxes_t(cand, valid, 0.3), 20)
     plain = cuda_ms(lambda: K.suppress_boxes_plain(cand, valid, 0.3), 2, 1)
     c, k = valid.shape
     kept = want.to(torch.float64)
@@ -361,8 +405,9 @@ def nms_case(torch, cand, valid, label):
     log(f"nms_suppress {label} C={c} K={k} valid={int(valid.sum())}: kernel "
         f"{ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.6f} ms ({b_by}, "
         f"{pairs:.0f} IoU tests), keep bit-equal ({int(got.sum())} kept)")
-    return dict(label=label, c=c, k=k, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                bound_by=b_by, iou_tests=pairs, max_abs_err=err)
+    return dict(label=label, c=c, k=k, ms=ms, event_ms=event, plain_ms=plain,
+                bound_ms=b_ms, bound_by=b_by, iou_tests=pairs,
+                max_abs_err=err)
 
 
 def greedy_case(torch, cand, valid, label):
@@ -387,7 +432,8 @@ def greedy_case(torch, cand, valid, label):
         raise AssertionError(f"greedy_suppress keep mask differs ({label}): "
                              f"{int((got != want).sum())} slots from plain, "
                              f"{int((got != boxes).sum())} from nms_suppress")
-    ms = cuda_ms(lambda: K.greedy_suppress(iou, valid, 0.3), 20)
+    ms = device_ms(lambda: K.greedy_suppress(iou, valid, 0.3))
+    event = cuda_ms(lambda: K.greedy_suppress(iou, valid, 0.3), 20)
     plain = cuda_ms(lambda: K.greedy_suppress_plain(iou, valid, 0.3), 2, 1)
     c, k = valid.shape
     # as for the box kernel: the function needs iou[i, j] only for each
@@ -401,9 +447,10 @@ def greedy_case(torch, cand, valid, label):
         f"({b_by}, {pairs:.0f} IoU entries; the whole slab "
         f"{c * k * k * 4 / 1e6:.1f} MB), keep bit-equal to plain and "
         f"nms_suppress ({int(got.sum())} kept)")
-    return dict(label=label, c=c, k=k, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                bound_by=b_by, iou_entries=pairs, slab_bytes=c * k * k * 4,
-                max_abs_err=err, launches=launches)
+    return dict(label=label, c=c, k=k, ms=ms, event_ms=event, plain_ms=plain,
+                bound_ms=b_ms, bound_by=b_by, iou_entries=pairs,
+                slab_bytes=c * k * k * 4, max_abs_err=err,
+                launches=launches)
 
 
 def phase_nms(torch, calls):
@@ -470,6 +517,45 @@ def int8_compare(torch, got, want):
     return code, differ, total, fl
 
 
+def int8_exact(torch, got, want):
+    """True when 0 s8 codes differ and float outputs are bit-equal."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    return len(got) == len(want) and all(
+        g.dtype == w.dtype and torch.equal(g.cpu(), w.cpu())
+        for g, w in zip(got, want))
+
+
+def wmma_twin(name, args, kw):
+    """A recorded call of a wgmma kernel's wrapper, on its WMMA twin (the
+    entry NAME + "_wmma" of the same library, same contract); timed and
+    compared here only, never on a serving path."""
+    from yolov3_tpu_torch.ops.kernels import _conv_q
+    x, w_t, epi = args
+    out = kw.get("out_dtype")
+    res = kw.get("residual_q")
+    if name == "pointwise_conv_block_q":
+        shape = dict(ksize=1, cast_bf16=out != _conv_q.F32, residual_in=res)
+    else:
+        shape = dict(ksize=3, cast_bf16=kw["cast_bf16"], residual_out=res)
+    return _conv_q.launch(name, x, w_t, epi, stride=1, inv_in=kw["inv_in"],
+                          inv_next=kw["inv_next"], alpha=kw["alpha"],
+                          res_scale=kw.get("res_scale", 0.0),
+                          emit_s8=kw.get("emit_s8", True), out_dtype=out,
+                          wmma=True, **shape)
+
+
+def launch_plan(name, args):
+    """The tile plan `_conv_q.launch` gives a wgmma kernel's call."""
+    import torch
+    from yolov3_tpu_torch.ops.kernels import _conv_q
+    x, w_t, _ = args
+    n, h, w, ci = x.shape
+    return _conv_q.conv_plan(n, h, w, ci, w_t.shape[1],
+                             1 if w_t.shape[0] == 1 else 3,
+                             x.dtype != torch.int8)
+
+
 def phase_int8_reference(torch, ckpt, TQ, ModelConfig):
     """64 px, full width, bf16, one scale dict: the int8 model on the card
     (kernels) against the same model on the CPU (plain versions)."""
@@ -496,8 +582,9 @@ def phase_int8_reference(torch, ckpt, TQ, ModelConfig):
             for n, f in origs.items():
                 setattr(TQ, n, f)
     torch.cuda.synchronize()
-    # each card launch against its plain version on the same inputs
-    code, fl = 0, 0.0
+    # each card launch against its plain version on the same inputs; the
+    # wgmma kernels exactly, and equal to their WMMA twins
+    code, fl, inexact = 0, 0.0, []
     for name, args, kw, out in runs["card"]:
         want = getattr(int8_module(name), f"{name}_plain")(
             *(a.cpu() for a in args),
@@ -505,6 +592,10 @@ def phase_int8_reference(torch, ckpt, TQ, ModelConfig):
                for k, v in kw.items()})
         c, _, _, f = int8_compare(torch, out, want)
         code, fl = max(code, c), max(fl, f)
+        if name in WGMMA_KERNELS and not (
+                int8_exact(torch, out, want)
+                and int8_exact(torch, out, wmma_twin(name, args, kw))):
+            inexact.append((name, tuple(args[0].shape)))
     # the two chains, launch by launch (the bf16 stem1 convolution differs
     # between cuDNN and the CPU, so the chains' inputs drift apart)
     chain = [0, 0, 0]
@@ -515,15 +606,18 @@ def phase_int8_reference(torch, ckpt, TQ, ModelConfig):
     fid = TQ.decode_iou_fidelity(dets["cpu"].numpy(), dets["card"].numpy(),
                                  top_k=20)
     out = dict(launches=len(runs["card"]), max_code_diff=code,
-               max_float_diff=fl, chain_max_code_diff=chain[0],
+               max_float_diff=fl, wgmma_inexact=len(inexact),
+               chain_max_code_diff=chain[0],
                chain_codes_differing=chain[1] / max(chain[2], 1),
                fidelity=fid)
     log(f"int8 reference 64px bf16 full width, {len(runs['card'])} kernel "
         f"launches: kernel vs plain on the same inputs max code diff {code}, "
-        f"max float diff {fl:.3e}; card vs CPU chains: max code diff "
+        f"max float diff {fl:.3e}; wgmma launches not exact vs plain and "
+        f"WMMA: {inexact}; card vs CPU chains: max code diff "
         f"{chain[0]}, {100 * out['chain_codes_differing']:.4f}% of "
         f"{chain[2]} s8 codes differ; decode fidelity {fid:.6f}")
     if (len(runs["card"]) != len(runs["cpu"]) or code > 1 or fid < 0.99
+            or inexact
             or sum(r[0] == "s2d_region_block_q" for r in runs["card"]) != 1):
         raise AssertionError(f"int8 card disagrees with the CPU: {out}")
     return out
@@ -703,8 +797,12 @@ def int8_library(torch, name, args, kw):
 
 
 def phase_int8_kernels(torch, calls):
-    """Every recorded int8 launch against its plain version; per distinct
-    shape, the kernel's, plain and library times beside the bound."""
+    """Every recorded int8 launch against its plain version (the wgmma
+    kernels exactly, and equal to their WMMA twins); per distinct shape,
+    the kernel's device time (`device_ms`) beside its event time, the
+    plain and library times and the bound; for the wgmma kernels the WMMA
+    twin's device time in turns (twin, kernel, kernel, twin) as
+    `previous_ms`, and the tile plan."""
     errs, lib_errs, groups = {}, {}, {}
     for name, args, kw, out in calls:
         if name not in CONV_KERNELS:
@@ -715,6 +813,11 @@ def phase_int8_kernels(torch, calls):
         if c > 1:
             raise AssertionError(f"{name} {tuple(args[0].shape)}: s8 codes "
                                  f"differ from the plain version by {c}")
+        if name in WGMMA_KERNELS and not (
+                int8_exact(torch, out, want)
+                and int8_exact(torch, out, wmma_twin(name, args, kw))):
+            raise AssertionError(f"{name} {tuple(args[0].shape)}: not equal "
+                                 f"to its plain version and WMMA twin")
         errs[name] = max(errs.get(name, 0.0), float(c), f)
         res = kw.get("residual_q")
         key = (name, tuple(args[0].shape), str(args[0].dtype),
@@ -730,7 +833,21 @@ def phase_int8_kernels(torch, calls):
         lib_c, _, _, lib_f = int8_compare(
             torch, int8_library(torch, name, args, kw), plain(*args, **kw))
         lib_errs[name] = max(lib_errs.get(name, 0.0), float(lib_c), lib_f)
-        ms = cuda_ms(lambda: kern(*args, **kw), 20)
+
+        def new():
+            return kern(*args, **kw)
+
+        extra = {}
+        if name in WGMMA_KERNELS:
+            def old():
+                return wmma_twin(name, args, kw)
+
+            t = [device_ms(f) for f in (old, new, new, old)]
+            ms, extra["previous_ms"] = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+            extra["plan"] = list(launch_plan(name, args))
+        else:
+            ms = device_ms(new)
+        event = cuda_ms(new, 20)
         plain_ms = cuda_ms(lambda: plain(*args, **kw), 2, 1)
         lib = cuda_ms(lambda: int8_library(torch, name, args, kw), 10)
         nbytes, ops = int8_work(name, args, kw)
@@ -740,26 +857,36 @@ def phase_int8_kernels(torch, calls):
         rows.append(dict(kernel=name, shape=f"{n}x{h}x{w}x{ci}->{co}",
                          x_dtype=key[2], emit_s8=key[4], out_dtype=key[5],
                          residual=key[6], launches=len(members), ms=ms,
-                         plain_ms=plain_ms, library_ms=lib, bound_ms=b_ms,
-                         bound_by=b_by, bytes=nbytes, ops=ops))
+                         event_ms=event, plain_ms=plain_ms, library_ms=lib,
+                         bound_ms=b_ms, bound_by=b_by, bytes=nbytes, ops=ops,
+                         **extra))
+        old_s = (f", WMMA twin {extra['previous_ms']:.4f} ms, plan "
+                 f"{tuple(extra['plan'])}" if extra else "")
         log(f"{name} {rows[-1]['shape']} {key[2]} x{len(members)}: kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib:.4f} ms, "
-            f"bound {b_ms:.4f} ms ({b_by}), {ops / ms / 1e9:.1f} TOP/s")
+            f"{ms:.4f} ms (events {event:.4f}){old_s}, plain "
+            f"{plain_ms:.4f} ms, library {lib:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}), {ops / ms / 1e9:.1f} TOP/s")
     summary = {}
     for name in CONV_KERNELS:
         mine = [r for r in rows if r["kernel"] == name]
-        per = {k: sum(r[k] * r["launches"] for r in mine)
-               for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes",
-                         "ops")}
+        keys = ["ms", "event_ms", "plain_ms", "library_ms", "bound_ms",
+                "bytes", "ops"]
+        if name in WGMMA_KERNELS:
+            keys.append("previous_ms")
+        per = {k: sum(r[k] * r["launches"] for r in mine) for k in keys}
         t_bytes, t_ops = per["bytes"] / HBM_BYTES_S, per["ops"] / INT8_OPS_S
         summary[name] = dict(per, bound_by="bytes" if t_bytes >= t_ops
                              else "operations", max_abs_err=errs[name],
                              library_max_err=lib_errs[name])
+        prev = (f" (WMMA twin {per['previous_ms']:.3f} ms)"
+                if "previous_ms" in per else "")
         log(f"{name} per forward ({sum(r['launches'] for r in mine)} "
-            f"launches): kernel {per['ms']:.3f} ms, plain "
-            f"{per['plain_ms']:.3f} ms, library {per['library_ms']:.3f} ms, "
-            f"bound {per['bound_ms']:.3f} ms; max err vs plain "
-            f"{errs[name]}, library vs plain {lib_errs[name]}")
+            f"launches): kernel {per['ms']:.3f} ms{prev}, events "
+            f"{per['event_ms']:.3f} ms, plain {per['plain_ms']:.3f} ms, "
+            f"library {per['library_ms']:.3f} ms, bound "
+            f"{per['bound_ms']:.3f} ms, {per['ops'] / per['ms'] / 1e9:.1f} "
+            f"TOP/s; max err vs plain {errs[name]}, library vs plain "
+            f"{lib_errs[name]}")
     return summary, rows
 
 
@@ -839,19 +966,22 @@ def phase_region_kernels(torch, calls, exact_epi):
                                  f"version by {code}")
         lib_c, lib_differ, _, _ = int8_compare(
             torch, region_library(torch, name, args, kw), want)
-        ms = cuda_ms(lambda: kern(*args, **kw), 20)
+        ms = device_ms(lambda: kern(*args, **kw))
+        event = cuda_ms(lambda: kern(*args, **kw), 20)
         plain_ms = cuda_ms(lambda: plain(*args, **kw), 2, 1)
         lib = cuda_ms(lambda: region_library(torch, name, args, kw), 5)
         nbytes, ops, f32_ops = region_work(name, args)
         b_ms, b_by = bound(nbytes, ops, INT8_OPS_S, f32_ops)
         row = dict(shape=f"{tuple(args[0].shape)}->{tuple(out.shape)}",
                    x_dtype=str(args[0].dtype), f32_ops=f32_ops,
-                   fast=kw.get("fast", False), ms=ms, plain_ms=plain_ms,
+                   fast=kw.get("fast", False), ms=ms, event_ms=event,
+                   plain_ms=plain_ms,
                    library_ms=lib, bound_ms=b_ms, bound_by=b_by,
                    bytes=nbytes, ops=ops, max_abs_err=float(code),
                    codes_differing=differ / total,
                    library_codes_differing=lib_differ / total)
-        log(f"{name} {row['shape']} fast={row['fast']}: kernel {ms:.4f} ms, "
+        log(f"{name} {row['shape']} fast={row['fast']}: kernel {ms:.4f} ms "
+            f"(events {event:.4f}), "
             f"plain {plain_ms:.4f} ms, library {lib:.4f} ms, bound "
             f"{b_ms:.4f} ms ({b_by}), {ops / ms / 1e9:.1f} TOP/s; vs plain "
             f"max code diff {code}, {100 * differ / total:.4f}% of {total} "
@@ -861,10 +991,9 @@ def phase_region_kernels(torch, calls, exact_epi):
             exact = kern(*args[:-1], exact_epi, **dict(kw, fast=False))
             c_code, c_differ, _, _ = int8_compare(torch, chain(), exact)
             f_code, f_differ, _, _ = int8_compare(torch, out, exact)
-            row.update(chain_ms=cuda_ms(chain, 20),
-                       exact_ms=cuda_ms(lambda: kern(
-                           *args[:-1], exact_epi, **dict(kw, fast=False)),
-                           20),
+            row.update(chain_ms=device_ms(chain),
+                       exact_ms=device_ms(lambda: kern(
+                           *args[:-1], exact_epi, **dict(kw, fast=False))),
                        chain_vs_exact_codes=c_differ / total,
                        fast_vs_exact_max=f_code,
                        fast_vs_exact_codes=f_differ / total)
@@ -885,7 +1014,7 @@ def phase_region_kernels(torch, calls, exact_epi):
             if s_code:
                 raise AssertionError(f"region on s8 codes differs from the "
                                      f"region on floats by {s_code}")
-            row["quantize_then_s8_ms"] = cuda_ms(s8_route, 20)
+            row["quantize_then_s8_ms"] = device_ms(s8_route)
             log(f"  PyTorch's quantize, then the region on the s8 codes: "
                 f"{row['quantize_then_s8_ms']:.4f} ms (equal codes)")
         summary[name] = row
@@ -1013,15 +1142,16 @@ def main(argv=None) -> int:
          "replaces": "yolov3_tpu/ops/pallas/nms_kernel.py:191",
          "launches": launches["nms_suppress"],
          "max_abs_err": max(r["max_abs_err"] for r in nms_rows),
-         "ms": nms["ms"], "plain_ms": nms["plain_ms"],
-         "bound_ms": nms["bound_ms"], "bound_by": nms["bound_by"],
-         "library_ms": None},
+         "ms": nms["ms"], "event_ms": nms["event_ms"],
+         "plain_ms": nms["plain_ms"], "bound_ms": nms["bound_ms"],
+         "bound_by": nms["bound_by"], "library_ms": None},
         {"name": "pointwise_conv_block", "route": "cuda",
          "source": "yolov3_tpu_torch/csrc/pointwise_conv_block.cu",
          "replaces": "yolov3_tpu/ops/pallas/conv_block_kernel.py:68",
          "launches": launches["pointwise_conv_block"],
          "max_abs_err": pw["max_abs_err"], "ms": pw["ms"],
-         "plain_ms": pw["plain_ms"], "bound_ms": pw["bound_ms"],
+         "event_ms": pw["event_ms"], "plain_ms": pw["plain_ms"],
+         "bound_ms": pw["bound_ms"],
          "bound_by": pw["bound_by"], "library_ms": pw["library_ms"]},
     ]
     # launches: the region's from the default serving call, the tail's and
@@ -1035,8 +1165,11 @@ def main(argv=None) -> int:
              "source": f"yolov3_tpu_torch/csrc/{src}.cu",
              "replaces": replaces, "launches": path_launches[name],
              "max_abs_err": q["max_abs_err"], "ms": q["ms"],
-             "plain_ms": q["plain_ms"], "bound_ms": q["bound_ms"],
-             "bound_by": q["bound_by"], "library_ms": q["library_ms"]})
+             "event_ms": q["event_ms"], "plain_ms": q["plain_ms"],
+             "bound_ms": q["bound_ms"], "bound_by": q["bound_by"],
+             "library_ms": q["library_ms"]})
+        if name in WGMMA_KERNELS:
+            kernels[-1]["previous_ms"] = q["previous_ms"]
     greedy = greedy_rows[0]
     kernels.append(
         {"name": "greedy_suppress", "route": "cuda",
@@ -1044,9 +1177,9 @@ def main(argv=None) -> int:
          "replaces": "yolov3_tpu/ops/pallas/nms_kernel.py:295",
          "launches": greedy["launches"],
          "max_abs_err": max(r["max_abs_err"] for r in greedy_rows),
-         "ms": greedy["ms"], "plain_ms": greedy["plain_ms"],
-         "bound_ms": greedy["bound_ms"], "bound_by": greedy["bound_by"],
-         "library_ms": None})
+         "ms": greedy["ms"], "event_ms": greedy["event_ms"],
+         "plain_ms": greedy["plain_ms"], "bound_ms": greedy["bound_ms"],
+         "bound_by": greedy["bound_by"], "library_ms": None})
     for kern in kernels:
         for key, v in kern.items():
             if isinstance(v, float) and not math.isfinite(v):

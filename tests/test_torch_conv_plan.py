@@ -1,0 +1,160 @@
+"""The tile planner of the int8 1x1 and 3x3 kernels' wgmma core
+(`yolov3_tpu_torch/ops/kernels/_conv_q.py::conv_plan`), on the CPU.
+
+The plan is pure Python: the kernels' C entry points check it and the
+card tests (tests/test_torch_kernels_cuda.py) run every tile it can
+choose. Here: every 1x1 and 3x3 launch shape of the flagship model (512
+px, filter_count 1024, block_count 8) at batch 8 and 64 gets a plan that
+has the least cost in the planner's model (the bytes an SM streams from
+L2), keeps at least 120 of the card's 132 SMs busy, fits the shared
+memory and the TMA box limits;
+the shape list is checked against the launches of a small int8 forward.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from yolov3_tpu_torch.config import ModelConfig
+from yolov3_tpu_torch.models import quantized as TQ
+from yolov3_tpu_torch.ops.kernels import _conv_q
+from yolov3_tpu_torch.utils.checkpoint import init_params
+
+FLAGSHIP = dict(img=512, fc=1024, bc=8)
+
+
+def launch_shapes(batch, img, fc, bc):
+    """(x shape, Co) of each int8 1x1 and each 3x3 stride-1 launch of an
+    int8 forward on the plain stem route (FeatureBlock_0 included), from
+    the architecture (models/yolo.py: Darknet53, YoloV3)."""
+    pw, c3 = [], []
+    widths = [fc // 32, fc // 16, fc // 8, fc // 4, fc // 2, fc]
+    size = img
+    for reps, wd in zip([1, 2, bc, bc, bc // 2], widths[1:]):
+        size //= 2
+        for _ in range(reps):
+            pw.append(((batch, size, size, wd), wd // 2))
+            c3.append(((batch, size, size, wd // 2), wd))
+    for stride, cin, f in ((32, fc, fc), (16, fc, fc // 2),
+                           (8, fc // 2, fc // 4)):
+        s = img // stride
+        chans = [cin, f // 2, f, f // 2, f, f // 2, f]
+        for i in range(6):
+            (pw if i % 2 == 0 else c3).append(((batch, s, s, chans[i]),
+                                               chans[i + 1]))
+        if stride > 8:  # the neck 1x1 after the YoloBlock
+            pw.append(((batch, s, s, f // 2), f // 2))
+    return pw, c3
+
+
+def test_launch_shapes_are_the_forwards():
+    """The shape list is what an int8 forward launches: 64 px,
+    filter_count 64, block_count 2, on the CPU (the plain versions)."""
+    cfg = ModelConfig(img_size=(64, 64, 3), number_classes=2,
+                      anchors=((16, 48), (48, 16)), block_count=2,
+                      filter_count=64, compute_dtype="float32",
+                      stem_space_to_depth=False)
+    params, stats = init_params(cfg, 0)
+    x = torch.from_numpy(np.random.RandomState(3).randn(2, 64, 64, 3)
+                         .astype(np.float32))
+    model = TQ.build_quantized_model(params, stats, cfg, "cpu")
+    model.set_act_scales(TQ.calibrate(model, x))
+    seen = {"pointwise_conv_block_q": [], "conv3x3_block_q": []}
+    origs = {}
+    for name, calls in seen.items():
+        origs[name] = fn = getattr(TQ, name)
+
+        def record(xq, w_t, *a, _fn=fn, _calls=calls, **kw):
+            _calls.append((tuple(xq.shape), w_t.shape[1]))
+            return _fn(xq, w_t, *a, **kw)
+
+        setattr(TQ, name, record)
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        for name, fn in origs.items():
+            setattr(TQ, name, fn)
+    pw, c3 = launch_shapes(2, 64, 64, 2)
+    assert sorted(seen["pointwise_conv_block_q"]) == sorted(pw)
+    assert sorted(seen["conv3x3_block_q"]) == sorted(c3)
+    # the flagship: 33 1x1 and 31 3x3 launches on the default set, whose
+    # stem region takes FeatureBlock_0's pair
+    pw, c3 = launch_shapes(8, **FLAGSHIP)
+    assert (len(pw), len(c3)) == (34, 32)
+
+
+def flagship_cases():
+    for batch in (8, 64):
+        pw, c3 = launch_shapes(batch, **FLAGSHIP)
+        for ksize, shapes in ((1, pw), (3, c3)):
+            for shape, co in sorted(set(shapes)):
+                yield batch, ksize, shape, co
+
+
+@pytest.mark.parametrize("float_in", [False, True])
+@pytest.mark.parametrize("batch,ksize,shape,co", list(flagship_cases()))
+def test_flagship_plan_fills_the_card(batch, ksize, shape, co, float_in):
+    """s8 inputs (TMA) and bf16 ones (the converting producer)."""
+    n, h, w, ci = shape
+    plan = _conv_q.conv_plan(n, h, w, ci, co, ksize, float_in)
+    # the least cost of every tile, and a first wave on >= 120 of the 132
+    # SMs (one 128 x 128 wave at 16^2, M * Co = 2,048 x 1,024)
+    cost = _conv_q.plan_cost(plan, n, h, w, ci, co, ksize, float_in)
+    for bm, bn in _conv_q.TILES:
+        if bn <= -(-co // 64) * 64:
+            tw = bm if ksize == 1 else min(bm, 1 << (w - 1).bit_length())
+            other = _conv_q.Plan(bm, bn, plan.bk, bm // tw, tw, 2)
+            assert cost <= _conv_q.plan_cost(other, n, h, w, ci, co, ksize,
+                                             float_in)
+    assert _conv_q.plan_tiles(plan, n, h, w, co, ksize) >= 120
+    # the rectangle, the ring and the TMA boxes
+    assert plan.th * plan.tw == plan.bm
+    assert (plan.th, plan.tw) == ((1, plan.bm) if ksize == 1
+                                  else (plan.bm // plan.tw, plan.tw))
+    assert 2 <= plan.stages <= (_conv_q.FLOAT_MAX_STAGES if float_in
+                                else _conv_q.MAX_STAGES)
+    assert _conv_q.smem_bytes(plan) <= _conv_q.SMEM_BYTES
+    assert max(plan.bk, plan.tw, plan.th, plan.bn) <= 256
+    # one K step's box row is the swizzle span: 64 or 128 bytes, padding
+    # Ci by less than 64
+    assert plan.bk in (64, 128) and plan.bk * -(-ci // plan.bk) < ci + 64
+
+
+@pytest.mark.parametrize("batch", [8, 64])
+def test_flagship_plans_of_the_3x3s(batch):
+    """The 3x3s at b8 take 128 x 128 tiles where 128 x 256 would idle half
+    the card (16^2) and 128 x 256 where it keeps >= 128 SMs busy; the
+    shallow 128^2 stage steps K by 64 bytes (Ci = 64)."""
+    got = {h: tuple(_conv_q.conv_plan(batch, h, h, ci, co, 3))[:5]
+           for h, ci, co in ((16, 512, 1024), (32, 256, 512),
+                             (64, 128, 256), (128, 64, 128))}
+    assert got[16] == ((128, 128, 128, 8, 16) if batch == 8
+                       else (128, 256, 128, 8, 16))
+    assert got[32] == (128, 256, 128, 4, 32)
+    assert got[64] == (128, 256, 128, 2, 64)
+    assert got[128] == (128, 128, 64, 1, 128)
+
+
+@pytest.mark.parametrize("n,h,w,ci,co,ksize", [
+    (1, 8, 8, 24, 64, 3),    # Ci not a multiple of 16
+    (1, 8, 8, 64, 40, 1),    # Co not a multiple of 16
+    (1, 8, 8, 64, 64, 5),    # neither 1x1 nor 3x3
+    (0, 8, 8, 64, 64, 3),    # no pixels
+    (1, 8, 8, 0, 64, 1)])    # no channels
+def test_plan_raises_on_a_contract_it_cannot_meet(n, h, w, ci, co, ksize):
+    with pytest.raises(ValueError):
+        _conv_q.conv_plan(n, h, w, ci, co, ksize)
+
+
+@pytest.mark.parametrize("n,h,w,ci,co,ksize", [
+    (3, 5, 7, 64, 64, 3), (2, 9, 13, 16, 48, 3), (1, 3, 5, 64, 64, 1),
+    (2, 300, 3, 32, 16, 3), (1, 1, 1, 1024, 1024, 1)])
+def test_plan_of_small_and_odd_shapes(n, h, w, ci, co, ksize):
+    """Tiles of tiny or ragged problems: a rectangle of BM pixels at least
+    as wide as the image (up to BM), Co padded by less than 64."""
+    plan = _conv_q.conv_plan(n, h, w, ci, co, ksize)
+    assert plan.th * plan.tw == plan.bm and plan.bn < co + 64
+    assert plan.tw >= min(plan.bm, w) or ksize == 1
+    assert _conv_q.smem_bytes(plan) <= _conv_q.SMEM_BYTES
+

@@ -343,3 +343,116 @@ def test_region_kernels_raise_on_what_they_do_not_take(cuda):
                                         device=cuda),
                             torch.ones(2, 8, dtype=torch.bool, device=cuda),
                             0.3)
+
+
+# --- the wgmma + TMA core of the int8 1x1 and 3x3 kernels -----------------
+
+def assert_int8_equal(got, want):
+    """0 s8 codes differ and float outputs are bit-equal."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g.cpu(), w.cpu())
+
+
+def wgmma_case(rng, shape, co, ksize, kind, res, cuda, emit_s8=True,
+               out=torch.bfloat16):
+    """(name, x, w_t, epi, launch kwargs) of a random int8 1x1 or 3x3
+    block; `res` is the 1x1's residual input or the 3x3's residual
+    output."""
+    w_t, epi = (t.to(cuda) for t in int8_block(rng, ksize, shape[-1], co))
+    x = int8_input(rng, shape, kind, cuda)
+    rshape = shape if ksize == 1 else shape[:3] + (co,)
+    rq = int8_input(rng, rshape, "s8", cuda) if res else None
+    name = "pointwise_conv_block_q" if ksize == 1 else "conv3x3_block_q"
+    kw = dict(ksize=ksize, stride=1, inv_in=0.5, inv_next=9.0, alpha=0.2,
+              cast_bf16=out != torch.float32, res_scale=0.03,
+              emit_s8=emit_s8, out_dtype=out,
+              residual_in=rq if ksize == 1 else None,
+              residual_out=rq if ksize == 3 else None)
+    return name, x, w_t, epi, kw
+
+
+def wgmma_equal_to_plain_and_wmma(name, x, w_t, epi, kw, plan=None):
+    from yolov3_tpu_torch.ops.kernels import _conv_q
+    before = _build.launch_counts[name]
+    got = _conv_q.launch(name, x, w_t, epi, plan=plan, **kw)
+    torch.cuda.synchronize()
+    assert _build.launch_counts[name] == before + 1
+    assert_int8_equal(got, _conv_q.conv_block_q_plain(x, w_t, epi, **kw))
+    assert_int8_equal(got, _conv_q.launch(name, x, w_t, epi, wmma=True,
+                                          **kw))
+
+
+@pytest.mark.parametrize("ksize", [1, 3])
+@pytest.mark.parametrize("tile", range(6))
+@pytest.mark.parametrize("bk", [64, 128])
+def test_wgmma_every_plan_equals_plain_and_wmma(cuda, ksize, tile, bk):
+    """Each tile the planner can choose, at 2-5 stages: 9 taps x Ci 192
+    (3 or 2 K steps, the last half zero-filled at BK 128) wrap the ring
+    many times; 12 x 20 pixels leave ragged rectangles (TW 32)."""
+    from yolov3_tpu_torch.ops.kernels import _conv_q
+    bm, bn = _conv_q.TILES[tile]
+    tw = bm if ksize == 1 else 32
+    plan = _conv_q.Plan(bm, bn, bk, bm // tw, tw, 2 + (tile + bk) % 4)
+    assert _conv_q.smem_bytes(plan) <= _conv_q.SMEM_BYTES
+    case = wgmma_case(np.random.RandomState(tile + bk), (2, 12, 20, 192),
+                      256, ksize, "s8", ksize == 3, cuda)
+    wgmma_equal_to_plain_and_wmma(*case, plan=plan)
+
+
+@pytest.mark.parametrize("shape,co,ksize,kind,res,emit_s8,out", [
+    # H*W < BM with N > 1, W not a multiple of TW
+    ((3, 5, 7, 64), 64, 3, "s8", True, True, torch.bfloat16),
+    # Ci 16 and 48: TMA's zero fill in K; Co 48
+    ((2, 9, 13, 16), 48, 3, "s8", False, True, None),
+    ((2, 9, 13, 48), 48, 1, "s8", False, True, torch.bfloat16),
+    ((2, 6, 10, 48), 48, 3, "s8", True, False, torch.bfloat16),
+    # M = 15 < BM
+    ((1, 3, 5, 64), 64, 1, "s8", False, True, None),
+    ((1, 3, 5, 64), 64, 3, "s8", True, True, None),
+    # bf16 and f32 inputs (the converting producer), with and without the
+    # residual input (1x1) or output (3x3)
+    ((2, 7, 9, 64), 96, 1, "bf16", True, True, torch.bfloat16),
+    ((2, 7, 9, 64), 96, 1, "bf16", False, True, None),
+    ((1, 8, 8, 128), 256, 1, "f32", False, False, torch.float32),
+    ((2, 11, 6, 48), 80, 3, "bf16", True, True, torch.bfloat16),
+    ((2, 16, 16, 64), 128, 3, "bf16", False, False, torch.bfloat16),
+    ((1, 8, 8, 32), 64, 3, "f32", False, False, torch.float32),
+    # the flagship's 16^2 512 -> 1024 and 128^2 64 -> 128 3x3s at b8, and
+    # its 16^2 1024 -> 512 1x1
+    ((8, 16, 16, 512), 1024, 3, "s8", True, True, None),
+    ((8, 128, 128, 64), 128, 3, "s8", True, False, torch.bfloat16),
+    ((8, 16, 16, 1024), 512, 1, "s8", False, True, None)])
+def test_wgmma_edges_equal_plain_and_wmma(cuda, shape, co, ksize, kind, res,
+                                          emit_s8, out):
+    case = wgmma_case(np.random.RandomState(shape[1] + co), shape, co, ksize,
+                      kind, res, cuda, emit_s8, out)
+    wgmma_equal_to_plain_and_wmma(*case)
+
+
+@pytest.mark.parametrize("ksize", [1, 3])
+def test_wgmma_inv_next_row(cuda, ksize):
+    """A [4, Co] epi: the s8 output's 1/s per channel from row 3."""
+    from yolov3_tpu_torch.ops.kernels import _conv_q
+    rng = np.random.RandomState(ksize)
+    name, x, w_t, epi, kw = wgmma_case(rng, (2, 10, 12, 64), 96, ksize, "s8",
+                                       False, cuda)
+    inv = torch.from_numpy(rng.uniform(4, 12, 96).astype(np.float32)).to(cuda)
+    got = _conv_q.launch(name, x, w_t, torch.cat([epi, inv[None]]), **kw)
+    assert_int8_equal(got, _conv_q.conv_block_q_plain(
+        x, w_t, epi, **dict(kw, inv_next=inv)))
+
+
+def test_wgmma_raises_on_a_plan_it_cannot_run(cuda):
+    from yolov3_tpu_torch.ops.kernels import _conv_q
+    name, x, w_t, epi, kw = wgmma_case(np.random.RandomState(0),
+                                       (1, 8, 8, 64), 64, 3, "s8", False,
+                                       cuda)
+    for plan in (_conv_q.Plan(128, 128, 128, 3, 32, 4),   # TH*TW != BM
+                 _conv_q.Plan(128, 256, 128, 4, 32, 5),   # shared memory
+                 _conv_q.Plan(128, 96, 128, 4, 32, 3)):   # BN
+        with pytest.raises(RuntimeError):
+            _conv_q.launch(name, x, w_t, epi, plan=plan, **kw)

@@ -1,9 +1,9 @@
-// Shared core of the port's four int8 ConvBlock kernels for Hopper
-// (sm_90a): pointwise_conv_block_q.cu (1x1), conv3x3_block_q.cu (3x3
-// stride 1), down_conv_block_q.cu (3x3 stride 2, float in) and
-// exit_conv_block_q.cu (3x3 stride 2, s8 in). Each .cu file includes this
-// header and exposes one C entry point that checks its own contract before
-// it launches.
+// WMMA core of the port's int8 stride-2 ConvBlock kernels for Hopper
+// (sm_90a): down_conv_block_q.cu (3x3 stride 2, float in) and
+// exit_conv_block_q.cu (3x3 stride 2, s8 in); the 1x1 and 3x3 stride-1
+// kernels run conv_gemm_q_sm90.cuh and keep this core only as their
+// `*_wmma` A/B entries. Each .cu file includes this header and exposes
+// one C entry point that checks its own contract before it launches.
 //
 // One implicit GEMM over NHWC tensors, exact in int32:
 //
@@ -35,8 +35,7 @@
 // K is walked tap by tap, 32 input channels at a time, with no copy
 // pipeline. Channels must be multiples of 16 (one 16-byte vector of s8 a
 // load); pixels and output channels are ragged (edge rows load as zeros
-// and are not stored). wgmma, TMA and a multi-stage pipeline are later
-// work.
+// and are not stored).
 
 #pragma once
 

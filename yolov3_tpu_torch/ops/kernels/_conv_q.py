@@ -1,13 +1,18 @@
-"""What the three int8 ConvBlock kernels share: the plain PyTorch version
-of their arithmetic and the ctypes launch of their CUDA entry points.
+"""What the int8 ConvBlock kernels share: the plain PyTorch version of
+their arithmetic, the tile plan of the Hopper core, and the ctypes launch
+of their CUDA entry points.
 
-The kernels (`csrc/pointwise_conv_block_q.cu`, `conv3x3_block_q.cu`,
-`down_conv_block_q.cu`) are one implicit GEMM (`csrc/conv_block_q.cuh`)
-with an epilogue, each behind its own entry point and contract. The
-modules `pointwise_q`, `conv3x3_q` and `down_conv_q` are their public
-wrappers. Layouts: activations NHWC; weights `w_t` [taps, Co, Ci] s8
-(each output channel's K contiguous, the kernels' B layout); `epi`
-[3, Co] f32 rows (b/dq, mul*dq, add).
+The 1x1 and 3x3 kernels (`csrc/pointwise_conv_block_q.cu`,
+`conv3x3_block_q.cu`) run one wgmma + TMA implicit GEMM
+(`csrc/conv_gemm_q_sm90.cuh`) under the tile plan `conv_plan` picks per
+launch; the stride-2 kernel (`down_conv_block_q.cu`) and the `*_wmma`
+entries (the 1x1 and 3x3 on the older core, for A/B timing) run the WMMA
+core (`csrc/conv_block_q.cuh`). Each has its own entry point and
+contract. The modules `pointwise_q`, `conv3x3_q` and `down_conv_q` are
+their public wrappers. Layouts: activations NHWC; weights `w_t` [taps,
+Co, Ci] s8 (each output channel's K contiguous, the kernels' B layout);
+`epi` [3, Co] f32 rows (b/dq, mul*dq, add), or [4, Co] for the wgmma
+kernels with 1/s_next per channel in row 3.
 
 The plain version sums the int8 products in float64, which is exact
 below 2^53 (the largest |acc| here is 9 * 1024 * 127^2 ~ 1.5e8), then runs
@@ -17,7 +22,8 @@ the float32 epilogue op by op in the kernels' order.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -28,7 +34,98 @@ from yolov3_tpu_torch.ops.quant import quantize_act
 F32 = torch.float32
 BF16 = torch.bfloat16
 IN_KINDS = {torch.int8: 0, BF16: 1, F32: 2}
+# the kernels on the wgmma core; NAME + "_wmma" is the same contract on the
+# WMMA core, in the same library
+WGMMA_KERNELS = ("pointwise_conv_block_q", "conv3x3_block_q")
+SMS = 132              # H100 SXM streaming multiprocessors
+SMEM_BYTES = 232448    # shared memory a block can use
+MAX_STAGES = 5
+# a float input's ring stops at 4 stages: the shared memory left over
+# serves as L1 for the converting producer's loads (each pixel of a 3x3 is
+# read by nine taps), which beats a fifth stage on the H100 (PERF.md)
+FLOAT_MAX_STAGES = 4
+# a float input's A rows cost this many weight rows: the producer loads
+# and quantizes them instead of one TMA copy
+FLOAT_A_COST = 4
+# (pixels, channels) of a block's output tile
+TILES = ((128, 256), (128, 128), (64, 256), (64, 128), (128, 64), (64, 64))
 _fns = {}
+
+
+class Plan(NamedTuple):
+    """A wgmma launch's tiles: BM output pixels (a TH x TW rectangle of one
+    image for the 3x3; TH = 1, TW = BM for the 1x1) x BN output channels,
+    K steps of BK bytes (64 or 128, the TMA / wgmma swizzle span), and a
+    ring of `stages` (A, B) tiles in shared memory."""
+    bm: int
+    bn: int
+    bk: int
+    th: int
+    tw: int
+    stages: int
+
+
+def smem_bytes(plan: Plan) -> int:
+    """Dynamic shared memory of a launch (csrc/conv_gemm_q_sm90.cuh::
+    smem_bytes): 1 KB of alignment slack, the ring and its barriers."""
+    return 1024 + plan.stages * ((plan.bm + plan.bn) * plan.bk + 16)
+
+
+def plan_tiles(plan: Plan, n: int, h: int, w: int, co: int,
+                ksize: int) -> int:
+    """Output tiles of a launch under `plan` (the kernel runs
+    min(tiles, SMS) persistent blocks that walk them)."""
+    if ksize == 1:
+        mtiles = -(-(n * h * w) // plan.bm)
+    else:
+        mtiles = n * -(-h // plan.th) * -(-w // plan.tw)
+    return mtiles * -(-co // plan.bn)
+
+
+def plan_cost(plan: Plan, n: int, h: int, w: int, ci: int, co: int,
+              ksize: int, float_in: bool = False) -> int:
+    """The plan's time in the planner's model: the bytes one SM streams
+    from L2, K steps of (BM + BN) x BK bytes a tile (a float input's A
+    rows FLOAT_A_COST times over), over ceil(tiles / SMS) tiles. On the
+    H100 every SM's stream runs at about the same rate whether or not the
+    others are busy, so fewer, larger tiles win until they leave SMs
+    idle."""
+    steps = ksize * ksize * -(-ci // plan.bk)
+    waves = -(-plan_tiles(plan, n, h, w, co, ksize) // SMS)
+    a_rows = plan.bm * (FLOAT_A_COST if float_in else 1)
+    return waves * steps * (a_rows + plan.bn) * plan.bk
+
+
+@functools.lru_cache(maxsize=None)
+def conv_plan(n: int, h: int, w: int, ci: int, co: int, ksize: int,
+              float_in: bool = False) -> Plan:
+    """The tile plan of an int8 1x1 (ksize 1) or 3x3 stride-1 launch on
+    x [n, h, w, ci] (s8, or bf16 / f32 with `float_in`) with co output
+    channels.
+
+    BK: 64 or 128 bytes, whichever pads Ci less (128 on a tie). Tile: of
+    TILES with BN at most Co rounded up to 64, the least `plan_cost`
+    (ties: the larger BM, then BN). 3x3 rectangle: TW the power of two >=
+    W, at most BM; TH = BM / TW. Stages: as many as fit in SMEM_BYTES, at
+    most MAX_STAGES (FLOAT_MAX_STAGES for a float input). Cached: a
+    serving call plans each of its ~64 launches again, and the search
+    (~20 us of Python) would otherwise add to the host's dispatch."""
+    if ksize not in (1, 3):
+        raise ValueError(f"conv_plan: ksize {ksize} is neither 1 nor 3")
+    if min(n, h, w, ci, co) < 1 or ci % 16 or co % 16:
+        raise ValueError(f"conv_plan: x ({n}, {h}, {w}, {ci}) -> {co} needs "
+                         f"positive sizes and channels multiple of 16")
+    bk = 64 if -(-ci // 64) * 64 < -(-ci // 128) * 128 else 128
+    plans = []
+    for bm, bn in TILES:
+        if bn > -(-co // 64) * 64:
+            continue
+        tw = bm if ksize == 1 else min(bm, 1 << (w - 1).bit_length())
+        stages = min(FLOAT_MAX_STAGES if float_in else MAX_STAGES,
+                     (SMEM_BYTES - 1024) // ((bm + bn) * bk + 16))
+        plans.append(Plan(bm, bn, bk, bm // tw, tw, stages))
+    return min(plans, key=lambda q: (
+        plan_cost(q, n, h, w, ci, co, ksize, float_in), -q.bm, -q.bn))
 
 
 def same_pads(size: int, k: int, s: int) -> Tuple[int, int]:
@@ -114,15 +211,18 @@ def conv_sums(q: torch.Tensor, w_t: torch.Tensor, ksize: int,
     return acc.permute(0, 2, 3, 1)
 
 
-def _kernel_fn(name: str):
-    fn = _fns.get(name)
+def _kernel_fn(lib: str, entry: str, planned: bool):
+    fn = _fns.get(entry)
     if fn is None:
-        fn = getattr(_build.load(name), name)
+        fn = getattr(_build.load(lib), entry)
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, i, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i,
-                       i, i, f, f, f, f, i, p]
+        # the WMMA entries end at cast_bf16; the wgmma ones add
+        # inv_next_row and the plan
+        fn.argtypes = ([p, i, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i,
+                        i, i, f, f, f, f, i]
+                       + [i] * (7 if planned else 0) + [p])
         fn.restype = ctypes.c_int
-        _fns[name] = fn
+        _fns[entry] = fn
     return fn
 
 
@@ -132,9 +232,15 @@ def launch(name: str, x: torch.Tensor, w_t: torch.Tensor, epi: torch.Tensor,
            residual_in: Optional[torch.Tensor] = None,
            residual_out: Optional[torch.Tensor] = None,
            res_scale: float = 0.0, emit_s8: bool = True,
-           out_dtype: Optional[torch.dtype] = None):
+           out_dtype: Optional[torch.dtype] = None,
+           plan: Optional[Plan] = None, wmma: bool = False):
     """Launch kernel `name` on CUDA tensors (same result layout as
-    `conv_block_q_plain`); raises on what the kernel does not take."""
+    `conv_block_q_plain`); raises on what the kernel does not take.
+
+    A wgmma kernel (WGMMA_KERNELS) runs under `plan`, by default
+    `conv_plan`'s, and takes a [4, Co] epi (1/s_next per channel in row
+    3) as well; `wmma` runs the same contract on the WMMA core instead
+    (entry NAME + "_wmma", counted under that name)."""
     if x.dtype not in IN_KINDS:
         raise TypeError(f"{name}: x must be s8, bf16 or f32, got {x.dtype}")
     if w_t.dtype != torch.int8 or epi.dtype != F32:
@@ -145,7 +251,10 @@ def launch(name: str, x: torch.Tensor, w_t: torch.Tensor, epi: torch.Tensor,
                          f"out_dtype={out_dtype})")
     n, h, w, ci = x.shape
     taps, co, wci = w_t.shape
-    if taps != ksize * ksize or wci != ci or tuple(epi.shape) != (3, co):
+    planned = name in WGMMA_KERNELS and not wmma
+    rows = (3, 4) if planned else (3,)
+    if (taps != ksize * ksize or wci != ci or epi.dim() != 2
+            or tuple(epi.shape) not in [(r, co) for r in rows]):
         raise ValueError(f"{name}: w_t {tuple(w_t.shape)} / epi "
                          f"{tuple(epi.shape)} do not fit x {tuple(x.shape)}")
     if ci % 16 or co % 16:
@@ -175,14 +284,20 @@ def launch(name: str, x: torch.Tensor, w_t: torch.Tensor, epi: torch.Tensor,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    entry = name + "_wmma" if wmma else name
+    extra = ()
+    if planned:
+        extra = (int(epi.shape[0] == 4),
+                 *(plan or conv_plan(n, h, w, ci, co, ksize,
+                                     x.dtype != torch.int8)))
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _kernel_fn(name)(
+    err = _kernel_fn(name, entry, planned)(
         x.data_ptr(), IN_KINDS[x.dtype], w_t.data_ptr(), epi.data_ptr(),
         ptr(residual_in), ptr(residual_out), ptr(out_s8), ptr(out_f),
         int(out_dtype == BF16), n, h, w, ci, co, oh, ow, ksize, stride, pt,
         pl, float(inv_in), float(inv_next), float(res_scale), float(alpha),
-        int(cast_bf16), stream)
-    _build.check(err, name)
-    _build.launch_counts[name] += 1
+        int(cast_bf16), *extra, stream)
+    _build.check(err, entry)
+    _build.launch_counts[entry] += 1
     outs = [t for t in (out_s8, out_f) if t is not None]
     return outs[0] if len(outs) == 1 else tuple(outs)
