@@ -24,7 +24,9 @@ Phases, in order; any failure exits non-zero:
      the IoU-slab kernel (`greedy_suppress`, called once between the
      counters' reset and read on the slab of `pairwise_iou`) bit-equal to
      its plain version and to the box kernel; the 1x1 block within rtol =
-     atol = 2e-2 in bf16. Each kernel's time beside each call's bound.
+     atol = 2e-2 in bf16 of its plain version and of its WMMA twin
+     (`pointwise_conv_block_wmma`), both timed in turns per launch shape.
+     Each kernel's time beside each call's bound.
   5. int8 reference check at 64 px, full width, bf16, both sides under
      the card's default kernel set: the port's int8 model on the card
      (kernels) and on the CPU (plain versions) with one scale dict. Every
@@ -45,7 +47,9 @@ Phases, in order; any failure exits non-zero:
   7. Each int8 kernel against its plain version on every input the int8
      serving calls handed it (s8 within 1 code, the 1x1 and 3x3 exactly
      and equal to their WMMA twins; for the region, tail and exit also
-     the share of codes that differ), and per shape the kernel's (with the
+     the share of codes that differ; the region and the tail equal to
+     their first design, the `_mma` twins, timed in turns beside them),
+     and per shape the kernel's (with the
      1x1's and 3x3's tile plan, and their WMMA twins timed in turns, twin,
      kernel, kernel, twin, as `previous_ms`), the plain version's and the
      library yardstick's time
@@ -62,8 +66,10 @@ Phases, in order; any failure exits non-zero:
 A kernel's `ms` is device time: `device_ms` captures 20 calls in a CUDA
 graph and times its replays with CUDA events, so the Python wrapper's
 dispatch is not counted. `event_ms` beside it is the older measure, CUDA
-events around 20 calls issued from Python after warm-up. Plain and
-library times are event times. Inputs are warm in the 50 MB L2.
+events around 20 calls issued from Python after warm-up. Plain times are
+event times; library times are device times in phases 4 and 7's region
+rows (`library_event_ms` beside them), event times elsewhere. Inputs are
+warm in the 50 MB L2.
 """
 
 from __future__ import annotations
@@ -192,6 +198,13 @@ def device_ms(fn, reps=20, replays=5):
     return start.elapsed_time(end) / (reps * replays)
 
 
+def turns_ms(old, new):
+    """(new, old) device times (`device_ms`) of two versions of one call,
+    timed in turns: old, new, new, old, each the mean of its two runs."""
+    t = [device_ms(f) for f in (old, new, new, old)]
+    return (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+
+
 def bound(nbytes, ops, rate, f32_ops=0.0):
     """The least time (ms, and what sets it) for `nbytes` of memory
     traffic, `ops` operations at `rate` and `f32_ops` more at the f32
@@ -310,7 +323,9 @@ def phase_profile(torch, serve, images, reps=3, top=15):
     and the device's busy share of the window's wall time."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts) as prof:
+    # acc_events: keep every call's events (the profiler may otherwise
+    # drop those of earlier cycles, and count fewer ops than ran)
+    with profile(activities=acts, acc_events=True) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
             serve(images)
@@ -333,57 +348,72 @@ def phase_profile(torch, serve, images, reps=3, top=15):
 
 
 def phase_pointwise(torch, calls):
-    """Kernel 2 vs its plain version and the library yardstick on every
-    recorded call; per-forward sums."""
+    """The bf16 1x1 kernel vs its plain version and its WMMA twin on every
+    recorded call (within 2e-2); per launch shape, the kernel's and the
+    twin's device time in turns (twin, kernel, kernel, twin), the library
+    yardstick's device time, the plain version's event time and the
+    bound; per-forward sums."""
     import torch.nn.functional as F
-    from yolov3_tpu_torch.ops.kernels import conv_block as K
+    from yolov3_tpu_torch.ops.kernels import _conv_q, conv_block as K
 
-    rows, max_err = [], 0.0
+    groups, max_err = {}, 0.0
     for args, _ in calls:
         x, w, b, mul, add, alpha, out_dtype = args
-        m, ci = x.shape
-        co = w.shape[1]
-        got = K.pointwise_conv_block(x, w, b, mul, add, alpha, out_dtype)
-        want = K.pointwise_conv_block_plain(x, w, b, mul, add, alpha,
-                                            out_dtype)
-        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
-                                   atol=2e-2)
+        got = K.pointwise_conv_block(*args)
+        want = K.pointwise_conv_block_plain(*args)
+        twin = K.pointwise_conv_block_wmma(*args)
+        for other in (want, twin):
+            torch.testing.assert_close(got.float(), other.float(), rtol=2e-2,
+                                       atol=2e-2)
         max_err = max(max_err, float((got.float() - want.float()).abs().max()))
+        key = (*x.shape, w.shape[0], str(out_dtype))
+        groups.setdefault(key, []).append(args)
+    rows = []
+    for (m, ci, co, _), members in groups.items():
+        x, w, b, mul, add, alpha, out_dtype = members[0]
 
         def library():
-            y = torch.matmul(x, w).float() + b
+            y = torch.matmul(x, w.t()).float() + b
             return (F.leaky_relu(y, alpha) * mul + add).to(out_dtype)
 
         def kern():
             return K.pointwise_conv_block(x, w, b, mul, add, alpha, out_dtype)
 
-        ms, event = device_ms(kern), cuda_ms(kern, 20)
+        def old():
+            return K.pointwise_conv_block_wmma(x, w, b, mul, add, alpha,
+                                               out_dtype)
+
+        ms, previous = turns_ms(old, kern)
+        event = cuda_ms(kern, 20)
         plain = cuda_ms(lambda: K.pointwise_conv_block_plain(
             x, w, b, mul, add, alpha, out_dtype), 5)
-        lib = cuda_ms(library, 20)
+        lib, lib_event = device_ms(library), cuda_ms(library, 20)
         out_bytes = torch.finfo(out_dtype).bits // 8
         nbytes = (m * ci + ci * co) * 2 + 3 * co * 4 + m * co * out_bytes
         ops = 2 * m * ci * co + 5 * m * co
         b_ms, b_by = bound(nbytes, ops, BF16_OPS_S)
-        rows.append(dict(m=m, ci=ci, co=co, ms=ms, event_ms=event,
-                         plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                         bound_by=b_by, bytes=nbytes, ops=ops))
-        log(f"pointwise_conv_block M={m} Ci={ci} Co={co}: kernel {ms:.4f} ms, "
-            f"plain {plain:.4f} ms, library {lib:.4f} ms, bound {b_ms:.4f} ms "
-            f"({b_by}), {ops / ms / 1e9:.1f} TFLOP/s")
-    t_bytes = sum(r["bytes"] for r in rows) / HBM_BYTES_S
-    t_ops = sum(r["ops"] for r in rows) / BF16_OPS_S
-    summary = dict(ms=sum(r["ms"] for r in rows),
-                   event_ms=sum(r["event_ms"] for r in rows),
-                   plain_ms=sum(r["plain_ms"] for r in rows),
-                   library_ms=sum(r["library_ms"] for r in rows),
-                   bound_ms=sum(r["bound_ms"] for r in rows),
-                   bound_by="bytes" if t_bytes >= t_ops else "operations",
-                   max_abs_err=max_err)
-    log(f"pointwise_conv_block per forward ({len(rows)} launches): "
-        f"kernel {summary['ms']:.3f} ms, plain {summary['plain_ms']:.3f} ms, "
-        f"library {summary['library_ms']:.3f} ms, bound "
-        f"{summary['bound_ms']:.3f} ms")
+        plan = _conv_q.conv_plan(1, 1, m, ci, co, 1, esize=2)
+        rows.append(dict(m=m, ci=ci, co=co, out_dtype=str(out_dtype),
+                         launches=len(members), ms=ms, previous_ms=previous,
+                         event_ms=event, plain_ms=plain, library_ms=lib,
+                         library_event_ms=lib_event, bound_ms=b_ms,
+                         bound_by=b_by, bytes=nbytes, ops=ops,
+                         plan=list(plan)))
+        log(f"pointwise_conv_block M={m} Ci={ci} Co={co} {out_dtype} "
+            f"x{len(members)}: kernel {ms:.4f} ms (events {event:.4f}), WMMA "
+            f"twin {previous:.4f} ms, plan {tuple(plan)}, plain {plain:.4f} "
+            f"ms, library {lib:.4f} ms (events {lib_event:.4f}), bound "
+            f"{b_ms:.4f} ms ({b_by}), {ops / ms / 1e9:.1f} TFLOP/s")
+    keys = ("ms", "previous_ms", "event_ms", "plain_ms", "library_ms",
+            "library_event_ms", "bound_ms", "bytes", "ops")
+    per = {k: sum(r[k] * r["launches"] for r in rows) for k in keys}
+    t_bytes, t_ops = per["bytes"] / HBM_BYTES_S, per["ops"] / BF16_OPS_S
+    summary = dict(per, bound_by="bytes" if t_bytes >= t_ops
+                   else "operations", max_abs_err=max_err)
+    log(f"pointwise_conv_block per forward ({len(calls)} launches): "
+        f"kernel {per['ms']:.3f} ms (WMMA twin {per['previous_ms']:.3f} "
+        f"ms), plain {per['plain_ms']:.3f} ms, library "
+        f"{per['library_ms']:.3f} ms, bound {per['bound_ms']:.3f} ms")
     return summary, rows
 
 
@@ -842,8 +872,7 @@ def phase_int8_kernels(torch, calls):
             def old():
                 return wmma_twin(name, args, kw)
 
-            t = [device_ms(f) for f in (old, new, new, old)]
-            ms, extra["previous_ms"] = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+            ms, extra["previous_ms"] = turns_ms(old, new)
             extra["plan"] = list(launch_plan(name, args))
         else:
             ms = device_ms(new)
@@ -952,9 +981,12 @@ def region_chain(torch, args, kw, epi):
 def phase_region_kernels(torch, calls, exact_epi):
     """Every recorded stem-region launch (region, tail, exit) against its
     plain version on the serving inputs (s8 within 1 code, and the share
-    of codes that differ); the kernel's, plain and library times beside
-    the bound; for the region also the unfused chain of kernels 7, 5, 6
-    and 7 on the same input."""
+    of codes that differ); the region and the tail also against their
+    first design (`_mma` twin): 0 codes may differ. The kernel's (and the
+    twin's, in turns: twin, kernel, kernel, twin) and the library's device
+    times, the plain version's event time, beside the bound; for the
+    region also the unfused chain of kernels 7, 5, 6 and 7 on the same
+    input."""
     summary = {}
     for name, args, kw, out in calls:
         mod = int8_module(name)
@@ -966,23 +998,39 @@ def phase_region_kernels(torch, calls, exact_epi):
                                  f"version by {code}")
         lib_c, lib_differ, _, _ = int8_compare(
             torch, region_library(torch, name, args, kw), want)
-        ms = device_ms(lambda: kern(*args, **kw))
+        extra = {}
+        twin = getattr(mod, f"{name}_mma", None)
+        if twin is not None:
+            t_code, t_differ, _, _ = int8_compare(torch, out,
+                                                  twin(*args, **kw))
+            if t_differ:
+                raise AssertionError(f"{name}: {t_differ} codes differ from "
+                                     f"the first design (max {t_code})")
+            ms, extra["previous_ms"] = turns_ms(
+                lambda: twin(*args, **kw), lambda: kern(*args, **kw))
+        else:
+            ms = device_ms(lambda: kern(*args, **kw))
         event = cuda_ms(lambda: kern(*args, **kw), 20)
         plain_ms = cuda_ms(lambda: plain(*args, **kw), 2, 1)
-        lib = cuda_ms(lambda: region_library(torch, name, args, kw), 5)
+        lib = device_ms(lambda: region_library(torch, name, args, kw), 5, 2)
+        lib_event = cuda_ms(lambda: region_library(torch, name, args, kw), 5)
         nbytes, ops, f32_ops = region_work(name, args)
         b_ms, b_by = bound(nbytes, ops, INT8_OPS_S, f32_ops)
         row = dict(shape=f"{tuple(args[0].shape)}->{tuple(out.shape)}",
                    x_dtype=str(args[0].dtype), f32_ops=f32_ops,
                    fast=kw.get("fast", False), ms=ms, event_ms=event,
                    plain_ms=plain_ms,
-                   library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                   library_ms=lib, library_event_ms=lib_event, bound_ms=b_ms,
+                   bound_by=b_by,
                    bytes=nbytes, ops=ops, max_abs_err=float(code),
                    codes_differing=differ / total,
-                   library_codes_differing=lib_differ / total)
+                   library_codes_differing=lib_differ / total, **extra)
+        old_s = (f", first design {extra['previous_ms']:.4f} ms (0 codes "
+                 f"differ)" if extra else "")
         log(f"{name} {row['shape']} fast={row['fast']}: kernel {ms:.4f} ms "
-            f"(events {event:.4f}), "
-            f"plain {plain_ms:.4f} ms, library {lib:.4f} ms, bound "
+            f"(events {event:.4f}){old_s}, "
+            f"plain {plain_ms:.4f} ms, library {lib:.4f} ms (events "
+            f"{lib_event:.4f}), bound "
             f"{b_ms:.4f} ms ({b_by}), {ops / ms / 1e9:.1f} TOP/s; vs plain "
             f"max code diff {code}, {100 * differ / total:.4f}% of {total} "
             f"codes differ (library {lib_c}, {lib_differ})")
@@ -1152,7 +1200,8 @@ def main(argv=None) -> int:
          "max_abs_err": pw["max_abs_err"], "ms": pw["ms"],
          "event_ms": pw["event_ms"], "plain_ms": pw["plain_ms"],
          "bound_ms": pw["bound_ms"],
-         "bound_by": pw["bound_by"], "library_ms": pw["library_ms"]},
+         "bound_by": pw["bound_by"], "library_ms": pw["library_ms"],
+         "previous_ms": pw["previous_ms"]},
     ]
     # launches: the region's from the default serving call, the tail's and
     # the exit's from the serving calls of their kernel sets
@@ -1168,7 +1217,7 @@ def main(argv=None) -> int:
              "event_ms": q["event_ms"], "plain_ms": q["plain_ms"],
              "bound_ms": q["bound_ms"], "bound_by": q["bound_by"],
              "library_ms": q["library_ms"]})
-        if name in WGMMA_KERNELS:
+        if "previous_ms" in q:
             kernels[-1]["previous_ms"] = q["previous_ms"]
     greedy = greedy_rows[0]
     kernels.append(

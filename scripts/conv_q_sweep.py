@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
-"""Time the port's int8 1x1 and 3x3 kernels at every ConvBlock shape of the
-flagship model (512 px, filter_count 1024, block_count 8) at batch 8, under
-each tile plan, on one NVIDIA GPU.
+"""Time the port's kernels on the wgmma core (the int8 1x1 and 3x3, and
+the bf16 1x1) at every ConvBlock shape of the flagship model (512 px,
+filter_count 1024, block_count 8) at batch 8, under each tile plan, on one
+NVIDIA GPU.
 
-    python3 scripts/conv_q_sweep.py
+    python3 scripts/conv_q_sweep.py [--bf16-only]
 
 For each shape and input type (s8 through TMA; bf16 through the converting
-producer): the plan `conv_plan` picks, the kernel's device time under it
-beside the WMMA core's (`*_wmma` entries), both timed in turns (WMMA,
-kernel, kernel, WMMA), the achieved TOP/s, whether the two outputs are
-equal, and then the device time of every tile of `_conv_q.TILES` at 3, 4
-and 5 stages with its `plan_cost`. This is the measurement the planner's
+producer; bf16 operands for the bf16 1x1): the plan `conv_plan` picks, the
+kernel's device time under it beside the WMMA core's (`*_wmma` entries),
+both timed in turns (WMMA, kernel, kernel, WMMA), the achieved TOP/s (or
+TFLOP/s), whether the two outputs are equal (within 2e-2 for bf16), and
+then the device time of every tile of `_conv_q.TILES` at 3, 4 and 5 stages
+with its `plan_cost`. This is the measurement the planner's
 cost model (`ops/kernels/_conv_q.py`) is checked against. Device time:
 20 calls captured in a CUDA graph, replays timed with CUDA events
 (`chip_smoke.device_ms`). Random inputs from a numpy seed; weights and
@@ -31,7 +33,7 @@ sys.path.insert(0, os.path.dirname(HERE))
 
 import chip_smoke  # noqa: E402
 from yolov3_tpu_torch.ops import quant  # noqa: E402
-from yolov3_tpu_torch.ops.kernels import _conv_q  # noqa: E402
+from yolov3_tpu_torch.ops.kernels import _conv_q, conv_block  # noqa: E402
 
 # (H = W, Ci, Co, ksize) of the flagship's int8 ConvBlocks at b8 (models/
 # yolo.py: FeatureBlocks 0-4, the YoloBlocks and the necks)
@@ -43,6 +45,11 @@ SHAPES = ((16, 512, 1024, 3), (32, 256, 512, 3), (64, 128, 256, 3),
 # the shapes whose launches take a bf16 input on the serving path
 BF16_SHAPES = ((16, 512, 1024, 3), (32, 256, 512, 3), (64, 128, 256, 3),
                (16, 1024, 512, 1), (32, 512, 256, 1), (64, 256, 128, 1))
+# (H = W, Ci, Co) of the flagship's bf16 1x1 ConvBlocks at b8 (34 launches
+# of 9 shapes)
+PW_BF16_SHAPES = ((256, 64, 32), (128, 128, 64), (64, 256, 128),
+                  (32, 512, 256), (16, 1024, 512), (16, 512, 512),
+                  (32, 1024, 256), (32, 256, 256), (64, 512, 128))
 BATCH = 8
 
 
@@ -84,13 +91,11 @@ def sweep(h, ci, co, ksize, kind):
 
     float_in = kind != "s8"
     plan = _conv_q.conv_plan(BATCH, h, h, ci, co, ksize, float_in)
-    t = [chip_smoke.device_ms(lambda: run(wmma=old))
-         for old in (True, False, False, True)]
-    new, old = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+    new, old = chip_smoke.turns_ms(lambda: run(wmma=True), run)
     ops = 2 * chip_smoke.conv_macs(BATCH, h, h, ci, co, ksize, 1)
     alts = []
     for bm, bn in _conv_q.TILES:
-        if bn > -(-co // 64) * 64:
+        if bn > -(-co // 32) * 32:
             continue
         tw = bm if ksize == 1 else min(bm, 1 << (h - 1).bit_length())
         for stages in (3, 4, 5):
@@ -108,6 +113,46 @@ def sweep(h, ci, co, ksize, kind):
           flush=True)
 
 
+def sweep_bf16(h, ci, co):
+    """The bf16 1x1 (bf16 operands) at one shape: plan, kernel vs its WMMA
+    twin, every tile."""
+    rng = np.random.default_rng(h + ci)
+    m = BATCH * h * h
+    x = torch.from_numpy(rng.standard_normal((m, ci)).astype(
+        np.float32)).cuda().to(torch.bfloat16)
+    w = torch.from_numpy((rng.standard_normal((co, ci)) / np.sqrt(ci))
+                         .astype(np.float32)).cuda().to(torch.bfloat16)
+    b, mul, add = (torch.from_numpy(v.astype(np.float32)).cuda() for v in (
+        0.1 * rng.standard_normal(co), rng.uniform(0.8, 1.2, co),
+        0.1 * rng.standard_normal(co)))
+    args = (x, w, b, mul, add, 0.2, torch.bfloat16)
+
+    def run(plan=None):
+        return conv_block.pointwise_conv_block(*args, plan=plan)
+
+    plan = _conv_q.conv_plan(1, 1, m, ci, co, 1, esize=2)
+    new, old = chip_smoke.turns_ms(
+        lambda: conv_block.pointwise_conv_block_wmma(*args), run)
+    close = torch.allclose(run().float(), conv_block.pointwise_conv_block_wmma(
+        *args).float(), rtol=2e-2, atol=2e-2)
+    alts = []
+    for bm, bn in _conv_q.TILES:
+        if bn > -(-co // 32) * 32:
+            continue
+        for stages in (3, 4, 5):
+            other = _conv_q.Plan(bm, bn, plan.bk, 1, bm, stages)
+            if _conv_q.smem_bytes(other) > _conv_q.SMEM_BYTES:
+                continue
+            ms = chip_smoke.device_ms(lambda: run(plan=other))
+            cost = _conv_q.plan_cost(other, 1, 1, m, ci, co, 1, esize=2)
+            alts.append(f"{bm}x{bn}s{stages} {ms * 1e3:.1f}/{cost // 1000}")
+    print(f"1x1 bf16 operands {BATCH}x{h}x{h}x{ci}->{co}: kernel "
+          f"{new * 1e3:.1f} us, WMMA {old * 1e3:.1f} us, "
+          f"{2 * m * ci * co / new / 1e9:.0f} TFLOP/s, within 2e-2 {close}, "
+          f"plan {tuple(plan)} | tiles (us / cost k): " + ", ".join(alts),
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("conv_q_sweep: no CUDA device", file=sys.stderr)
@@ -116,6 +161,10 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
     with torch.inference_mode():
+        for shape in PW_BF16_SHAPES:
+            sweep_bf16(*shape)
+        if "--bf16-only" in sys.argv[1:]:
+            return 0
         for shape in SHAPES:
             sweep(*shape, "s8")
         for shape in BF16_SHAPES:

@@ -75,7 +75,8 @@ def test_flag_ignored_off_1x1_stride1():
 
 
 def test_wrapper_rejects_mismatched_shapes():
+    # x [M, 8] against w [Co = 8, Ci = 16]
     with pytest.raises(ValueError):
-        K.pointwise_conv_block(torch.zeros(4, 8), torch.zeros(16, 8),
+        K.pointwise_conv_block(torch.zeros(4, 8), torch.zeros(8, 16),
                                torch.zeros(8), torch.ones(8), torch.zeros(8),
                                0.2, torch.float32)

@@ -1,5 +1,6 @@
-"""The tile planner of the int8 1x1 and 3x3 kernels' wgmma core
-(`yolov3_tpu_torch/ops/kernels/_conv_q.py::conv_plan`), on the CPU.
+"""The tile planner of the wgmma core under the int8 1x1 and 3x3 and the
+bf16 1x1 kernels (`yolov3_tpu_torch/ops/kernels/_conv_q.py::conv_plan`),
+on the CPU.
 
 The plan is pure Python: the kernels' C entry points check it and the
 card tests (tests/test_torch_kernels_cuda.py) run every tile it can
@@ -17,8 +18,9 @@ import torch
 
 from yolov3_tpu_torch.config import ModelConfig
 from yolov3_tpu_torch.models import quantized as TQ
-from yolov3_tpu_torch.ops.kernels import _conv_q
-from yolov3_tpu_torch.utils.checkpoint import init_params
+from yolov3_tpu_torch.models import yolo
+from yolov3_tpu_torch.ops.kernels import _conv_q, conv_block
+from yolov3_tpu_torch.utils.checkpoint import build_model, init_params
 
 FLAGSHIP = dict(img=512, fc=1024, bc=8)
 
@@ -134,6 +136,88 @@ def test_flagship_plans_of_the_3x3s(batch):
     assert got[32] == (128, 256, 128, 4, 32)
     assert got[64] == (128, 256, 128, 2, 64)
     assert got[128] == (128, 128, 64, 1, 128)
+
+
+def test_bf16_launch_shapes_are_the_forwards():
+    """The bf16 model's fused 1x1 launches (`use_pallas_pointwise`) are
+    the 1x1s of `launch_shapes`: 64 px, filter_count 64, block_count 2,
+    on the CPU."""
+    cfg = ModelConfig(img_size=(64, 64, 3), number_classes=2,
+                      anchors=((16, 48), (48, 16)), block_count=2,
+                      filter_count=64, compute_dtype="bfloat16",
+                      use_pallas_pointwise=True)
+    params, stats = init_params(cfg, 0)
+    model = build_model(params, stats, cfg, "cpu")
+    seen = []
+    orig = conv_block.pointwise_conv_block
+
+    def record(x, w, *a, **kw):
+        seen.append((x.shape[0], x.shape[1], w.shape[0]))
+        return orig(x, w, *a, **kw)
+
+    yolo.conv_block.pointwise_conv_block = record
+    try:
+        with torch.no_grad():
+            model.backbone(torch.zeros(2, 64, 64, 3))
+    finally:
+        yolo.conv_block.pointwise_conv_block = orig
+    pw, _ = launch_shapes(2, 64, 64, 2)
+    assert sorted(seen) == sorted((n * h * w, ci, co)
+                                  for (n, h, w, ci), co in pw)
+
+
+def bf16_cases():
+    for batch in (8, 64):
+        pw, _ = launch_shapes(batch, **FLAGSHIP)
+        for shape, co in sorted(set(pw)):
+            yield batch, shape, co
+
+
+@pytest.mark.parametrize("batch,shape,co", list(bf16_cases()))
+def test_flagship_bf16_plan(batch, shape, co):
+    """Every flagship bf16 1x1 (bf16 operands through TMA, 2-byte
+    elements): a plan of the least cost that fits the shared memory, covers
+    the output, and has BN <= Co rounded up to 32 (the Co = 32 launches
+    take BN = 32)."""
+    n, h, w, ci = shape
+    m = n * h * w
+    plan = _conv_q.conv_plan(1, 1, m, ci, co, 1, esize=2)
+    assert plan.bn <= -(-co // 32) * 32 and (plan.bn == 32) == (co == 32)
+    assert (plan.th, plan.tw) == (1, plan.bm)
+    assert 2 <= plan.stages <= _conv_q.MAX_STAGES
+    assert _conv_q.smem_bytes(plan) <= _conv_q.SMEM_BYTES
+    # K steps of BK bytes over Ci's 2 * Ci bytes, padding less than 64
+    assert plan.bk in (64, 128)
+    assert plan.bk * -(-2 * ci // plan.bk) < 2 * ci + 64
+    tiles = _conv_q.plan_tiles(plan, 1, 1, m, co, 1)
+    assert tiles * plan.bm * plan.bn >= m * co
+    assert tiles >= min(120, -(-m // 128) * -(-co // 256))
+    cost = _conv_q.plan_cost(plan, 1, 1, m, ci, co, 1, esize=2)
+    for bm, bn in _conv_q.TILES:
+        if bn <= -(-co // 32) * 32:
+            other = _conv_q.Plan(bm, bn, plan.bk, 1, bm, 2)
+            assert cost <= _conv_q.plan_cost(other, 1, 1, m, ci, co, 1,
+                                             esize=2)
+
+
+@pytest.mark.parametrize("m,ci,co", [(1000, 8, 8), (1, 64, 32),
+                                     (4096, 768, 384), (130, 1024, 512)])
+def test_bf16_plan_of_small_and_odd_shapes(m, ci, co):
+    plan = _conv_q.conv_plan(1, 1, m, ci, co, 1, esize=2)
+    assert plan.bn < co + 32 and plan.tw == plan.bm
+    assert _conv_q.smem_bytes(plan) <= _conv_q.SMEM_BYTES
+
+
+@pytest.mark.parametrize("n,h,w,ci,co,ksize,esize,float_in", [
+    (1, 1, 64, 12, 64, 1, 2, False),    # Ci not a multiple of 8
+    (1, 1, 64, 64, 36, 1, 2, False),    # Co not a multiple of 8
+    (1, 8, 8, 64, 64, 3, 2, False),     # no bf16 3x3
+    (1, 1, 64, 64, 64, 1, 2, True),     # bf16 operands come by TMA
+    (1, 1, 64, 64, 64, 1, 4, False)])   # no 4-byte operands
+def test_bf16_plan_raises_on_a_contract_it_cannot_meet(n, h, w, ci, co, ksize,
+                                                       esize, float_in):
+    with pytest.raises(ValueError):
+        _conv_q.conv_plan(n, h, w, ci, co, ksize, float_in, esize)
 
 
 @pytest.mark.parametrize("n,h,w,ci,co,ksize", [

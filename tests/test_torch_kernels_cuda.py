@@ -67,25 +67,70 @@ def test_nms_kernel_raises_on_wrong_dtype(cuda):
                                               device=cuda), 0.3)
 
 
+def pointwise_case(rng, m, ci, co, cuda):
+    """x [m, ci] bf16, w [co, ci] bf16 (the kernel's K-major layout) and
+    the f32 bias, mul and add of a random block."""
+    x = torch.from_numpy(rng.randn(m, ci).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    w = torch.from_numpy((rng.randn(ci, co) / np.sqrt(ci)).astype(
+        np.float32)).t().contiguous().to(cuda, torch.bfloat16)
+    b, mul, add = (torch.from_numpy(v.astype(np.float32)).to(cuda) for v in (
+        0.1 * rng.randn(co), rng.uniform(0.8, 1.2, co), 0.1 * rng.randn(co)))
+    return x, w, b, mul, add
+
+
+def pointwise_close_to_plain_and_wmma(args, out, plan=None):
+    """The sm90 kernel within rtol = atol = 2e-2 of the plain version and
+    of the WMMA twin, one launch counted."""
+    want = PW.pointwise_conv_block_plain(*args, 0.2, out)
+    before = _build.launch_counts[PW.NAME]
+    got = PW.pointwise_conv_block(*args, 0.2, out, plan=plan)
+    torch.cuda.synchronize()
+    assert _build.launch_counts[PW.NAME] == before + 1
+    assert got.dtype == out and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    twin = PW.pointwise_conv_block_wmma(*args, 0.2, out)
+    torch.testing.assert_close(got.float(), twin.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
 @pytest.mark.parametrize("m,ci,co,out", [
     (1000, 64, 32, torch.bfloat16), (4096, 768, 384, torch.bfloat16),
     (130, 1024, 512, torch.float32), (64, 8, 8, torch.float32)])
 def test_pointwise_kernel_matches_plain(cuda, m, ci, co, out):
-    rng = np.random.RandomState(m + ci)
-    x = torch.from_numpy(rng.randn(m, ci).astype(np.float32)).to(
-        cuda, torch.bfloat16)
-    w = torch.from_numpy((rng.randn(ci, co) / np.sqrt(ci)).astype(
-        np.float32)).to(cuda, torch.bfloat16)
-    b, mul, add = (torch.from_numpy(v.astype(np.float32)).to(cuda) for v in (
-        0.1 * rng.randn(co), rng.uniform(0.8, 1.2, co), 0.1 * rng.randn(co)))
-    want = PW.pointwise_conv_block_plain(x, w, b, mul, add, 0.2, out)
-    before = _build.launch_counts[PW.NAME]
-    got = PW.pointwise_conv_block(x, w, b, mul, add, 0.2, out)
-    torch.cuda.synchronize()
-    assert _build.launch_counts[PW.NAME] == before + 1
-    assert got.dtype == out
-    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
-                               atol=2e-2)
+    args = pointwise_case(np.random.RandomState(m + ci), m, ci, co, cuda)
+    pointwise_close_to_plain_and_wmma(args, out)
+
+
+@pytest.mark.parametrize("tile", range(8))
+@pytest.mark.parametrize("bk", [64, 128])
+def test_pointwise_every_plan(cuda, tile, bk):
+    """Each tile the planner can choose (BN 32 to 256), BK 64 and 128
+    bytes, 2-5 stages (fewer where shared memory holds fewer): ragged M =
+    1000, Ci 192 (6 or 3 K steps, the last half zero-filled at BK 128)."""
+    from yolov3_tpu_torch.ops.kernels import _conv_q
+    bm, bn = _conv_q.TILES[tile]
+    stages = 2 + (tile + bk) % 4
+    while _conv_q.smem_bytes(_conv_q.Plan(bm, bn, bk, 1, bm, stages)) \
+            > _conv_q.SMEM_BYTES:
+        stages -= 1
+    plan = _conv_q.Plan(bm, bn, bk, 1, bm, stages)
+    args = pointwise_case(np.random.RandomState(tile + bk), 1000, 192, 256,
+                          cuda)
+    pointwise_close_to_plain_and_wmma(args, torch.bfloat16, plan)
+
+
+@pytest.mark.parametrize("m,ci,co,out", [
+    (8 * 256 * 256, 64, 32, torch.bfloat16),   # the flagship's Co 32
+    (777, 64, 48, torch.float32), (333, 768, 384, torch.bfloat16),
+    (2048, 768, 384, torch.float32), (50, 64, 384, torch.bfloat16),
+    (8 * 16 * 16, 1024, 512, torch.bfloat16), (1, 64, 32, torch.float32)])
+def test_pointwise_edges(cuda, m, ci, co, out):
+    """Co 32, 48 and 384, Ci 64 and 768, M < BM and ragged, both outputs,
+    under the planner's tiles."""
+    args = pointwise_case(np.random.RandomState(m + co), m, ci, co, cuda)
+    pointwise_close_to_plain_and_wmma(args, out)
 
 
 def test_pointwise_kernel_raises_on_f32_input(cuda):
@@ -94,6 +139,16 @@ def test_pointwise_kernel_raises_on_f32_input(cuda):
     z = torch.zeros(64, device=cuda)
     with pytest.raises(TypeError):
         PW.pointwise_conv_block(x, w, z, z, z, 0.2, torch.float32)
+
+
+def test_pointwise_kernel_raises_on_a_plan_it_cannot_run(cuda):
+    from yolov3_tpu_torch.ops.kernels import _conv_q
+    args = pointwise_case(np.random.RandomState(0), 256, 64, 64, cuda)
+    for plan in (_conv_q.Plan(128, 256, 128, 1, 128, 5),   # shared memory
+                 _conv_q.Plan(128, 96, 128, 1, 128, 3),    # BN
+                 _conv_q.Plan(128, 64, 32, 1, 128, 3)):    # BK
+        with pytest.raises(RuntimeError):
+            PW.pointwise_conv_block(*args, 0.2, torch.bfloat16, plan=plan)
 
 
 def int8_block(rng, k, ci, co, scale=0.05):
@@ -271,6 +326,47 @@ def test_s2d_tail_matches_plain(cuda, n, h1, w1):
     kw = dict(alpha=0.2, cast_bf16=True)
     got = launched(K, lambda: K.s2d_tail_block_q(x, *ws[1:], epi, **kw))
     assert_int8_close(got, K.s2d_tail_block_q_plain(x, *ws[1:], epi, **kw))
+
+
+@pytest.mark.parametrize("n,h1,w1,c1,c,cm,co", [
+    (2, 16, 16, 16, 32, 16, 64),     # one tile, K 16 (a half K step)
+    (1, 44, 36, 32, 64, 32, 128),    # ragged tiles (11 x 9 out)
+    (3, 20, 28, 16, 16, 32, 48),     # odd out size, 16-channel slices
+    (2, 68, 100, 32, 64, 32, 128),   # more tiles than SMs, ragged
+    (8, 128, 128, 32, 64, 32, 128)])  # flagship channels
+@pytest.mark.parametrize("fast,cast,kind", [
+    (False, True, "s8"), (True, True, "s8"), (False, True, "bf16"),
+    (True, True, "bf16"), (False, False, "f32"), (True, True, "f32")])
+def test_s2d_region_equals_plain_and_twin(cuda, n, h1, w1, c1, c, cm, co,
+                                          fast, cast, kind):
+    """The kernel's codes equal the plain version's and the first
+    design's (`_mma`) on every input."""
+    from yolov3_tpu_torch.ops.kernels import s2d_region_q as K
+    x, ws, epis, _ = region_case(np.random.RandomState(h1 + w1 + c), n, h1,
+                                 w1, c1, c, cm, co, cuda, kind=kind)
+    kw = dict(alpha=0.2, cast_bf16=cast, fast=fast,
+              inv_in=None if kind == "s8" else 40.0)
+    got = launched(K, lambda: K.s2d_region_block_q(x, *ws, epis[fast],
+                                                   **kw))
+    assert_int8_equal(got, K.s2d_region_block_q_plain(x, *ws, epis[fast],
+                                                      **kw))
+    before = _build.launch_counts[K.NAME + K.TWIN]
+    assert_int8_equal(got, K.s2d_region_block_q_mma(x, *ws, epis[fast],
+                                                    **kw))
+    assert _build.launch_counts[K.NAME + K.TWIN] == before + 1
+
+
+@pytest.mark.parametrize("n,h1,w1,c,cm,co", [
+    (2, 16, 16, 64, 32, 128), (1, 44, 36, 64, 32, 128),
+    (3, 20, 28, 16, 32, 48), (8, 512, 512, 64, 32, 128)])
+def test_s2d_tail_equals_plain_and_twin(cuda, n, h1, w1, c, cm, co):
+    from yolov3_tpu_torch.ops.kernels import s2d_tail_q as K
+    x, ws, _, epi = region_case(np.random.RandomState(h1 + c), n, h1, w1, 32,
+                                c, cm, co, cuda, tail=True)
+    kw = dict(alpha=0.2, cast_bf16=True)
+    got = launched(K, lambda: K.s2d_tail_block_q(x, *ws[1:], epi, **kw))
+    assert_int8_equal(got, K.s2d_tail_block_q_plain(x, *ws[1:], epi, **kw))
+    assert_int8_equal(got, K.s2d_tail_block_q_mma(x, *ws[1:], epi, **kw))
 
 
 @pytest.mark.parametrize("shape,co,cast", [((2, 16, 16, 64), 128, True),

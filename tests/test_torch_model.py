@@ -175,7 +175,8 @@ def test_prepared_constants_follow_load_state_dict():
     assert set(model.state_dict()) == set(state)
     fused, plain = model.necks[0], model.darknet.convs[1]
     assert fused.fused and not plain.fused
-    w = state["necks.0.conv.weight"][:, :, 0, 0].t()
+    # the kernel's K-major [Co, Ci] layout
+    w = state["necks.0.conv.weight"][:, :, 0, 0]
     assert fused.w.dtype == torch.bfloat16 and fused.w.is_contiguous()
     assert torch.equal(fused.w, w.to(torch.bfloat16))
     var, gamma = (state["necks.0.bn.running_var"],

@@ -330,6 +330,43 @@ def test_ineligible_routes():
         port_model(quant_skip=(f"{D}/FeatureBlock_0/ConvBlock_0",))
 
 
+@pytest.mark.parametrize("c1,c,cm,co,region,tile,total", [
+    (32, 64, 32, 128, True, 8, 224192),    # the flagship region
+    (0, 64, 32, 128, False, 8, 155040),    # the flagship tail
+    (16, 32, 16, 64, True, 8, 93664),     # the card tests' widths
+    (16, 16, 32, 48, True, 8, 74640)])
+def test_region_plan_and_layout(c1, c, cm, co, region, tile, total):
+    """The kernel's shared memory (`csrc/s2d_region_block_q.cu::layout90`):
+    1 KB of alignment slack; every stage's weights resident in 32-byte K
+    steps (a 16-channel K padded to 32); q2, the input tile, q3 and q4
+    unpadded; the epi table. The flagship keeps T = 8 within the card's
+    227 KB."""
+    from yolov3_tpu_torch.ops.kernels import s2d_region_q as R
+    assert R.plan_tile(c1, c, cm, co, region) == tile
+    got = R.smem_bytes(tile, c1, c, cm, co, region)
+    assert got == total <= R.SMEM_LIMIT
+    k32 = lambda k: -(-k // 32) * 32  # noqa: E731
+    weights = ((9 * c * k32(c1) if region else 0) + cm * k32(c)
+               + 9 * c * k32(cm) + 9 * co * k32(c))
+    qw, q4w, xw = 2 * tile + 3, 2 * tile + 1, 4 * tile + 7
+    bufs = (qw * qw * c + (xw * xw * c1 if region else 0) + qw * qw * cm
+            + q4w * q4w * c + (17 if region else 13) * max(c, cm, co) * 4)
+    assert got == 1024 + weights + bufs
+    # the first design's layout is its own
+    assert R.plan_tile(c1, c, cm, co, region, twin=True) == tile
+    assert R.smem_bytes(8, 32, 64, 32, 128, True, twin=True) == 200400
+    # at the flagship a 16 x 16 tile would not fit
+    assert R.smem_bytes(16, 32, 64, 32, 128, True) > R.SMEM_LIMIT
+
+
+def test_region_plan_refuses_channels_it_cannot_take():
+    from yolov3_tpu_torch.ops.kernels import s2d_region_q as R
+    assert R.plan_tile(24, 64, 32, 128) == 0
+    assert R.plan_tile(32, 64, 32, 120) == 0
+    # channels too wide for any tile's shared memory
+    assert R.plan_tile(512, 512, 512, 512) == 0
+
+
 def test_flags():
     backend = jax.default_backend
     try:

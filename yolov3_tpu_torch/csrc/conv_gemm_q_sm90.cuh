@@ -1,10 +1,22 @@
 // Hopper-native core of the port's int8 1x1 and 3x3 stride-1 ConvBlock
-// kernels (sm_90a): pointwise_conv_block_q.cu and conv3x3_block_q.cu
-// include it and expose one C entry point each (CONVQ90_ENTRY), which
-// checks its own contract and the tile plan before it launches.
+// kernels and of its bf16 1x1 ConvBlock (sm_90a): pointwise_conv_block_q.cu
+// and conv3x3_block_q.cu include it and expose one C entry point each
+// (CONVQ90_ENTRY), pointwise_conv_block.cu one more (bf16 operands); each
+// checks its own contract and the tile plan before it launches. The
+// operand type is one template parameter (OP) of one kernel: the ring,
+// barriers, producer, persistent loop and epilogue swizzle are shared.
 //
-// It computes what conv_block_q.cuh computes, code for code: the implicit
-// GEMM over NHWC tensors, exact in int32,
+// bf16 operands (OP = kOpBF16): y = leaky(x @ W^T + bias) * mul + add
+// over x [M, Ci] and W [Co, Ci] bf16 (K-major, like the s8 weights, so
+// both operands' descriptors are the s8 ones: a wgmma k16 step of bf16
+// is 32 bytes of K, as a k32 step of s8), summed in f32 (wgmma
+// m64nBNk16 .f32.bf16.bf16, as many accumulator registers as s32), the
+// f32 epilogue of conv_block_kernel.py, stored bf16 or f32. The tensor
+// maps are over bytes for both types, so BK (64 or 128 bytes) is 32 or
+// 64 bf16 channels and TMA's zero fill pads Ci in K.
+//
+// s8 operands compute what conv_block_q.cuh computes, code for code: the
+// implicit GEMM over NHWC tensors, exact in int32,
 //
 //     acc[p, o] = sum_{u,v} sum_c q(x[n, oh - pad + u, ow - pad + v, c])
 //                                * W[u, v][o, c]
@@ -26,9 +38,10 @@
 // SM draws ~36 GB/s from L2 whatever the others do, and a 3x3 re-reads
 // each pixel for each of its nine taps), the bf16 / f32 ones by the
 // quantize in the producer. So:
-// - products: wgmma m64nBNk32 s8 x s8 -> s32, A and B read from shared
-//   memory through K-major descriptors (64B or 128B swizzle, BK bytes of
-//   K a row), accumulators in the consumer warpgroups' registers;
+// - products: wgmma m64nBNk32 s8 x s8 -> s32 (or k16 bf16 -> f32), A
+//   and B read from shared memory through K-major descriptors (64B or
+//   128B swizzle, BK bytes of K a row), accumulators in the consumer
+//   warpgroups' registers;
 // - copies: a ring of `stages` tiles in dynamic shared memory with a
 //   full and an empty mbarrier per stage; one producer warpgroup keeps
 //   the ring filled while the consumers multiply, so a stage's copy
@@ -52,7 +65,7 @@
 //   sums with a neighbour so each holds four consecutive channels of
 //   one pixel, and reads the residual and stores s8 / bf16 / f32 four
 //   channels (4, 8 or 16 bytes) at a time;
-// - the tile plan (BM 64 or 128 pixels, BN 64/128/256 channels, BK 64
+// - the tile plan (BM 64 or 128 pixels, BN 32/64/128/256 channels, BK 64
 //   or 128 bytes, TH x TW, stages) is chosen per launch in Python
 //   (ops/kernels/_conv_q.py::conv_plan): the largest tiles that keep the
 //   132 SMs busy, since each SM's L2 stream is the limit.
@@ -77,6 +90,9 @@ namespace convq90 {
 namespace {
 
 enum InKind { kS8 = 0, kBF16 = 1, kF32 = 2 };  // as convq::InKind
+// the products' operands: s8 x s8 -> s32 (the int8 ConvBlocks) or bf16 x
+// bf16 -> f32 (the bf16 1x1 ConvBlock)
+enum Op { kOpS8 = 0, kOpBF16 = 1 };
 
 constexpr int kWG = 128;  // threads of a warpgroup
 constexpr int kMaxSmem = 232448;
@@ -84,8 +100,13 @@ constexpr int kAlign = 1024;  // the 128B swizzle's period
 
 struct Params {
   const void* x;          // [n, h, w, ci] s8, bf16 or f32
-  const int8_t* w;        // [taps, co, ci] s8
-  const float* epi;       // [3 or 4, co] f32: b/dq, mul*dq, add (1/s_next)
+  const void* w;          // [taps, co, ci] s8, or [co, ci] bf16
+  // the epilogue's [co] f32 rows: b/dq, mul*dq, add and 1/s_next (or
+  // null: the scalar inv_next) for s8; bias, mul and add for bf16
+  const float* epi_b;
+  const float* epi_m;
+  const float* epi_a;
+  const float* epi_inv;
   const int8_t* res_in;   // [n, h, w, ci] s8 or null (1x1, bf16 x)
   const int8_t* res_out;  // [n, h, w, co] s8 or null (3x3)
   int8_t* out_s8;         // [n, h, w, co] or null
@@ -93,10 +114,11 @@ struct Params {
   int out_f_bf16;
   int n, h, w_, ci, co, ksize;
   float inv_in, inv_next, res_scale, alpha;
-  int cast_bf16, inv_next_row;
+  int cast_bf16;
   int bm, bk, th, tw, stages;  // the tile plan; BN is the template's
   int tiles_h, tiles_w;        // 3x3: rectangles down and across an image
-  int kchunks;                 // BK-byte steps over ci
+  int kbytes;                  // bytes of one pixel's ci operands
+  int kchunks;                 // BK-byte steps over them
   int mtiles, tiles;           // pixel tiles; output tiles (x Co / BN)
 };
 
@@ -214,111 +236,124 @@ __device__ __forceinline__ void fence_regs(uint32_t (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
-// d[BN/2] += A (64 x 32 s8, K-major) * B (BN x 32 s8, K-major)^T
-template <int BN>
+// The accumulator operands of an m64nBN wgmma: the strings %0 .. and the
+// BN/2 registers d[0] ..
+#define CQ_ACC32 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, " \
+  "%12, %13, %14, %15"
+#define CQ_OUT32 \
+  "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), \
+  "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), \
+  "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), \
+  "+r"(d[15])
+#define CQ_ACC64 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, " \
+  "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, " \
+  "%24, %25, %26, %27, %28, %29, %30, %31"
+#define CQ_OUT64 \
+  "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), \
+  "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), \
+  "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), \
+  "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), \
+  "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), \
+  "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), \
+  "+r"(d[30]), "+r"(d[31])
+#define CQ_ACC128 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, " \
+  "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, " \
+  "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, " \
+  "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, " \
+  "%60, %61, %62, %63"
+#define CQ_OUT128 \
+  "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), \
+  "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), \
+  "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), \
+  "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), \
+  "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), \
+  "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), \
+  "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), \
+  "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), \
+  "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), \
+  "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]), \
+  "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), \
+  "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), \
+  "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+#define CQ_ACC256 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, " \
+  "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, " \
+  "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, " \
+  "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, " \
+  "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, " \
+  "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, " \
+  "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, " \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, " \
+  "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, " \
+  "%120, %121, %122, %123, %124, %125, %126, %127"
+#define CQ_OUT256 \
+  "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), \
+  "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), \
+  "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), \
+  "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), \
+  "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), \
+  "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), \
+  "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), \
+  "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), \
+  "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), \
+  "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]), \
+  "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), \
+  "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), \
+  "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), \
+  "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), \
+  "+r"(d[70]), "+r"(d[71]), "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), \
+  "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]), \
+  "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), \
+  "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]), \
+  "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), \
+  "+r"(d[95]), "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), \
+  "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]), "+r"(d[104]), \
+  "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), \
+  "+r"(d[110]), "+r"(d[111]), "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), \
+  "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]), \
+  "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), \
+  "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+
+// d[BN/2] += A (64 rows x 32 bytes of K) * B (BN rows x 32 bytes)^T, both
+// K-major in shared memory (descriptors a, b): s8 x s8 -> s32 (k32) or
+// bf16 x bf16 -> f32 (k16, the f32 sums' bits in d)
+template <int BN, int OP>
 struct Mma;
 
-template <>
-struct Mma<64> {
-  __device__ __forceinline__ static void run(uint32_t (&d)[32], uint64_t a,
-                                             uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p;\n}\n"
-        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
-          "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
-          "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
-          "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
-          "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
-          "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
-          "+r"(d[30]), "+r"(d[31])
-        : "l"(a), "l"(b), "r"(1));
-  }
-};
+#define CQ_MMA(BN, IA, IB, IP)                                              \
+  template <>                                                               \
+  struct Mma<BN, kOpS8> {                                                   \
+    __device__ __forceinline__ static void run(uint32_t (&d)[BN / 2],       \
+                                               uint64_t a, uint64_t b) {    \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " IP ", 0;\n"          \
+                   "wgmma.mma_async.sync.aligned.m64n" #BN                  \
+                   "k32.s32.s8.s8 {" CQ_ACC##BN "}, " IA ", " IB ", p;\n}\n" \
+                   : CQ_OUT##BN                                             \
+                   : "l"(a), "l"(b), "r"(1));                               \
+    }                                                                       \
+  };                                                                        \
+  template <>                                                               \
+  struct Mma<BN, kOpBF16> {                                                 \
+    __device__ __forceinline__ static void run(uint32_t (&d)[BN / 2],       \
+                                               uint64_t a, uint64_t b) {    \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " IP ", 0;\n"          \
+                   "wgmma.mma_async.sync.aligned.m64n" #BN                  \
+                   "k16.f32.bf16.bf16 {" CQ_ACC##BN "}, " IA ", " IB        \
+                   ", p, 1, 1, 0, 0;\n}\n"                                   \
+                   : CQ_OUT##BN                                             \
+                   : "l"(a), "l"(b), "r"(1));                               \
+    }                                                                       \
+  };
 
-template <>
-struct Mma<128> {
-  __device__ __forceinline__ static void run(uint32_t (&d)[64], uint64_t a,
-                                             uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-        "%60, %61, %62, %63"
-        "}, %64, %65, p;\n}\n"
-        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
-          "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
-          "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
-          "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
-          "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
-          "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
-          "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
-          "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
-          "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
-          "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
-          "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
-          "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
-          "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
-        : "l"(a), "l"(b), "r"(1));
-  }
-};
-
-template <>
-struct Mma<256> {
-  __device__ __forceinline__ static void run(uint32_t (&d)[128], uint64_t a,
-                                             uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-        "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
-        "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
-        "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
-        "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
-        "%120, %121, %122, %123, %124, %125, %126, %127"
-        "}, %128, %129, p;\n}\n"
-        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
-          "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
-          "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
-          "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
-          "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
-          "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
-          "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
-          "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
-          "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
-          "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
-          "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
-          "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
-          "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]),
-          "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]),
-          "+r"(d[70]), "+r"(d[71]), "+r"(d[72]), "+r"(d[73]), "+r"(d[74]),
-          "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
-          "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]),
-          "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]),
-          "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]),
-          "+r"(d[95]), "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]),
-          "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]), "+r"(d[104]),
-          "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]),
-          "+r"(d[110]), "+r"(d[111]), "+r"(d[112]), "+r"(d[113]), "+r"(d[114]),
-          "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
-          "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]),
-          "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
-        : "l"(a), "l"(b), "r"(1));
-  }
-};
+CQ_MMA(32, "%16", "%17", "%18")
+CQ_MMA(64, "%32", "%33", "%34")
+CQ_MMA(128, "%64", "%65", "%66")
+CQ_MMA(256, "%128", "%129", "%130")
 
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -420,20 +455,45 @@ __device__ __forceinline__ uint4 quantize_raw(const Params& p,
                     pack4(q[12], q[13], q[14], q[15]));
 }
 
+// four consecutive floats of an epilogue row
+__device__ __forceinline__ void row4(const float* row, int gc, float (&v)[4]) {
+  const float4 r = *reinterpret_cast<const float4*>(row + gc);
+  v[0] = r.x;
+  v[1] = r.y;
+  v[2] = r.z;
+  v[3] = r.w;
+}
+
+// the float output's four channels at element offset `o`, bf16 or f32
+__device__ __forceinline__ void store_f4(const Params& p, const float (&y)[4],
+                                         size_t o) {
+  if (p.out_f_bf16) {
+    __nv_bfloat162 lo = __floats2bfloat162_rn(y[0], y[1]);
+    __nv_bfloat162 hi = __floats2bfloat162_rn(y[2], y[3]);
+    uint2 v;
+    v.x = *reinterpret_cast<uint32_t*>(&lo);
+    v.y = *reinterpret_cast<uint32_t*>(&hi);
+    *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(p.out_f) + o) = v;
+  } else {
+    *reinterpret_cast<float4*>(static_cast<float*>(p.out_f) + o) =
+        make_float4(y[0], y[1], y[2], y[3]);
+  }
+}
+
 // The epilogue of four consecutive channels gc..gc+3 of one pixel
-// (element offset `o` of the output), conv_block_q.cuh's op for op.
-__device__ __forceinline__ void epilogue4(const Params& p, const int (&acc)[4],
-                                          size_t o, int gc) {
-  const float4 eb = *reinterpret_cast<const float4*>(p.epi + gc);
-  const float4 em = *reinterpret_cast<const float4*>(p.epi + p.co + gc);
-  const float4 ea = *reinterpret_cast<const float4*>(p.epi + 2 * p.co + gc);
-  float4 inv = make_float4(p.inv_next, p.inv_next, p.inv_next, p.inv_next);
-  if (p.inv_next_row)
-    inv = *reinterpret_cast<const float4*>(p.epi + 3 * p.co + gc);
-  const float b[4] = {eb.x, eb.y, eb.z, eb.w};
-  const float m[4] = {em.x, em.y, em.z, em.w};
-  const float a[4] = {ea.x, ea.y, ea.z, ea.w};
-  const float iv[4] = {inv.x, inv.y, inv.z, inv.w};
+// (element offset `o` of the output) from their s32 sums,
+// conv_block_q.cuh's op for op.
+__device__ __forceinline__ void epilogue4(const Params& p,
+                                          const uint32_t (&acc)[4], size_t o,
+                                          int gc) {
+  float b[4], m[4], a[4], iv[4];
+  row4(p.epi_b, gc, b);
+  row4(p.epi_m, gc, m);
+  row4(p.epi_a, gc, a);
+  if (p.epi_inv != nullptr)
+    row4(p.epi_inv, gc, iv);
+  else
+    iv[0] = iv[1] = iv[2] = iv[3] = p.inv_next;
   union {
     uint32_t u;
     int8_t s8[4];
@@ -443,7 +503,7 @@ __device__ __forceinline__ void epilogue4(const Params& p, const int (&acc)[4],
   float y[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    float v = __fadd_rn(__int2float_rn(acc[i]), b[i]);
+    float v = __fadd_rn(__int2float_rn(static_cast<int>(acc[i])), b[i]);
     v = v >= 0.0f ? v : __fmul_rn(p.alpha, v);
     v = __fadd_rn(__fmul_rn(v, m[i]), a[i]);
     if (p.cast_bf16) v = bf16_round(v);
@@ -456,29 +516,39 @@ __device__ __forceinline__ void epilogue4(const Params& p, const int (&acc)[4],
     y[i] = v;
     q.s8[i] = quantize(v, iv[i]);
   }
-  if (p.out_f != nullptr) {
-    if (p.out_f_bf16) {
-      __nv_bfloat162 lo = __floats2bfloat162_rn(y[0], y[1]);
-      __nv_bfloat162 hi = __floats2bfloat162_rn(y[2], y[3]);
-      uint2 v;
-      v.x = *reinterpret_cast<uint32_t*>(&lo);
-      v.y = *reinterpret_cast<uint32_t*>(&hi);
-      *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(p.out_f) + o) = v;
-    } else {
-      *reinterpret_cast<float4*>(static_cast<float*>(p.out_f) + o) =
-          make_float4(y[0], y[1], y[2], y[3]);
-    }
-  }
+  if (p.out_f != nullptr) store_f4(p, y, o);
   if (p.out_s8 != nullptr) *reinterpret_cast<uint32_t*>(p.out_s8 + o) = q.u;
+}
+
+// The bf16 1x1's epilogue of the same four channels from their f32 sums
+// (the bits in acc), conv_block_kernel.py's: leaky(acc + bias) * mul + add
+__device__ __forceinline__ void epilogue4_f(const Params& p,
+                                            const uint32_t (&acc)[4],
+                                            size_t o, int gc) {
+  float b[4], m[4], a[4], y[4];
+  row4(p.epi_b, gc, b);
+  row4(p.epi_m, gc, m);
+  row4(p.epi_a, gc, a);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float v = __fadd_rn(__uint_as_float(acc[i]), b[i]);
+    v = v >= 0.0f ? v : __fmul_rn(p.alpha, v);
+    y[i] = __fadd_rn(__fmul_rn(v, m[i]), a[i]);
+  }
+  store_f4(p, y, o);
 }
 
 // --- the kernel -------------------------------------------------------------
 
-template <int BN, int KIND>
+// BN output channels a tile, x of kind KIND, operands OP (a bf16 x is
+// quantized by the producer for s8 operands, copied by TMA for bf16 ones)
+template <int BN, int KIND, int OP>
 __global__ void __launch_bounds__(3 * kWG, 1)
 conv_gemm_q_kernel(const __grid_constant__ Params p,
                    const __grid_constant__ CUtensorMap map_a,
                    const __grid_constant__ CUtensorMap map_b) {
+  // A by TMA, or through the converting producer
+  constexpr bool kTmaA = OP == kOpBF16 || KIND == kS8;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + kAlign - 1) & ~static_cast<uint32_t>(kAlign - 1);
@@ -497,7 +567,7 @@ conv_gemm_q_kernel(const __grid_constant__ Params p,
     for (int s = 0; s < stages; ++s) {
       // TMA: one arrival with the stage's bytes; converting: one for each
       // producer warp plus the weights' arrival with their bytes
-      mbar_init(bars + 8 * s, KIND == kS8 ? 1 : 4 + 1);
+      mbar_init(bars + 8 * s, kTmaA ? 1 : 4 + 1);
       // each consumer warp releases the stage once its products are done
       mbar_init(bars + 8 * (stages + s), 4 * nwg);
     }
@@ -511,7 +581,7 @@ conv_gemm_q_kernel(const __grid_constant__ Params p,
   if (threadIdx.x >= nwg * kWG) {
     // ---- producer warpgroup: keeps the ring filled ----
     const int pt = threadIdx.x - nwg * kWG;
-    if constexpr (KIND == kS8) {
+    if constexpr (kTmaA) {
       asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
       if (pt != 0) return;
       int it = 0;
@@ -617,7 +687,7 @@ conv_gemm_q_kernel(const __grid_constant__ Params p,
     // ---- consumer warpgroups: products and epilogue ----
     // 384 threads start at 168 registers; the producer warpgroup gives up
     // what the consumers take (the TMA one more than the converting one)
-    if constexpr (KIND == kS8)
+    if constexpr (kTmaA)
       asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
     else
       asm volatile("setmaxnreg.inc.sync.aligned.u32 192;\n" ::: "memory");
@@ -645,8 +715,8 @@ conv_gemm_q_kernel(const __grid_constant__ Params p,
         fence_regs(acc);
         asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
         for (int kk = 0; kk < p.bk; kk += 32)
-          Mma<BN>::run(acc, smem_desc(sa + kk, p.bk),
-                       smem_desc(sb + kk, p.bk));
+          Mma<BN, OP>::run(acc, smem_desc(sa + kk, p.bk),
+                           smem_desc(sb + kk, p.bk));
         asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
         fence_regs(acc);
         // the previous step's products are done: release its stage
@@ -677,12 +747,16 @@ conv_gemm_q_kernel(const __grid_constant__ Params p,
         const uint32_t s1 = odd ? acc[4 * j + 1] : acc[4 * j + 3];
         const uint32_t r0 = __shfl_xor_sync(0xffffffffu, s0, 1);
         const uint32_t r1 = __shfl_xor_sync(0xffffffffu, s1, 1);
-        const int v[4] = {static_cast<int>(odd ? r0 : acc[4 * j]),
-                          static_cast<int>(odd ? r1 : acc[4 * j + 1]),
-                          static_cast<int>(odd ? acc[4 * j + 2] : r0),
-                          static_cast<int>(odd ? acc[4 * j + 3] : r1)};
+        const uint32_t v[4] = {odd ? r0 : acc[4 * j], odd ? r1 : acc[4 * j + 1],
+                               odd ? acc[4 * j + 2] : r0,
+                               odd ? acc[4 * j + 3] : r1};
         const int gc = tl.n0 + 8 * j + 4 * (q >> 1);
-        if (row_ok && gc < p.co) epilogue4(p, v, orow + gc, gc);
+        if (row_ok && gc < p.co) {
+          if constexpr (OP == kOpS8)
+            epilogue4(p, v, orow + gc, gc);
+          else
+            epilogue4_f(p, v, orow + gc, gc);
+        }
       }
     }
   }
@@ -716,9 +790,10 @@ inline EncodeTiled encode_fn() {
   return fn;
 }
 
-// a tiled map of s8 elements, dims innermost first, byte strides of dims
-// 1.., the box's 128B or 64B swizzle matching its bk-byte rows; what falls
-// outside the tensor reads as zero
+// a tiled map over bytes (s8 elements, or each bf16 as two), dims
+// innermost first, byte strides of dims 1.., the box's 128B or 64B
+// swizzle matching its bk-byte rows; what falls outside the tensor reads
+// as zero
 inline bool encode(CUtensorMap* map, const void* ptr, int rank,
                    const cuuint64_t* dims, const cuuint64_t* strides,
                    const cuuint32_t* box, int bk) {
@@ -736,52 +811,67 @@ inline int smem_bytes(int bm, int bn, int bk, int stages) {
   return kAlign + stages * ((bm + bn) * bk + 16);
 }
 
-template <int BN, int KIND>
+template <int BN, int KIND, int OP>
 int run(const Params& p, const CUtensorMap& a, const CUtensorMap& b,
         dim3 grid, int smem, cudaStream_t stream) {
   static int smem_set = 0;  // this library's kernel's dynamic smem limit
   if (smem > smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        conv_gemm_q_kernel<BN, KIND>,
+        conv_gemm_q_kernel<BN, KIND, OP>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     smem_set = smem;
   }
-  conv_gemm_q_kernel<BN, KIND>
+  conv_gemm_q_kernel<BN, KIND, OP>
       <<<grid, (p.bm / 64 + 1) * kWG, smem, stream>>>(p, a, b);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int BN>
+// s8 operands take an s8, bf16 or f32 x; bf16 operands a bf16 x
+template <int BN, int OP>
 int run_kind(const Params& p, int x_kind, const CUtensorMap& a,
              const CUtensorMap& b, dim3 grid, int smem, cudaStream_t stream) {
-  switch (x_kind) {
-    case kS8:
-      return run<BN, kS8>(p, a, b, grid, smem, stream);
-    case kBF16:
-      return run<BN, kBF16>(p, a, b, grid, smem, stream);
-    case kF32:
-      return run<BN, kF32>(p, a, b, grid, smem, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (OP == kOpBF16) {
+    return run<BN, kBF16, kOpBF16>(p, a, b, grid, smem, stream);
+  } else {
+    switch (x_kind) {
+      case kS8:
+        return run<BN, kS8, kOpS8>(p, a, b, grid, smem, stream);
+      case kBF16:
+        return run<BN, kBF16, kOpS8>(p, a, b, grid, smem, stream);
+      case kF32:
+        return run<BN, kF32, kOpS8>(p, a, b, grid, smem, stream);
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
 }
 
 // Check the plan, encode the maps and launch on `stream`; returns a
-// cudaError_t code (0 on success).
-inline int launch(Params p, int x_kind, int bn, cudaStream_t stream) {
+// cudaError_t code (0 on success). OP's operands: s8 (a 1x1 or 3x3 on
+// an s8, bf16 or f32 x) or bf16 (a 1x1 on a bf16 x).
+template <int OP>
+int launch(Params p, int x_kind, int bn, cudaStream_t stream) {
   const long long m = static_cast<long long>(p.n) * p.h * p.w_;
   if (m == 0 || p.co == 0) return 0;
+  const int esize = OP == kOpS8 ? 1 : 2;
   const int smem = smem_bytes(p.bm, bn, p.bk, p.stages);
   const bool rect = p.ksize == 1 ? (p.th == 1 && p.tw == p.bm)
                                  : (p.th * p.tw == p.bm && p.tw <= 256);
-  if (p.ci % 16 || p.co % 16 || m > 0x7fffffffLL ||
-      !(p.ksize == 1 || p.ksize == 3) || !(p.bm == 64 || p.bm == 128) ||
-      !(bn == 64 || bn == 128 || bn == 256) ||
+  // s8: channels in 16s (TMA rows and the producer's 16-channel chunks);
+  // bf16: a 1x1 on a bf16 x, rows of whole 16 bytes, channels in 8s
+  const bool chans = OP == kOpS8
+                         ? p.ci % 16 == 0 && p.co % 16 == 0
+                         : p.ksize == 1 && x_kind == kBF16 && p.ci % 8 == 0 &&
+                               p.co % 8 == 0;
+  if (!chans || m > 0x7fffffffLL || !(p.ksize == 1 || p.ksize == 3) ||
+      !(p.bm == 64 || p.bm == 128) ||
+      !(bn == 32 || bn == 64 || bn == 128 || bn == 256) ||
       !(p.bk == 64 || p.bk == 128) || !rect || p.th < 1 || p.tw < 1 ||
       p.stages < 2 || smem > kMaxSmem)
     return static_cast<int>(cudaErrorInvalidValue);
-  p.kchunks = (p.ci + p.bk - 1) / p.bk;
+  p.kbytes = p.ci * esize;
+  p.kchunks = (p.kbytes + p.bk - 1) / p.bk;
   long long mtiles;
   if (p.ksize == 1) {
     mtiles = (m + p.bm - 1) / p.bm;
@@ -800,35 +890,32 @@ inline int launch(Params p, int x_kind, int bn, cudaStream_t stream) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int taps = p.ksize * p.ksize;
+  const cuuint64_t kb = static_cast<cuuint64_t>(p.kbytes);
   CUtensorMap map_a{}, map_b{};
   {
-    const cuuint64_t dims[3] = {static_cast<cuuint64_t>(p.ci),
-                                static_cast<cuuint64_t>(p.co),
+    const cuuint64_t dims[3] = {kb, static_cast<cuuint64_t>(p.co),
                                 static_cast<cuuint64_t>(taps)};
-    const cuuint64_t strides[2] = {static_cast<cuuint64_t>(p.ci),
-                                   static_cast<cuuint64_t>(p.co) * p.ci};
+    const cuuint64_t strides[2] = {kb, static_cast<cuuint64_t>(p.co) * kb};
     const cuuint32_t box[3] = {static_cast<cuuint32_t>(p.bk),
                                static_cast<cuuint32_t>(bn), 1};
     if (!encode(&map_b, p.w, 3, dims, strides, box, p.bk))
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (x_kind == kS8) {
+  if (OP == kOpBF16 || x_kind == kS8) {
     bool ok;
     if (p.ksize == 1) {
-      const cuuint64_t dims[2] = {static_cast<cuuint64_t>(p.ci),
-                                  static_cast<cuuint64_t>(m)};
-      const cuuint64_t strides[1] = {static_cast<cuuint64_t>(p.ci)};
+      const cuuint64_t dims[2] = {kb, static_cast<cuuint64_t>(m)};
+      const cuuint64_t strides[1] = {kb};
       const cuuint32_t box[2] = {static_cast<cuuint32_t>(p.bk),
                                  static_cast<cuuint32_t>(p.bm)};
       ok = encode(&map_a, p.x, 2, dims, strides, box, p.bk);
     } else {
       const cuuint64_t dims[4] = {
-          static_cast<cuuint64_t>(p.ci), static_cast<cuuint64_t>(p.w_),
-          static_cast<cuuint64_t>(p.h), static_cast<cuuint64_t>(p.n)};
+          kb, static_cast<cuuint64_t>(p.w_), static_cast<cuuint64_t>(p.h),
+          static_cast<cuuint64_t>(p.n)};
       const cuuint64_t strides[3] = {
-          static_cast<cuuint64_t>(p.ci),
-          static_cast<cuuint64_t>(p.w_) * p.ci,
-          static_cast<cuuint64_t>(p.h) * p.w_ * p.ci};
+          kb, static_cast<cuuint64_t>(p.w_) * kb,
+          static_cast<cuuint64_t>(p.h) * p.w_ * kb};
       const cuuint32_t box[4] = {static_cast<cuuint32_t>(p.bk),
                                  static_cast<cuuint32_t>(p.tw),
                                  static_cast<cuuint32_t>(p.th), 1};
@@ -839,12 +926,14 @@ inline int launch(Params p, int x_kind, int bn, cudaStream_t stream) {
   // persistent: one block an SM at most, each walking its tiles
   const dim3 grid(static_cast<unsigned>(tiles < sms ? tiles : sms));
   switch (bn) {
+    case 32:
+      return run_kind<32, OP>(p, x_kind, map_a, map_b, grid, smem, stream);
     case 64:
-      return run_kind<64>(p, x_kind, map_a, map_b, grid, smem, stream);
+      return run_kind<64, OP>(p, x_kind, map_a, map_b, grid, smem, stream);
     case 128:
-      return run_kind<128>(p, x_kind, map_a, map_b, grid, smem, stream);
+      return run_kind<128, OP>(p, x_kind, map_a, map_b, grid, smem, stream);
     default:
-      return run_kind<256>(p, x_kind, map_a, map_b, grid, smem, stream);
+      return run_kind<256, OP>(p, x_kind, map_a, map_b, grid, smem, stream);
   }
 }
 
@@ -868,7 +957,10 @@ inline int launch(Params p, int x_kind, int bn, cudaStream_t stream) {
     convq90::Params p{};                                                    \
     p.x = x;                                                                \
     p.w = w;                                                                \
-    p.epi = epi;                                                            \
+    p.epi_b = epi;                                                          \
+    p.epi_m = epi + co;                                                     \
+    p.epi_a = epi + 2 * co;                                                 \
+    p.epi_inv = inv_next_row ? epi + 3 * co : nullptr;                      \
     p.res_in = res_in;                                                      \
     p.res_out = res_out;                                                    \
     p.out_s8 = out_s8;                                                      \
@@ -885,11 +977,10 @@ inline int launch(Params p, int x_kind, int bn, cudaStream_t stream) {
     p.res_scale = res_scale;                                                \
     p.alpha = alpha;                                                        \
     p.cast_bf16 = cast_bf16;                                                \
-    p.inv_next_row = inv_next_row;                                          \
     p.bm = bm;                                                              \
     p.bk = bk;                                                              \
     p.th = th;                                                              \
     p.tw = tw;                                                              \
     p.stages = stages;                                                      \
-    return convq90::launch(p, x_kind, bn, stream);                          \
+    return convq90::launch<convq90::kOpS8>(p, x_kind, bn, stream);          \
   }

@@ -32,25 +32,46 @@
 // (bf16) and 17 MB out (0.045 ms at 3.35 TB/s): neither, by much; the four
 // unfused launches it replaces move 0.42 GB between stages.
 //
-// Design: one block of sixteen warps per (image, T x T tile of output
-// pixels). The block copies its input tile with the halo (4T+7 square for
-// the region; quantized on the way when x is a float) into shared memory
-// and recomputes the halo of every stage (q2/q3 on (2T+3)^2, q4 on
-// (2T+1)^2), so no stage boundary reaches device memory and no block
-// depends on another. Each stage is an implicit GEMM over the shared tiles
-// with mma.sync m16n8k16 s8 -> s32: a warp takes 32 pixels (16 in the
-// exit) x 32 channels (16 where the stage is narrower), its A and B
-// fragments loaded with ldmatrix, A's rows being any pixels of the tile (a
-// tap's shifted or strided window needs no copy). Each pixel's channels and
-// each weight row are padded by 16 bytes, which spreads ldmatrix's eight
-// rows over the banks. Copies go through cp.async: the epi table, the
-// first two stages' weights and an s8 input tile up front (a float tile is
-// read and quantized meanwhile), FB0's 3x3 and the exit's weights while
-// the 1x1 runs (into the buffer the input tile leaves). The epilogue reads
-// each channel pair's constants
-// once per warp tile. T = 8 at the flagship: 196 KB of shared memory, one
-// block per SM, 1.41x stem2 and 1.13x fb0 recompute. wgmma, TMA and
-// overlapping one tile's copies with another's products are later work.
+// Where the time went (clock64 stamps per phase of the first design, on
+// the H100 at the flagship, fast epilogue, bf16 input; PERF.md): ~47 us a
+// tile, of which the products ~28%, the stages' epilogues ~30%, the input
+// tile's load and quantize ~16%, and warps idle at the stage barriers
+// (too few work items to share out evenly) most of the rest; the weight
+// copies hid behind the 1x1.
+//
+// Design (entries `s2d_region_block_q`, `s2d_tail_block_q`): persistent
+// blocks of sixteen warps, min(tiles, SMs) of them, each walking output
+// tiles of T x T pixels (image, row, column order). A block copies all
+// four stages' weights into shared memory once (111 KB at the flagship,
+// instead of once per tile), in the layout wgmma reads B in: each tap's
+// and 32-byte K step's [N][32] tile in the 32B swizzle. Per tile it
+// recomputes the halo of every stage from its input tile (4T+7 square
+// for the region; q2/q3 on (2T+3)^2, q4 on (2T+1)^2), so no stage
+// boundary reaches device memory and no tile depends on another. Each
+// stage is an implicit GEMM on wgmma m64nNSk32 s8 (NS = 32 or 16
+// channels, whichever shares the stage out more evenly): the four
+// warpgroups take items of 64 pixel rows x NS channels, and each warp
+// loads its 16 rows' A fragment with ldmatrix into registers, the rows
+// being any pixels of the tile (a tap's shifted or strided window needs
+// no copy); B comes from the resident weights through a descriptor. The
+// activation tiles hold each pixel's channels unpadded, swizzled by
+// 16-byte chunk so ldmatrix's rows spread over the banks, which leaves
+// room for the input tile to keep a buffer of its own: the next tile's
+// input is copied while this tile's 1x1, 3x3 and exit run (cp.async for
+// s8; a float input's chunks are loaded by each thread before a stage
+// and quantized into the buffer after it, so their latency passes during
+// the stage). The epilogues are the first design's op for op, from the
+// accumulator registers, with the final rounding on the FMA pipe (the
+// same codes) and each row's tile coordinates derived once an item. T = 8
+// at the flagship: 219 KB of shared memory, one block an SM.
+//
+// `s2d_region_block_q_mma` / `s2d_tail_block_q_mma` are the first
+// design, kept for A/B timing only: no serving path calls them. One block
+// of sixteen warps per (image, T x T tile); mma.sync m16n8k16 s8 -> s32
+// with ldmatrix fragments, each pixel's channels and each weight row
+// padded by 16 bytes; cp.async copies of the epi table, the weights and
+// an s8 input tile; FB0's 3x3 and the exit's weights arrive while the 1x1
+// runs (into the buffer the input tile leaves). 196 KB at T = 8.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -89,28 +110,46 @@ __device__ __forceinline__ int8_t clip_rint(float y) {
   return static_cast<int8_t>(static_cast<int>(q));
 }
 
-// a conv stage's epilogue and requantize (stem2, pw, exit)
+// clip(rint(y), +-127) as rintf then the clamp, or (kBits) on the FMA
+// pipe alone: clamped first, then rounded half to even by adding 1.5 *
+// 2^23, the code in the low byte. The same code either way (the bounds
+// are integers; NaN clamps to -127 in both).
+template <bool kBits>
+__device__ __forceinline__ int8_t clip_round(float y) {
+  if constexpr (kBits) {
+    const float c = fminf(fmaxf(y, -127.0f), 127.0f);
+    return static_cast<int8_t>(
+        static_cast<uint8_t>(__float_as_uint(__fadd_rn(c, 12582912.0f))));
+  } else {
+    return clip_rint(y);
+  }
+}
+
+// a conv stage's epilogue and requantize (stem2, pw, exit); FAST: the
+// fast (1) or exact (0) epilogue, or p.fast's (-1)
+template <int FAST = -1, bool kBits = false>
 __device__ __forceinline__ int8_t stage_q(int acc, float b, float m, float a,
                                           float inv, const Params& p) {
   float y = __fadd_rn(__int2float_rn(acc), b);
-  if (p.fast) {
+  if (FAST < 0 ? p.fast : FAST) {
     y = fmaxf(y, __fmul_rn(p.alpha, y));
-    return clip_rint(__fadd_rn(__fmul_rn(y, m), a));
+    return clip_round<kBits>(__fadd_rn(__fmul_rn(y, m), a));
   }
   y = y >= 0.0f ? y : __fmul_rn(p.alpha, y);
   y = __fadd_rn(__fmul_rn(y, m), a);
   if (p.cast_bf16) y = bf16_round(y);
-  return clip_rint(__fmul_rn(y, inv));
+  return clip_round<kBits>(__fmul_rn(y, inv));
 }
 
 // FB0's 3x3 epilogue with the block's residual (q2's code `res`)
+template <int FAST = -1, bool kBits = false>
 __device__ __forceinline__ int8_t fb0_q(int acc, float b, float m, float a,
                                         float r, float inv, float res,
                                         const Params& p) {
   float z = __fadd_rn(__int2float_rn(acc), b);
-  if (p.fast) {
+  if (FAST < 0 ? p.fast : FAST) {
     z = fmaxf(z, __fmul_rn(p.alpha, z));
-    return clip_rint(
+    return clip_round<kBits>(
         __fadd_rn(__fadd_rn(__fmul_rn(z, m), a), __fmul_rn(res, r)));
   }
   z = z >= 0.0f ? z : __fmul_rn(p.alpha, z);
@@ -120,7 +159,7 @@ __device__ __forceinline__ int8_t fb0_q(int acc, float b, float m, float a,
   if (p.cast_bf16) rs = bf16_round(rs);
   float y = __fadd_rn(rs, z);
   if (p.cast_bf16) y = bf16_round(y);
-  return clip_rint(__fmul_rn(y, inv));
+  return clip_round<kBits>(__fmul_rn(y, inv));
 }
 
 __device__ __forceinline__ void mma16816(int* d, uint32_t a0, uint32_t a1,
@@ -176,10 +215,12 @@ __device__ __forceinline__ Cols cols_at(const float* E, int e, int row0,
 }
 
 // a stage's two channels: epilogue and requantize
+template <int FAST = -1, bool kBits = false>
 __device__ __forceinline__ char2 stage_q2(int a0, int a1, const Cols& c,
                                           const Params& p) {
-  return make_char2(stage_q(a0, c.b.x, c.m.x, c.a.x, c.inv.x, p),
-                    stage_q(a1, c.b.y, c.m.y, c.a.y, c.inv.y, p));
+  return make_char2(
+      stage_q<FAST, kBits>(a0, c.b.x, c.m.x, c.a.x, c.inv.x, p),
+      stage_q<FAST, kBits>(a1, c.b.y, c.m.y, c.a.y, c.inv.y, p));
 }
 
 // One stage as an implicit GEMM over shared-memory tiles:
@@ -504,7 +545,7 @@ __global__ void __launch_bounds__(kThreads, 1) region_kernel(const Params p) {
 }
 
 template <bool kRegion>
-int launch(const Params& p, int n, cudaStream_t stream) {
+int launch_mma(const Params& p, int n, cudaStream_t stream) {
   const size_t smem = layout(kRegion, p.tile, p.c1, p.c, p.cm, p.co,
                              kRegion ? 17 : 13, p.e).total;
   if (smem > static_cast<size_t>(kSmemMax))
@@ -520,24 +561,563 @@ int launch(const Params& p, int n, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// --- the Hopper kernel: persistent blocks, resident weights, wgmma ---------
+
+constexpr int kAlign = 1024;
+
+// bytes of a stage's weights in shared memory: [taps][ksteps][n][32], K
+// in 32-byte steps (zeros past k)
+__host__ __device__ inline size_t wbytes(int taps, int n, int k) {
+  return static_cast<size_t>(taps) * ((k + 31) / 32) * n * 32;
+}
+
+// Shared memory of a persistent block, in order: the four stages' weights
+// (resident for all its tiles), q2, the input tile (region only), q3, q4,
+// the epi table. The activation tiles hold each pixel's channels without
+// padding, swizzled (act_off); the input tile has a buffer of its own, so
+// the next tile's input is copied in while this tile's later stages run.
+struct Layout90 {
+  size_t ws2, wpw, wfb, wex, q2, x, q3, q4, epi, total;
+};
+
+__host__ __device__ inline Layout90 layout90(bool region, int tile, int c1,
+                                             int c, int cm, int co, int rows,
+                                             int e) {
+  const size_t xw = 4 * tile + 7, qw = 2 * tile + 3, q4w = 2 * tile + 1;
+  Layout90 l;
+  l.ws2 = 0;
+  l.wpw = l.ws2 + (region ? wbytes(9, c, c1) : 0);
+  l.wfb = l.wpw + wbytes(1, cm, c);
+  l.wex = l.wfb + wbytes(9, c, cm);
+  l.q2 = l.wex + wbytes(9, co, c);
+  l.x = l.q2 + qw * qw * c;
+  l.q3 = l.x + (region ? xw * xw * c1 : 0);
+  l.q4 = l.q3 + qw * qw * cm;
+  l.epi = l.q4 + q4w * q4w * c;
+  l.total = l.epi + static_cast<size_t>(rows) * e * 4 + kAlign;
+  return l;
+}
+
+// An activation tile in shared memory: pixels of `rb` bytes (their
+// channels) one after another, each 16-byte chunk's index XOR the low bits
+// of its 128-byte line (as TMA's swizzle does), so the eight rows of an
+// ldmatrix that reads neighbouring pixels fall in distinct banks; only
+// where rb is a power of two (other widths are not swizzled).
+struct Act {
+  int8_t* base;
+  int rb;
+  uint32_t mask;
+};
+
+__device__ __forceinline__ Act act(int8_t* base, int rb) {
+  const uint32_t lines = rb >= 128 ? 8 : rb / 16;
+  return Act{base, rb, rb >= 16 && (rb & (rb - 1)) == 0 ? lines - 1 : 0u};
+}
+
+// where a swizzled tile puts byte offset `o`: its 16-byte chunk index
+// XOR `mask` of the bits of its 128-byte line
+__device__ __forceinline__ uint32_t swizzle(uint32_t o, uint32_t mask) {
+  return o ^ (((o >> 7) & mask) << 4);
+}
+
+// the offset in the tile of byte `b` (< rb + 16) of pixel `pix`
+__device__ __forceinline__ uint32_t act_off(const Act& a, int pix, int b) {
+  return swizzle(static_cast<uint32_t>(pix * a.rb + b), a.mask);
+}
+
+// wgmma descriptor of an n x 32-byte K-major tile in the 32B swizzle
+// (layout 3), 8-row groups 256 bytes apart
+__device__ __forceinline__ uint64_t desc32(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(256 >> 4) << 32) |
+         (static_cast<uint64_t>(3) << 62);
+}
+
+// d[NS/2] += A (64 pixels x 32 bytes, in registers: each warp's 16 rows
+// as mma.m16n8k32's A fragment) * B (NS channels x 32 bytes, K-major in
+// shared memory)^T, s8 x s8 -> s32
+template <int NS>
+struct WgmmaA;
+
+template <>
+struct WgmmaA<32> {
+  __device__ __forceinline__ static void run(uint32_t (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15}, {%16, %17, %18, %19}, %20, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+          "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+          "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+          "+r"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaA<16> {
+  __device__ __forceinline__ static void run(uint32_t (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+          "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <int R>
+__device__ __forceinline__ void fence_regs(uint32_t (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// Copy a stage's weights [taps][n][k] s8 into shared memory as
+// [taps][ksteps][n][32 bytes] in the 32B swizzle, zeros past k.
+__device__ __forceinline__ void load_w90(int8_t* dst,
+                                         const int8_t* __restrict__ src,
+                                         int taps, int n, int k) {
+  const int ks = (k + 31) / 32;
+  const int chunks = taps * ks * n * 2;
+  for (int idx = threadIdx.x; idx < chunks; idx += kThreads) {
+    const int half = idx & 1;
+    int rest = idx >> 1;
+    const int row = rest % n;
+    rest /= n;
+    const int kk = rest % ks;
+    const int t = rest / ks;
+    const uint32_t o = ((t * ks + kk) * n + row) * 32 + half * 16;
+    const int kb = kk * 32 + half * 16;
+    const bool ok = kb < k;
+    // the 32B swizzle of 32-byte rows, as wgmma reads a K-major B in it
+    cp_async16(dst + swizzle(o, 1),
+               ok ? src + (static_cast<size_t>(t) * n + row) * k + kb : src,
+               ok ? 16 : 0);
+  }
+}
+
+// clip(rint(v * inv), +-127) as the low byte of a float's bits, on the FMA
+// pipe alone: clamped first (the same code: the bounds are integers; NaN
+// clamps to -127 as fmaxf does there), then rounded half to even by adding
+// 1.5 * 2^23
+__device__ __forceinline__ uint32_t quantize_bits(float v, float inv) {
+  const float c = fminf(fmaxf(__fmul_rn(v, inv), -127.0f), 127.0f);
+  return __float_as_uint(__fadd_rn(c, 12582912.0f));
+}
+
+// the low bytes of a, b, c, d as one word (a lowest)
+__device__ __forceinline__ uint32_t pack4(uint32_t a, uint32_t b, uint32_t c,
+                                          uint32_t d) {
+  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040),
+                     0x5410);
+}
+
+// The input tile, in chunks of 16 channels (pixel-major): chunk `idx` of a
+// (side x side)-pixel tile at origin (r0, c0) of an NHWC image (h, w, ch).
+struct TileIn {
+  const void* src;  // the image
+  int h, w, ch, side, r0, c0, vecs, total;
+};
+
+__device__ __forceinline__ TileIn tile_in(const void* src, int h, int w,
+                                          int ch, int side, int r0, int c0) {
+  const int vecs = ch >> 4;
+  return TileIn{src, h, w, ch, side, r0, c0, vecs, side * side * vecs};
+}
+
+// chunk idx's element offset in the image, and its pixel and 16-byte
+// column in the tile; false off the image (the chunk reads as zeros)
+__device__ __forceinline__ bool chunk_at(const TileIn& t, int idx, size_t& off,
+                                         int& pix, int& vec) {
+  pix = idx / t.vecs;
+  vec = idx - pix * t.vecs;
+  const int i = pix / t.side, j = pix - i * t.side;
+  const int gr = t.r0 + i, gc = t.c0 + j;
+  off = (static_cast<size_t>(gr) * t.w + gc) * t.ch + vec * 16;
+  return idx < t.total && gr >= 0 && gr < t.h && gc >= 0 && gc < t.w;
+}
+
+// Copy an s8 input tile into an activation tile with cp.async (zeros off
+// the image); the caller waits.
+__device__ __forceinline__ void copy_tile_s8(const Act& dst, const TileIn& t) {
+  for (int idx = threadIdx.x; idx < t.total; idx += kThreads) {
+    size_t off;
+    int pix, vec;
+    const bool in = chunk_at(t, idx, off, pix, vec);
+    const int8_t* s = static_cast<const int8_t*>(t.src);
+    cp_async16(dst.base + act_off(dst, pix, vec * 16), in ? s + off : s,
+               in ? 16 : 0);
+  }
+}
+
+// A float (bf16 or f32) input tile quantized on arrival: each thread
+// carries kFlight chunks at a time, chunks threadIdx.x + (g + kFlight *
+// group) * kThreads, from `issue` (the loads) to `land` (the quantize, on
+// the FMA pipe: quantize_bits gives clip(rint(x * inv))'s codes, and the
+// store). A thread issues a group before a stage and lands it after, so
+// the loads' latency passes while the stage runs.
+template <int KIND>
+struct FloatIn {
+  static constexpr int kWords = KIND == kBF16 ? 2 : 4;  // uint4 a chunk
+  static constexpr int kFlight = 2;
+  uint4 raw[kFlight][kWords];
+  bool ok[kFlight];
+
+  __device__ __forceinline__ int first(int group) const {
+    return threadIdx.x + group * kFlight * kThreads;
+  }
+
+  __device__ __forceinline__ void issue(const TileIn& t, int group) {
+#pragma unroll
+    for (int g = 0; g < kFlight; ++g) {
+      size_t off;
+      int pix, vec;
+      ok[g] = chunk_at(t, first(group) + g * kThreads, off, pix, vec);
+      if (ok[g]) {
+        const uint4* s =
+            KIND == kBF16
+                ? reinterpret_cast<const uint4*>(
+                      static_cast<const __nv_bfloat16*>(t.src) + off)
+                : reinterpret_cast<const uint4*>(
+                      static_cast<const float*>(t.src) + off);
+#pragma unroll
+        for (int k = 0; k < kWords; ++k) raw[g][k] = __ldg(s + k);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void land(const Act& dst, const TileIn& t,
+                                       int group, float inv) const {
+#pragma unroll
+    for (int g = 0; g < kFlight; ++g) {
+      const int idx = first(group) + g * kThreads;
+      if (idx >= t.total) break;
+      size_t off;
+      int pix, vec;
+      chunk_at(t, idx, off, pix, vec);
+      uint4 out = make_uint4(0, 0, 0, 0);
+      if (ok[g]) {
+        float f[16];
+#pragma unroll
+        for (int k = 0; k < kWords; ++k) {
+          const uint32_t wv[4] = {raw[g][k].x, raw[g][k].y, raw[g][k].z,
+                                  raw[g][k].w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if constexpr (KIND == kBF16) {
+              // a bf16 is the top half of the f32 with the same value
+              f[8 * k + 2 * e] = __uint_as_float(wv[e] << 16);
+              f[8 * k + 2 * e + 1] = __uint_as_float(wv[e] & 0xffff0000u);
+            } else {
+              f[4 * k + e] = __uint_as_float(wv[e]);
+            }
+          }
+        }
+        uint32_t q[16];
+#pragma unroll
+        for (int e = 0; e < 16; ++e) q[e] = quantize_bits(f[e], inv);
+        out = make_uint4(pack4(q[0], q[1], q[2], q[3]),
+                         pack4(q[4], q[5], q[6], q[7]),
+                         pack4(q[8], q[9], q[10], q[11]),
+                         pack4(q[12], q[13], q[14], q[15]));
+      }
+      *reinterpret_cast<uint4*>(dst.base + act_off(dst, pix, vec * 16)) = out;
+    }
+  }
+
+  // the groups from `group` on, issued and landed at once
+  __device__ __forceinline__ void rest(const Act& dst, const TileIn& t,
+                                       int group, float inv) {
+    for (; first(group) < t.total; ++group) {
+      issue(t, group);
+      land(dst, t, group, inv);
+    }
+  }
+};
+
+// One stage on wgmma, over activation tiles in shared memory (any pixel
+// rows: a tap's shifted or strided window needs no copy) with the weights
+// at `wb` as load_w90 lays them out. Warpgroup g takes items g, g + 4,
+// ...: 64 pixel rows x NS channels. Each of its warps loads, with one
+// ldmatrix.x4 a tap and 32-byte K step, its 16 rows' A fragment into
+// registers; the rows past M repeat row M - 1 and their sums are dropped.
+// `fin(r, r / gw, o, load_cols(o), acc_o, acc_o+1)` takes every pair of
+// sums, with the epilogue constants of channels o, o+1.
+template <int KS, int S, int NS, class LoadCols, class Fin>
+__device__ __forceinline__ void wg_stage(const Act& in, int inw, int gh,
+                                         int gw, uint32_t wb, int K, int N,
+                                         LoadCols load_cols, Fin fin) {
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31;
+  const int M = gh * gw;
+  const int nsl = N / NS;
+  const int items = (M + 63) / 64 * nsl;
+  const int ksteps = (K + 31) / 32;
+  const uint32_t base = smem_u32(in.base);
+  for (int item = wg; item < items; item += kWarps / 4) {
+    const int mi = item / nsl;
+    const int n0 = (item - mi * nsl) * NS;
+    const int m0 = mi * 64 + 16 * warp;
+    const int r = min(m0 + (lane & 15), M - 1);
+    const int ri = r / gw;
+    const int pix0 = (ri * S) * inw + (r - ri * gw) * S;
+    uint32_t acc[NS / 2];
+#pragma unroll
+    for (int i = 0; i < NS / 2; ++i) acc[i] = 0;
+    for (int ks = 0; ks < ksteps; ++ks) {
+      const int b = ks * 32 + (lane >> 4) * 16;
+      uint32_t a[KS * KS][4];
+#pragma unroll
+      for (int u = 0; u < KS; ++u)
+#pragma unroll
+        for (int v = 0; v < KS; ++v)
+          ldsm_x4(a[u * KS + v][0], a[u * KS + v][1], a[u * KS + v][2],
+                  a[u * KS + v][3],
+                  base + act_off(in, pix0 + u * inw + v, b));
+      fence_regs(acc);
+      __syncwarp();  // wgmma's .aligned: the warp converged after `fin`
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int t = 0; t < KS * KS; ++t)
+        WgmmaA<NS>::run(acc, a[t],
+                        desc32(wb + ((t * ksteps + ks) * N + n0) * 32));
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      fence_regs(acc);
+    }
+    // accumulator layout: acc[4j + e] is row m0 + lane/4 (+8 for e >= 2),
+    // channel n0 + 8j + 2 (lane % 4) + (e & 1)
+    const int r0 = m0 + (lane >> 2), r1 = r0 + 8;
+    const int i0 = r0 / gw, i1 = r1 / gw;
+#pragma unroll
+    for (int j = 0; j < NS / 8; ++j) {
+      const int o = n0 + 8 * j + 2 * (lane & 3);
+      const Cols cols = load_cols(o);
+      if (r0 < M)
+        fin(r0, i0, o, cols, static_cast<int>(acc[4 * j]),
+            static_cast<int>(acc[4 * j + 1]));
+      if (r1 < M)
+        fin(r1, i1, o, cols, static_cast<int>(acc[4 * j + 2]),
+            static_cast<int>(acc[4 * j + 3]));
+    }
+  }
+}
+
+// wg_stage with the channel slices (32 or 16) that share the stage out
+// most evenly over the four warpgroups (the fewest channels a warpgroup
+// handles; 32 on a tie)
+template <int KS, int S, class LoadCols, class Fin>
+__device__ __forceinline__ void stage90(const Act& in, int inw, int gh,
+                                        int gw, uint32_t wb, int K, int N,
+                                        LoadCols load_cols, Fin fin) {
+  const int mb = (gh * gw + 63) / 64;
+  const int by32 = (mb * (N / 32) + 3) / 4 * 32;
+  const int by16 = (mb * (N / 16) + 3) / 4 * 16;
+  if (N % 32 == 0 && by32 <= by16)
+    wg_stage<KS, S, 32>(in, inw, gh, gw, wb, K, N, load_cols, fin);
+  else
+    wg_stage<KS, S, 16>(in, inw, gh, gw, wb, K, N, load_cols, fin);
+}
+
+// The region (kRegion) or the tail, one persistent block walking tiles
+// blockIdx.x, + gridDim.x, ...; KIND is x's (the tail's is s8), kFast the
+// epilogue's variant.
+template <bool kRegion, int KIND, int kFast>
+__global__ void __launch_bounds__(kThreads, 1)
+region_kernel90(const Params p, int tiles_h, int tiles_w, int tiles) {
+  extern __shared__ uint8_t smem_raw90[];
+  const uint32_t raw = smem_u32(smem_raw90);
+  int8_t* const smem = reinterpret_cast<int8_t*>(
+      smem_raw90 + (((raw + kAlign - 1) & ~static_cast<uint32_t>(kAlign - 1)) -
+                    raw));
+  const int T = p.tile;
+  const int XW = 4 * T + 7, QW = 2 * T + 3, Q4W = 2 * T + 1;
+  const int rows = kRegion ? 17 : 13;
+  const int e = p.e;
+  const Layout90 L = layout90(kRegion, T, p.c1, p.c, p.cm, p.co, rows, e);
+  const Act x = act(smem + L.x, p.c1), q2 = act(smem + L.q2, p.c);
+  const Act q3 = act(smem + L.q3, p.cm), q4 = act(smem + L.q4, p.c);
+  float* E = reinterpret_cast<float*>(smem + L.epi);
+  const uint32_t ws2 = smem_u32(smem + L.ws2), wpw = smem_u32(smem + L.wpw);
+  const uint32_t wfb = smem_u32(smem + L.wfb), wex = smem_u32(smem + L.wex);
+
+  // the weights and the epi table, once for all of the block's tiles
+  if (kRegion) load_w90(smem + L.ws2, p.w_s2, 9, p.c, p.c1);
+  load_w90(smem + L.wpw, p.w_pw, 1, p.cm, p.c);
+  load_w90(smem + L.wfb, p.w_fb0, 9, p.c, p.cm);
+  load_w90(smem + L.wex, p.w_ex, 9, p.co, p.c);
+  for (int i = threadIdx.x; i < rows * e / 4; i += kThreads)
+    cp_async16(E + 4 * i, p.epi + 4 * i, 16);
+
+  // tile t's input: the region's x tile (stem1 rows/cols 4R0-2 ..
+  // 4R0+4T+4 feed q2 rows 2R0-1 .. 2R0+2T+1), or the tail's q2 tile
+  const auto input = [&](int t) {
+    const int img = t / (tiles_h * tiles_w);
+    const int rem = t - img * tiles_h * tiles_w;
+    const int R0 = (rem / tiles_w) * T, C0 = (rem % tiles_w) * T;
+    if (kRegion) {
+      const int h1 = 2 * p.h2, w1 = 2 * p.w2;
+      const size_t x0 = static_cast<size_t>(img) * h1 * w1 * p.c1;
+      const void* src =
+          KIND == kS8
+              ? static_cast<const void*>(static_cast<const int8_t*>(p.x) + x0)
+          : KIND == kBF16
+              ? static_cast<const void*>(
+                    static_cast<const __nv_bfloat16*>(p.x) + x0)
+              : static_cast<const void*>(static_cast<const float*>(p.x) + x0);
+      return tile_in(src, h1, w1, p.c1, XW, 4 * R0 - 2, 4 * C0 - 2);
+    }
+    return tile_in(static_cast<const int8_t*>(p.x) +
+                       static_cast<size_t>(img) * p.h2 * p.w2 * p.c,
+                   p.h2, p.w2, p.c, QW, 2 * R0 - 1, 2 * C0 - 1);
+  };
+  constexpr bool kFloat = kRegion && KIND != kS8;
+  FloatIn<kFloat ? KIND : kBF16> next;
+  // a float input's first three groups of chunks are prefetched during the
+  // previous tile's pw, fb0 and exit; the rest, and the first tile, here
+  int landed = 0;
+  if (KIND == kS8 || !kRegion)
+    copy_tile_s8(kRegion ? x : q2, input(blockIdx.x));
+
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int img = t / (tiles_h * tiles_w);
+    const int rem = t - img * tiles_h * tiles_w;
+    const int R0 = (rem / tiles_w) * T, C0 = (rem % tiles_w) * T;
+    const int tn = t + gridDim.x;  // the block's next tile
+    if (kFloat) next.rest(x, input(t), landed, p.inv_in);
+    cp_async_wait_all();
+    __syncthreads();
+    if (kRegion) {
+      stage90<3, 2>(x, XW, QW, QW, ws2, p.c1, p.c,
+                    [&](int o) { return cols_at(E, e, 13, o, false); },
+                    [&](int r, int, int o, const Cols& c, int a0, int a1) {
+                      *reinterpret_cast<char2*>(q2.base + act_off(q2, r, o)) =
+                          stage_q2<kFast, true>(a0, a1, c, p);
+                    });
+      __syncthreads();  // q2 is complete; the input tile is free
+      if (tn < tiles) {
+        if (kFloat)
+          next.issue(input(tn), 0);
+        else
+          copy_tile_s8(x, input(tn));
+      }
+    }
+    stage90<1, 1>(q2, QW, QW, QW, wpw, p.c, p.cm,
+                  [&](int o) { return cols_at(E, e, 0, o, false); },
+                  [&](int r, int i, int o, const Cols& c, int a0, int a1) {
+                    const int gr = 2 * R0 - 1 + i;
+                    const int gc = 2 * C0 - 1 + r - i * QW;
+                    const bool in =
+                        gr >= 0 && gr < p.h2 && gc >= 0 && gc < p.w2;
+                    *reinterpret_cast<char2*>(q3.base + act_off(q3, r, o)) =
+                        in ? stage_q2<kFast, true>(a0, a1, c, p)
+                           : make_char2(0, 0);
+                  });
+    if (kFloat && tn < tiles) {
+      next.land(x, input(tn), 0, p.inv_in);
+      next.issue(input(tn), 1);
+    }
+    __syncthreads();
+    stage90<3, 1>(q3, QW, Q4W, Q4W, wfb, p.cm, p.c,
+                  [&](int o) { return cols_at(E, e, 4, o, true); },
+                  [&](int r, int i, int o, const Cols& c, int a0, int a1) {
+                    const int j = r - i * Q4W;
+                    char2 q = make_char2(0, 0);
+                    if (2 * R0 + i < p.h2 && 2 * C0 + j < p.w2) {
+                      const char2 res = *reinterpret_cast<const char2*>(
+                          q2.base + act_off(q2, (i + 1) * QW + j + 1, o));
+                      q.x = fb0_q<kFast, true>(a0, c.b.x, c.m.x, c.a.x,
+                                               c.r.x, c.inv.x,
+                                               static_cast<float>(res.x), p);
+                      q.y = fb0_q<kFast, true>(a1, c.b.y, c.m.y, c.a.y,
+                                               c.r.y, c.inv.y,
+                                               static_cast<float>(res.y), p);
+                    }
+                    *reinterpret_cast<char2*>(q4.base + act_off(q4, r, o)) =
+                        q;
+                  });
+    if (kFloat && tn < tiles) {
+      next.land(x, input(tn), 1, p.inv_in);
+      next.issue(input(tn), 2);
+    }
+    __syncthreads();  // q4 is complete; q2 is free
+    if (!kRegion && tn < tiles) copy_tile_s8(q2, input(tn));
+    stage90<3, 2>(q4, Q4W, T, T, wex, p.c, p.co,
+                  [&](int o) { return cols_at(E, e, 9, o, false); },
+                  [&](int r, int i, int o, const Cols& c, int a0, int a1) {
+                    const int gr = R0 + i, gc = C0 + r - i * T;
+                    if (gr < p.h3 && gc < p.w3)
+                      *reinterpret_cast<char2*>(
+                          p.out + ((static_cast<size_t>(img) * p.h3 + gr) *
+                                       p.w3 + gc) * p.co + o) =
+                          stage_q2<kFast, true>(a0, a1, c, p);
+                  });
+    if (kFloat && tn < tiles) next.land(x, input(tn), 2, p.inv_in);
+    landed = 3;
+    __syncthreads();  // q4 is read before the next tile's stages
+  }
+}
+
+template <bool kRegion>
+int launch90(const Params& p, int n, cudaStream_t stream) {
+  const size_t smem = layout90(kRegion, p.tile, p.c1, p.c, p.cm, p.co,
+                               kRegion ? 17 : 13, p.e).total;
+  if (smem > static_cast<size_t>(kSmemMax))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0 || p.h3 == 0 || p.w3 == 0) return 0;
+  const int tiles_h = (p.h3 + p.tile - 1) / p.tile;
+  const int tiles_w = (p.w3 + p.tile - 1) / p.tile;
+  const long long tiles = static_cast<long long>(n) * tiles_h * tiles_w;
+  if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  // the kernel of x's kind and the epilogue's variant (the tail: s8, exact)
+  using Kernel = void (*)(const Params, int, int, int);
+  Kernel kernel = region_kernel90<false, kS8, 0>;
+  if constexpr (kRegion) {
+    const Kernel table[3][2] = {
+        {region_kernel90<true, kS8, 0>, region_kernel90<true, kS8, 1>},
+        {region_kernel90<true, kBF16, 0>, region_kernel90<true, kBF16, 1>},
+        {region_kernel90<true, kF32, 0>, region_kernel90<true, kF32, 1>}};
+    kernel = table[p.x_kind][p.fast ? 1 : 0];
+  }
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>(tiles < sms ? tiles : sms));
+  kernel<<<grid, kThreads, smem, stream>>>(p, tiles_h, tiles_w,
+                                           static_cast<int>(tiles));
+  return static_cast<int>(cudaGetLastError());
+}
+
 bool channels_ok(int c1, int c, int cm, int co) {
   return c1 > 0 && c > 0 && cm > 0 && co > 0 && c1 % 16 == 0 &&
          c % 16 == 0 && cm % 16 == 0 && co % 16 == 0;
 }
 
-}  // namespace
 
 // x [n, h1, w1, c1] (h1, w1 multiples of 4) of kind x_kind (0 s8, 1 bf16,
 // 2 f32: quantized with inv_in) -> out s8 [n, h1/4, w1/4, co]. epi f32
-// [17, e], e >= max(c, cm, co). Returns a cudaError_t code.
-extern "C" int s2d_region_block_q(const void* x, int x_kind, float inv_in,
-                                  const int8_t* w_s2, const int8_t* w_pw,
-                                  const int8_t* w_fb0, const int8_t* w_ex,
-                                  const float* epi, int epi_rows, int e,
-                                  int8_t* out, int n, int h1, int w1, int c1,
-                                  int c, int cm, int co, int tile,
-                                  float alpha, int cast_bf16, int fast,
-                                  cudaStream_t stream) {
+// [17, e], e >= max(c, cm, co). `twin` runs the first design. Returns a
+// cudaError_t code.
+int region_entry(const void* x, int x_kind, float inv_in, const int8_t* w_s2,
+                 const int8_t* w_pw, const int8_t* w_fb0, const int8_t* w_ex,
+                 const float* epi, int epi_rows, int e, int8_t* out, int n,
+                 int h1, int w1, int c1, int c, int cm, int co, int tile,
+                 float alpha, int cast_bf16, int fast, bool twin,
+                 cudaStream_t stream) {
   if (h1 % 4 || w1 % 4 || !channels_ok(c1, c, cm, co) || epi_rows != 17 ||
       e < c || e < cm || e < co || e % 4 || tile < 1 || n > 65535 ||
       x_kind < kS8 || x_kind > kF32)
@@ -546,22 +1126,55 @@ extern "C" int s2d_region_block_q(const void* x, int x_kind, float inv_in,
                  h1 / 2, w1 / 2, h1 / 4, w1 / 4, c1,    c,     cm,
                  co,     e,      tile,   alpha,  cast_bf16, fast, x_kind,
                  inv_in};
-  return launch<true>(p, n, stream);
+  return twin ? launch_mma<true>(p, n, stream) : launch90<true>(p, n, stream);
 }
 
 // x s8 [n, h2, w2, c] (stem2's output; h2, w2 even) -> out s8
 // [n, h2/2, w2/2, co]; epi f32 [13, e], the exact epilogue.
-extern "C" int s2d_tail_block_q(const int8_t* x, const int8_t* w_pw,
-                                const int8_t* w_fb0, const int8_t* w_ex,
-                                const float* epi, int epi_rows, int e,
-                                int8_t* out, int n, int h2, int w2, int c,
-                                int cm, int co, int tile, float alpha,
-                                int cast_bf16, cudaStream_t stream) {
+int tail_entry(const int8_t* x, const int8_t* w_pw, const int8_t* w_fb0,
+               const int8_t* w_ex, const float* epi, int epi_rows, int e,
+               int8_t* out, int n, int h2, int w2, int c, int cm, int co,
+               int tile, float alpha, int cast_bf16, bool twin,
+               cudaStream_t stream) {
   if (h2 % 2 || w2 % 2 || !channels_ok(16, c, cm, co) || epi_rows != 13 ||
       e < c || e < cm || e < co || e % 4 || tile < 1 || n > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const Params p{x,  nullptr, w_pw,   w_fb0,  w_ex, epi,   out,
                  h2, w2,      h2 / 2, w2 / 2, 0,    c,     cm,
                  co, e,       tile,   alpha,  cast_bf16, 0, kS8, 1.0f};
-  return launch<false>(p, n, stream);
+  return twin ? launch_mma<false>(p, n, stream)
+              : launch90<false>(p, n, stream);
+}
+
+}  // namespace
+
+#define REGION_ARGS                                                         \
+  const void *x, int x_kind, float inv_in, const int8_t *w_s2,              \
+      const int8_t *w_pw, const int8_t *w_fb0, const int8_t *w_ex,          \
+      const float *epi, int epi_rows, int e, int8_t *out, int n, int h1,    \
+      int w1, int c1, int c, int cm, int co, int tile, float alpha,         \
+      int cast_bf16, int fast, cudaStream_t stream
+#define REGION_PASS                                                         \
+  x, x_kind, inv_in, w_s2, w_pw, w_fb0, w_ex, epi, epi_rows, e, out, n, h1, \
+      w1, c1, c, cm, co, tile, alpha, cast_bf16, fast
+#define TAIL_ARGS                                                           \
+  const int8_t *x, const int8_t *w_pw, const int8_t *w_fb0,                 \
+      const int8_t *w_ex, const float *epi, int epi_rows, int e,            \
+      int8_t *out, int n, int h2, int w2, int c, int cm, int co, int tile,  \
+      float alpha, int cast_bf16, cudaStream_t stream
+#define TAIL_PASS                                                           \
+  x, w_pw, w_fb0, w_ex, epi, epi_rows, e, out, n, h2, w2, c, cm, co, tile,  \
+      alpha, cast_bf16
+
+extern "C" int s2d_region_block_q(REGION_ARGS) {
+  return region_entry(REGION_PASS, false, stream);
+}
+extern "C" int s2d_region_block_q_mma(REGION_ARGS) {
+  return region_entry(REGION_PASS, true, stream);
+}
+extern "C" int s2d_tail_block_q(TAIL_ARGS) {
+  return tail_entry(TAIL_PASS, false, stream);
+}
+extern "C" int s2d_tail_block_q_mma(TAIL_ARGS) {
+  return tail_entry(TAIL_PASS, true, stream);
 }

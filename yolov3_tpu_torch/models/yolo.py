@@ -132,12 +132,13 @@ class ConvBlock(Prepared):
 
     @torch.no_grad()
     def prepare(self) -> None:
-        """Fused: the [Ci, Co] bf16 kernel, f32 bias and the folded
-        BatchNorm (mul, add). Otherwise: weight and bias in the compute
-        dtype, and the BatchNorm's own constant."""
+        """Fused: the kernel's [Co, Ci] bf16 weight (K-major, the OIHW
+        weight without its taps), f32 bias and the folded BatchNorm (mul,
+        add). Otherwise: weight and bias in the compute dtype, and the
+        BatchNorm's own constant."""
         conv, bn = self.conv, self.bn
         if self.fused:
-            self.constant("w", conv.weight[:, :, 0, 0].t().to(
+            self.constant("w", conv.weight[:, :, 0, 0].to(
                 torch.bfloat16).contiguous())
             self.constant("b", conv.bias.to(torch.float32))
             mul, add = conv_block.fold_batchnorm(bn.weight, bn.bias, bn.running_mean,

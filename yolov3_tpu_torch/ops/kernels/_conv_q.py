@@ -5,9 +5,11 @@ of their CUDA entry points.
 The 1x1 and 3x3 kernels (`csrc/pointwise_conv_block_q.cu`,
 `conv3x3_block_q.cu`) run one wgmma + TMA implicit GEMM
 (`csrc/conv_gemm_q_sm90.cuh`) under the tile plan `conv_plan` picks per
-launch; the stride-2 kernel (`down_conv_block_q.cu`) and the `*_wmma`
-entries (the 1x1 and 3x3 on the older core, for A/B timing) run the WMMA
-core (`csrc/conv_block_q.cuh`). Each has its own entry point and
+launch (the bf16 1x1 of `conv_block.py` runs the same core with bf16
+operands, planned here too); the stride-2 kernel
+(`down_conv_block_q.cu`) and the `*_wmma` entries (the 1x1 and 3x3 on
+the older core, for A/B timing) run the WMMA core
+(`csrc/conv_block_q.cuh`). Each has its own entry point and
 contract. The modules `pointwise_q`, `conv3x3_q` and `down_conv_q` are
 their public wrappers. Layouts: activations NHWC; weights `w_t` [taps,
 Co, Ci] s8 (each output channel's K contiguous, the kernels' B layout);
@@ -48,15 +50,17 @@ FLOAT_MAX_STAGES = 4
 # and quantizes them instead of one TMA copy
 FLOAT_A_COST = 4
 # (pixels, channels) of a block's output tile
-TILES = ((128, 256), (128, 128), (64, 256), (64, 128), (128, 64), (64, 64))
+TILES = ((128, 256), (128, 128), (64, 256), (64, 128), (128, 64), (64, 64),
+         (128, 32), (64, 32))
 _fns = {}
 
 
 class Plan(NamedTuple):
     """A wgmma launch's tiles: BM output pixels (a TH x TW rectangle of one
     image for the 3x3; TH = 1, TW = BM for the 1x1) x BN output channels,
-    K steps of BK bytes (64 or 128, the TMA / wgmma swizzle span), and a
-    ring of `stages` (A, B) tiles in shared memory."""
+    K steps of BK bytes (64 or 128, the TMA / wgmma swizzle span: 64 or
+    128 s8 channels, 32 or 64 bf16 ones), and a ring of `stages` (A, B)
+    tiles in shared memory."""
     bm: int
     bn: int
     bk: int
@@ -83,14 +87,14 @@ def plan_tiles(plan: Plan, n: int, h: int, w: int, co: int,
 
 
 def plan_cost(plan: Plan, n: int, h: int, w: int, ci: int, co: int,
-              ksize: int, float_in: bool = False) -> int:
+              ksize: int, float_in: bool = False, esize: int = 1) -> int:
     """The plan's time in the planner's model: the bytes one SM streams
     from L2, K steps of (BM + BN) x BK bytes a tile (a float input's A
-    rows FLOAT_A_COST times over), over ceil(tiles / SMS) tiles. On the
-    H100 every SM's stream runs at about the same rate whether or not the
-    others are busy, so fewer, larger tiles win until they leave SMs
-    idle."""
-    steps = ksize * ksize * -(-ci // plan.bk)
+    rows FLOAT_A_COST times over; `esize` bytes an operand), over
+    ceil(tiles / SMS) tiles. On the H100 every SM's stream runs at about
+    the same rate whether or not the others are busy, so fewer, larger
+    tiles win until they leave SMs idle."""
+    steps = ksize * ksize * -(-(ci * esize) // plan.bk)
     waves = -(-plan_tiles(plan, n, h, w, co, ksize) // SMS)
     a_rows = plan.bm * (FLOAT_A_COST if float_in else 1)
     return waves * steps * (a_rows + plan.bn) * plan.bk
@@ -98,34 +102,41 @@ def plan_cost(plan: Plan, n: int, h: int, w: int, ci: int, co: int,
 
 @functools.lru_cache(maxsize=None)
 def conv_plan(n: int, h: int, w: int, ci: int, co: int, ksize: int,
-              float_in: bool = False) -> Plan:
-    """The tile plan of an int8 1x1 (ksize 1) or 3x3 stride-1 launch on
-    x [n, h, w, ci] (s8, or bf16 / f32 with `float_in`) with co output
-    channels.
+              float_in: bool = False, esize: int = 1) -> Plan:
+    """The tile plan of a 1x1 (ksize 1) or 3x3 stride-1 launch on the
+    wgmma core, x [n, h, w, ci] with co output channels: s8 operands
+    (`esize` 1) on an s8 x, or a bf16 / f32 one with `float_in`; or bf16
+    operands (`esize` 2, a 1x1 on a bf16 x through TMA, channels in 8s).
 
-    BK: 64 or 128 bytes, whichever pads Ci less (128 on a tie). Tile: of
-    TILES with BN at most Co rounded up to 64, the least `plan_cost`
-    (ties: the larger BM, then BN). 3x3 rectangle: TW the power of two >=
-    W, at most BM; TH = BM / TW. Stages: as many as fit in SMEM_BYTES, at
-    most MAX_STAGES (FLOAT_MAX_STAGES for a float input). Cached: a
-    serving call plans each of its ~64 launches again, and the search
-    (~20 us of Python) would otherwise add to the host's dispatch."""
-    if ksize not in (1, 3):
-        raise ValueError(f"conv_plan: ksize {ksize} is neither 1 nor 3")
-    if min(n, h, w, ci, co) < 1 or ci % 16 or co % 16:
+    BK: 64 or 128 bytes, whichever pads Ci's bytes less (128 on a tie).
+    Tile: of TILES with BN at most Co rounded up to 32, the least
+    `plan_cost` (ties: the larger BM, then BN). 3x3 rectangle: TW the
+    power of two >= W, at most BM; TH = BM / TW. Stages: as many as fit in
+    SMEM_BYTES, at most MAX_STAGES (FLOAT_MAX_STAGES for a float input).
+    Cached: a serving call plans each of its ~64 launches again, and the
+    search (~20 us of Python) would otherwise add to the host's
+    dispatch."""
+    if ksize not in (1, 3) or esize not in (1, 2) or (
+            esize == 2 and (ksize != 1 or float_in)):
+        raise ValueError(f"conv_plan: no {ksize}x{ksize} kernel with "
+                         f"{esize}-byte operands (float_in={float_in})")
+    step = 16 // esize
+    if min(n, h, w, ci, co) < 1 or ci % step or co % step:
         raise ValueError(f"conv_plan: x ({n}, {h}, {w}, {ci}) -> {co} needs "
-                         f"positive sizes and channels multiple of 16")
-    bk = 64 if -(-ci // 64) * 64 < -(-ci // 128) * 128 else 128
+                         f"positive sizes and channels multiple of {step}")
+    kb = ci * esize
+    bk = 64 if -(-kb // 64) * 64 < -(-kb // 128) * 128 else 128
     plans = []
     for bm, bn in TILES:
-        if bn > -(-co // 64) * 64:
+        if bn > -(-co // 32) * 32:
             continue
         tw = bm if ksize == 1 else min(bm, 1 << (w - 1).bit_length())
         stages = min(FLOAT_MAX_STAGES if float_in else MAX_STAGES,
                      (SMEM_BYTES - 1024) // ((bm + bn) * bk + 16))
         plans.append(Plan(bm, bn, bk, bm // tw, tw, stages))
     return min(plans, key=lambda q: (
-        plan_cost(q, n, h, w, ci, co, ksize, float_in), -q.bm, -q.bn))
+        plan_cost(q, n, h, w, ci, co, ksize, float_in, esize), -q.bm,
+        -q.bn))
 
 
 def same_pads(size: int, k: int, s: int) -> Tuple[int, int]:

@@ -27,9 +27,12 @@ zero padding. The epi table is `ops/quant.py::region_epi`. The kernel
 quantizes a float x while it loads its tile, so stem1's output never goes
 to device memory as s8.
 
-The kernel is `csrc/s2d_region_block_q.cu`; a CUDA tensor goes through it
-or the wrapper raises, a CPU tensor goes through
+The kernel is `csrc/s2d_region_block_q.cu` (persistent blocks with the
+weights resident in shared memory, wgmma for the four stages); a CUDA
+tensor goes through it or the wrapper raises, a CPU tensor goes through
 `s2d_region_block_q_plain`. `s2d_tail_q` is the same kernel entered at q2.
+`s2d_region_block_q_mma` is the same contract on the first design (one
+block a tile, mma.sync), for A/B timing only: no serving path calls it.
 """
 
 from __future__ import annotations
@@ -42,40 +45,61 @@ import torch
 from yolov3_tpu_torch.ops.kernels import _build, _conv_q
 
 NAME = "s2d_region_block_q"
+TWIN = "_mma"  # the first design's entries: NAME + TWIN, tail + TWIN
 F32 = torch.float32
 # shared memory a block may use on the H100 (227 KB)
 SMEM_LIMIT = 232448
-# bytes after each pixel's channels and each weight row in shared memory
-# (csrc kPad)
+# bytes after each pixel's channels and each weight row in the first
+# design's shared memory (csrc kPad)
 _PAD = 16
 TILES = (8, 4, 2, 1)
 _fns = {}
 
 
+def weight_bytes(taps: int, n: int, k: int) -> int:
+    """A stage's resident weights: [taps][K in 32-byte steps][n][32]."""
+    return taps * -(-k // 32) * n * 32
+
+
 def smem_bytes(tile: int, c1: int, c: int, cm: int, co: int,
-               region: bool, e: int = 0) -> int:
-    """Shared memory of one block at output tile `tile` x `tile`
-    (`csrc/s2d_region_block_q.cu::layout`): one buffer that first holds
-    the input tile with its halo and stem2's weights (region only), then
-    FB0's 3x3 and the exit's weights; the 1x1's weights; q2, q3 and q4;
-    the epi table (e: its width, default the widest stage)."""
+               region: bool, e: int = 0, twin: bool = False) -> int:
+    """Shared memory of one block at output tile `tile` x `tile` (e: the
+    epi table's width, default the widest stage).
+
+    The kernel (`csrc/s2d_region_block_q.cu::layout90`): 1 KB of
+    alignment slack; the four stages' weights (stem2's for the region
+    only), resident for all of the block's tiles; q2, the input tile with
+    its halo (region only), q3 and q4, each pixel's channels unpadded; the
+    epi table. With `twin`, the first design's (`layout`): one buffer that
+    first holds the input tile and stem2's weights (region only), then
+    FB0's 3x3 and the exit's weights; the 1x1's weights; q2, q3 and q4
+    with 16 bytes after each pixel's channels; the epi table."""
     xw, qw, q4w = 4 * tile + 7, 2 * tile + 3, 2 * tile + 1
-    first = xw * xw * (c1 + _PAD) + 9 * c * (c1 + _PAD) if region else 0
-    second = 9 * c * (cm + _PAD) + 9 * co * (c + _PAD)
     rows = 17 if region else 13
-    return (max(first, second) + cm * (c + _PAD) + qw * qw * (c + _PAD)
-            + qw * qw * (cm + _PAD) + q4w * q4w * (c + _PAD)
-            + rows * (e or max(c, cm, co)) * 4)
+    epi = rows * (e or max(c, cm, co)) * 4
+    if twin:
+        first = (xw * xw * (c1 + _PAD) + 9 * c * (c1 + _PAD) if region
+                 else 0)
+        second = 9 * c * (cm + _PAD) + 9 * co * (c + _PAD)
+        return (max(first, second) + cm * (c + _PAD) + qw * qw * (c + _PAD)
+                + qw * qw * (cm + _PAD) + q4w * q4w * (c + _PAD) + epi)
+    weights = ((weight_bytes(9, c, c1) if region else 0)
+               + weight_bytes(1, cm, c) + weight_bytes(9, c, cm)
+               + weight_bytes(9, co, c))
+    acts = (qw * qw * c + (xw * xw * c1 if region else 0) + qw * qw * cm
+            + q4w * q4w * c)
+    return 1024 + weights + acts + epi
 
 
 def plan_tile(c1: int, c: int, cm: int, co: int, region: bool = True,
-              e: int = 0) -> int:
-    """The largest output tile whose block fits in shared memory, or 0
-    when the channels are not what the kernel takes (multiples of 16)."""
+              e: int = 0, twin: bool = False) -> int:
+    """The largest output tile whose block fits in shared memory (the
+    kernel's layout, or the first design's with `twin`), or 0 when the
+    channels are not what the kernel takes (multiples of 16)."""
     if any(ch <= 0 or ch % 16 for ch in (c1 if region else 16, c, cm, co)):
         return 0
     for tile in TILES:
-        if smem_bytes(tile, c1, c, cm, co, region, e) <= SMEM_LIMIT:
+        if smem_bytes(tile, c1, c, cm, co, region, e, twin) <= SMEM_LIMIT:
             return tile
     return 0
 
@@ -166,8 +190,10 @@ def check(x: torch.Tensor, weights, epi: torch.Tensor, rows: int,
 
 def launch(name: str, x: torch.Tensor, weights, epi: torch.Tensor, *,
            alpha: float, cast_bf16: bool, fast: bool = False,
-           inv_in: Optional[float] = None) -> torch.Tensor:
-    """Launch the region (4 weights) or the tail (3) on CUDA tensors;
+           inv_in: Optional[float] = None, twin: bool = False
+           ) -> torch.Tensor:
+    """Launch the region (4 weights) or the tail (3) on CUDA tensors, on
+    the first design's entry (name + TWIN, counted under it) with `twin`;
     raises on what the kernel does not take."""
     region = len(weights) == 4
     tensors = (x, *weights, epi)
@@ -185,14 +211,15 @@ def launch(name: str, x: torch.Tensor, weights, epi: torch.Tensor, *,
     c1 = cin if region else 0
     c = weights[0].shape[1] if region else cin
     cm, co = weights[-3].shape[1], weights[-1].shape[1]
-    tile = plan_tile(c1, c, cm, co, region, epi.shape[1])
+    tile = plan_tile(c1, c, cm, co, region, epi.shape[1], twin)
     if tile == 0:
         raise ValueError(f"{name}: channels {c1, c, cm, co} must be "
                          f"multiples of 16 and fit in shared memory")
     out = torch.empty((n, h // step, w // step, co), dtype=torch.int8,
                       device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    fn = _kernel_fn(name)
+    entry = name + TWIN if twin else name
+    fn = _kernel_fn(entry, region)
     ptrs = [t.data_ptr() for t in (x, *weights, epi)]
     if region:
         err = fn(ptrs[0], X_KINDS[x.dtype],
@@ -203,23 +230,23 @@ def launch(name: str, x: torch.Tensor, weights, epi: torch.Tensor, *,
     else:
         err = fn(*ptrs, epi.shape[0], epi.shape[1], out.data_ptr(), n, h, w,
                  c, cm, co, tile, float(alpha), int(cast_bf16), stream)
-    _build.check(err, name)
-    _build.launch_counts[name] += 1
+    _build.check(err, entry)
+    _build.launch_counts[entry] += 1
     return out
 
 
-def _kernel_fn(name: str):
-    fn = _fns.get(name)
+def _kernel_fn(entry: str, region: bool):
+    fn = _fns.get(entry)
     if fn is None:
-        fn = getattr(_build.load(NAME), name)
+        fn = getattr(_build.load(NAME), entry)
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        if name == NAME:
+        if region:
             fn.argtypes = [p, i, f] + [p] * 5 + [i, i, p] + [i] * 8 + [
                 f, i, i, p]
         else:
             fn.argtypes = [p] * 5 + [i, i, p] + [i] * 7 + [f, i, p]
         fn.restype = ctypes.c_int
-        _fns[name] = fn
+        _fns[entry] = fn
     return fn
 
 
@@ -240,3 +267,15 @@ def s2d_region_block_q(x: torch.Tensor, w_s2: torch.Tensor,
                                         **kw)
     check(x, (w_s2, w_pw, w_fb0, w_exit), epi, 17, inv_in)
     return launch(NAME, x, (w_s2, w_pw, w_fb0, w_exit), epi, **kw)
+
+
+def s2d_region_block_q_mma(x: torch.Tensor, w_s2: torch.Tensor,
+                           w_pw: torch.Tensor, w_fb0: torch.Tensor,
+                           w_exit: torch.Tensor, epi: torch.Tensor, *,
+                           alpha: float, cast_bf16: bool, fast: bool = False,
+                           inv_in: Optional[float] = None) -> torch.Tensor:
+    """`s2d_region_block_q` on the first design's kernel (CUDA tensors
+    only): the A/B twin of the kernel."""
+    check(x, (w_s2, w_pw, w_fb0, w_exit), epi, 17, inv_in)
+    return launch(NAME, x, (w_s2, w_pw, w_fb0, w_exit), epi, alpha=alpha,
+                  cast_bf16=cast_bf16, fast=fast, inv_in=inv_in, twin=True)

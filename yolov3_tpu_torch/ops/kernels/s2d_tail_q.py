@@ -9,7 +9,8 @@ is rows 0-12 of the region's table (`ops/quant.py::tail_epi`).
 
 The kernel is the `s2d_tail_block_q` entry of `csrc/s2d_region_block_q.cu`;
 a CUDA tensor goes through it or the wrapper raises, a CPU tensor goes
-through `s2d_tail_block_q_plain`.
+through `s2d_tail_block_q_plain`. `s2d_tail_block_q_mma` is the first
+design's entry (A/B timing only).
 """
 
 from __future__ import annotations
@@ -44,3 +45,14 @@ def s2d_tail_block_q(x: torch.Tensor, w_pw: torch.Tensor, w_fb0: torch.Tensor,
     R.check(x, (w_pw, w_fb0, w_exit), epi, 13)
     return R.launch(NAME, x, (w_pw, w_fb0, w_exit), epi, alpha=alpha,
                     cast_bf16=cast_bf16)
+
+
+def s2d_tail_block_q_mma(x: torch.Tensor, w_pw: torch.Tensor,
+                         w_fb0: torch.Tensor, w_exit: torch.Tensor,
+                         epi: torch.Tensor, *, alpha: float,
+                         cast_bf16: bool) -> torch.Tensor:
+    """`s2d_tail_block_q` on the first design's kernel (CUDA tensors
+    only): the A/B twin of the kernel."""
+    R.check(x, (w_pw, w_fb0, w_exit), epi, 13)
+    return R.launch(NAME, x, (w_pw, w_fb0, w_exit), epi, alpha=alpha,
+                    cast_bf16=cast_bf16, twin=True)
