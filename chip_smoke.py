@@ -20,7 +20,9 @@ Phases, in order; any failure exits non-zero:
   4. Each bf16-path kernel against its plain version on the inputs the
      serving call handed it (recorded on a warm-up call), plus the NMS
      kernels at the batch-64 shapes (C = 128, K = 512), saturated and
-     sparse: the box kernel's keep masks bit-equal to its plain version;
+     sparse: the box kernel's keep masks bit-equal to its plain version
+     and to its first design (the chain twin `suppress_boxes_chain`),
+     both timed in turns (chain, kernel, kernel, chain) at each shape;
      the IoU-slab kernel (`greedy_suppress`, called once between the
      counters' reset and read on the slab of `pairwise_iou`) bit-equal to
      its plain version and to the box kernel; the 1x1 block within rtol =
@@ -31,10 +33,10 @@ Phases, in order; any failure exits non-zero:
      the card's default kernel set: the port's int8 model on the card
      (kernels) and on the CPU (plain versions) with one scale dict. Every
      kernel launch against its plain version on the same inputs: s8 codes
-     within 1, float outputs within a bf16 ulp, and the int8 1x1 and 3x3
-     (the wgmma core) exactly: 0 codes differ, floats bit-equal, also
-     against their WMMA twins; the share of s8 codes that differ along the
-     two chains; decode fidelity >= 0.99.
+     within 1, float outputs within a bf16 ulp, and the int8 1x1, 3x3 and
+     stride-2 (the wgmma core) exactly: 0 codes differ, floats bit-equal,
+     also against their WMMA twins; the share of s8 codes that differ
+     along the two chains; decode fidelity >= 0.99.
   6. Full-width int8 serving (`make_quantized_serving_fn`, 512 px, batch
      8, the default kernel set: the stem region in one launch with the
      fast epilogue), calibrated (absmax) on the served batch. Counters set
@@ -43,16 +45,18 @@ Phases, in order; any failure exits non-zero:
      kernel, and the int8-vs-bf16 decode fidelity (> 0.9, top 20). Then
      one call under each of the other stem routes, its launches asserted
      the same way: {region_pallas, exit_pallas} 33 / 31 / 4 and 1 tail;
-     {exit_pallas} 34 / 32 / 4 and 1 exit conv.
+     {exit_pallas} 34 / 32 / 4 and 1 exit conv; each of those calls'
+     stride-2 launches (ConvBlock_1 among them) equal to its plain version
+     and its WMMA twin.
   7. Each int8 kernel against its plain version on every input the int8
-     serving calls handed it (s8 within 1 code, the 1x1 and 3x3 exactly
-     and equal to their WMMA twins; for the region, tail and exit also
-     the share of codes that differ; the region and the tail equal to
+     serving calls handed it (s8 within 1 code, the 1x1, 3x3 and stride-2
+     exactly and equal to their WMMA twins; for the region, tail and exit
+     also the share of codes that differ; the region and the tail equal to
      their first design, the `_mma` twins, timed in turns beside them),
-     and per shape the kernel's (with the
-     1x1's and 3x3's tile plan, and their WMMA twins timed in turns, twin,
-     kernel, kernel, twin, as `previous_ms`), the plain version's and the
-     library yardstick's time
+     and per shape the kernel's (with the 1x1's, 3x3's and stride-2's tile
+     plan, and their WMMA twins timed in turns, twin, kernel, kernel,
+     twin, as `previous_ms`), the plain version's and the library
+     yardstick's time
      (`torch._int_mm` on the rows or an im2col, plus the epilogue ops,
      stage by stage for the region) beside the bound; for the region also
      the unfused chain of the stride-2, 1x1, 3x3 and stride-2 kernels on
@@ -147,7 +151,8 @@ CONV_KERNELS = ("pointwise_conv_block_q", "conv3x3_block_q",
                 "down_conv_block_q")
 # the kernels on the wgmma core: exact against their plain versions and
 # against their WMMA twins (entry NAME + "_wmma")
-WGMMA_KERNELS = ("pointwise_conv_block_q", "conv3x3_block_q")
+WGMMA_KERNELS = ("pointwise_conv_block_q", "conv3x3_block_q",
+                 "down_conv_block_q")
 REGION_KERNELS = ("s2d_region_block_q", "s2d_tail_block_q",
                   "exit_conv_block_q")
 
@@ -418,14 +423,19 @@ def phase_pointwise(torch, calls):
 
 
 def nms_case(torch, cand, valid, label):
+    """The box kernel against its plain version and its first design (the
+    chain twin), both timed in turns."""
     from yolov3_tpu_torch.ops.kernels import nms_suppress as K
     got = K.suppress_boxes_t(cand, valid, 0.3)
     want = K.suppress_boxes_plain(cand, valid, 0.3)
+    chain = K.suppress_boxes_chain(cand, valid, 0.3)
     err = float((got.int() - want.int()).abs().max())
-    if err != 0:
+    if err != 0 or not torch.equal(got, chain):
         raise AssertionError(f"NMS kernel keep mask differs ({label}): "
-                             f"{int((got != want).sum())} slots")
-    ms = device_ms(lambda: K.suppress_boxes_t(cand, valid, 0.3))
+                             f"{int((got != want).sum())} slots from plain, "
+                             f"{int((got != chain).sum())} from the chain")
+    ms, previous = turns_ms(lambda: K.suppress_boxes_chain(cand, valid, 0.3),
+                            lambda: K.suppress_boxes_t(cand, valid, 0.3))
     event = cuda_ms(lambda: K.suppress_boxes_t(cand, valid, 0.3), 20)
     plain = cuda_ms(lambda: K.suppress_boxes_plain(cand, valid, 0.3), 2, 1)
     c, k = valid.shape
@@ -433,11 +443,13 @@ def nms_case(torch, cand, valid, label):
     pairs = float(((kept.cumsum(dim=1) - kept) * valid).sum())
     b_ms, b_by = bound(c * k * (16 + 1 + 1), pairs * IOU_OPS, F32_OPS_S)
     log(f"nms_suppress {label} C={c} K={k} valid={int(valid.sum())}: kernel "
-        f"{ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.6f} ms ({b_by}, "
-        f"{pairs:.0f} IoU tests), keep bit-equal ({int(got.sum())} kept)")
-    return dict(label=label, c=c, k=k, ms=ms, event_ms=event, plain_ms=plain,
-                bound_ms=b_ms, bound_by=b_by, iou_tests=pairs,
-                max_abs_err=err)
+        f"{ms:.4f} ms (events {event:.4f}), chain twin {previous:.4f} ms, "
+        f"plain {plain:.4f} ms, bound {b_ms:.6f} ms ({b_by}, {pairs:.0f} "
+        f"IoU tests), keep bit-equal to plain and chain ({int(got.sum())} "
+        f"kept)")
+    return dict(label=label, c=c, k=k, ms=ms, previous_ms=previous,
+                event_ms=event, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                iou_tests=pairs, max_abs_err=err)
 
 
 def greedy_case(torch, cand, valid, label):
@@ -565,14 +577,20 @@ def wmma_twin(name, args, kw):
     out = kw.get("out_dtype")
     res = kw.get("residual_q")
     if name == "pointwise_conv_block_q":
-        shape = dict(ksize=1, cast_bf16=out != _conv_q.F32, residual_in=res)
+        shape = dict(ksize=1, stride=1, cast_bf16=out != _conv_q.F32,
+                     residual_in=res)
     else:
-        shape = dict(ksize=3, cast_bf16=kw["cast_bf16"], residual_out=res)
-    return _conv_q.launch(name, x, w_t, epi, stride=1, inv_in=kw["inv_in"],
+        shape = dict(ksize=3, stride=launch_stride(name),
+                     cast_bf16=kw["cast_bf16"], residual_out=res)
+    return _conv_q.launch(name, x, w_t, epi, inv_in=kw["inv_in"],
                           inv_next=kw["inv_next"], alpha=kw["alpha"],
                           res_scale=kw.get("res_scale", 0.0),
                           emit_s8=kw.get("emit_s8", True), out_dtype=out,
                           wmma=True, **shape)
+
+
+def launch_stride(name):
+    return 2 if name == "down_conv_block_q" else 1
 
 
 def launch_plan(name, args):
@@ -583,7 +601,8 @@ def launch_plan(name, args):
     n, h, w, ci = x.shape
     return _conv_q.conv_plan(n, h, w, ci, w_t.shape[1],
                              1 if w_t.shape[0] == 1 else 3,
-                             x.dtype != torch.int8)
+                             x.dtype != torch.int8,
+                             stride=launch_stride(name))
 
 
 def phase_int8_reference(torch, ckpt, TQ, ModelConfig):
@@ -688,8 +707,9 @@ def int8_serving_call(torch, TQ, build, serve, images, expected, label):
 
 def phase_int8_sets(torch, TQ, build, path, images):
     """One full-width serving call under each of the other two stem
-    routes' kernel sets; returns the tail's and the exit's recorded calls
-    and their launches."""
+    routes' kernel sets, each of its stride-2 launches equal to its plain
+    version and its WMMA twin; returns the tail's and the exit's recorded
+    calls and their launches."""
     calls, launches = [], {}
     for kernels, expected in INT8_SETS:
         serve, _, _ = TQ.make_quantized_serving_fn(path, images,
@@ -699,6 +719,19 @@ def phase_int8_sets(torch, TQ, build, path, images):
             torch, TQ, build, serve, images, expected, f"int8 {kernels}")
         if not (torch.isfinite(boxes).all() and int(keep.sum()) > 0):
             raise AssertionError(f"int8 {kernels}: bad serving output")
+        name = "down_conv_block_q"
+        down = [c for c in rec if c[0] == name]
+        with torch.inference_mode():
+            for _, args, kw, out in down:
+                want = int8_module(name).down_conv_block_q_plain(*args, **kw)
+                if not (int8_exact(torch, out, want) and int8_exact(
+                        torch, out, wmma_twin(name, args, kw))):
+                    raise AssertionError(
+                        f"int8 {kernels}: {name} {tuple(args[0].shape)} not "
+                        f"equal to its plain version and WMMA twin")
+        log(f"int8 {kernels}: {len(down)} stride-2 launches "
+            f"{[tuple(c[1][0].shape) for c in down]} equal to plain and "
+            f"WMMA twin")
         calls += [c for c in rec if c[0] in REGION_KERNELS]
         launches.update({n: v for n, v in got.items() if n in REGION_KERNELS})
     return calls, launches
@@ -1192,7 +1225,8 @@ def main(argv=None) -> int:
          "max_abs_err": max(r["max_abs_err"] for r in nms_rows),
          "ms": nms["ms"], "event_ms": nms["event_ms"],
          "plain_ms": nms["plain_ms"], "bound_ms": nms["bound_ms"],
-         "bound_by": nms["bound_by"], "library_ms": None},
+         "bound_by": nms["bound_by"], "library_ms": None,
+         "previous_ms": nms["previous_ms"]},
         {"name": "pointwise_conv_block", "route": "cuda",
          "source": "yolov3_tpu_torch/csrc/pointwise_conv_block.cu",
          "replaces": "yolov3_tpu/ops/pallas/conv_block_kernel.py:68",

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Time the port's kernels on the wgmma core (the int8 1x1 and 3x3, and
-the bf16 1x1) at every ConvBlock shape of the flagship model (512 px,
-filter_count 1024, block_count 8) at batch 8, under each tile plan, on one
-NVIDIA GPU.
+"""Time the port's kernels on the wgmma core (the int8 1x1, 3x3 and
+stride-2 3x3, and the bf16 1x1) at every ConvBlock shape of the flagship
+model (512 px, filter_count 1024, block_count 8) at batch 8, under each
+tile plan, on one NVIDIA GPU.
 
     python3 scripts/conv_q_sweep.py [--bf16-only]
 
 For each shape and input type (s8 through TMA; bf16 through the converting
-producer; bf16 operands for the bf16 1x1): the plan `conv_plan` picks, the
+producer, the only way in at stride 2; bf16 operands for the bf16 1x1):
+the plan `conv_plan` picks, the
 kernel's device time under it beside the WMMA core's (`*_wmma` entries),
 both timed in turns (WMMA, kernel, kernel, WMMA), the achieved TOP/s (or
 TFLOP/s), whether the two outputs are equal (within 2e-2 for bf16), and
@@ -45,6 +46,10 @@ SHAPES = ((16, 512, 1024, 3), (32, 256, 512, 3), (64, 128, 256, 3),
 # the shapes whose launches take a bf16 input on the serving path
 BF16_SHAPES = ((16, 512, 1024, 3), (32, 256, 512, 3), (64, 128, 256, 3),
                (16, 1024, 512, 1), (32, 512, 256, 1), (64, 256, 128, 1))
+# (input H = W, Ci, Co) of the flagship's stride-2 ConvBlocks at b8, bf16
+# in: ConvBlock_3-5 on every route, ConvBlock_1 on the tail and exit ones
+DOWN_SHAPES = ((128, 128, 256), (64, 256, 512), (32, 512, 1024),
+               (512, 32, 64))
 # (H = W, Ci, Co) of the flagship's bf16 1x1 ConvBlocks at b8 (34 launches
 # of 9 shapes)
 PW_BF16_SHAPES = ((256, 64, 32), (128, 128, 64), (64, 256, 128),
@@ -53,9 +58,9 @@ PW_BF16_SHAPES = ((256, 64, 32), (128, 128, 64), (64, 256, 128),
 BATCH = 8
 
 
-def case(rng, h, ci, co, ksize, kind):
+def case(rng, h, ci, co, ksize, kind, stride=1):
     """(name, x, w_t, epi, launch kwargs) of a random block: s8 or bf16 x,
-    an s8 output, the 3x3's s8 residual on an s8 input."""
+    an s8 output, the stride-1 3x3's s8 residual on an s8 input."""
     w = torch.from_numpy((rng.standard_normal((co, ci, ksize, ksize))
                           / np.sqrt(ksize * ksize * ci)).astype(np.float32))
     b, g, o, m = (torch.from_numpy(v.astype(np.float32)) for v in (
@@ -76,38 +81,41 @@ def case(rng, h, ci, co, ksize, kind):
     if ksize == 3 and kind == "s8":
         res = torch.from_numpy(rng.integers(
             -127, 128, (BATCH, h, h, co)).astype(np.int8)).cuda()
-    name = "pointwise_conv_block_q" if ksize == 1 else "conv3x3_block_q"
-    kw = dict(ksize=ksize, stride=1, inv_in=0.5, inv_next=9.0, alpha=0.2,
-              cast_bf16=True, residual_out=res, emit_s8=True)
+    name = ("pointwise_conv_block_q" if ksize == 1 else "conv3x3_block_q"
+            if stride == 1 else "down_conv_block_q")
+    kw = dict(ksize=ksize, stride=stride, inv_in=0.5, inv_next=9.0,
+              alpha=0.2, cast_bf16=True, residual_out=res, emit_s8=True)
     return name, x, w_t, epi, kw
 
 
-def sweep(h, ci, co, ksize, kind):
+def sweep(h, ci, co, ksize, kind, stride=1):
     name, x, w_t, epi, kw = case(np.random.default_rng(h + ci), h, ci, co,
-                                 ksize, kind)
+                                 ksize, kind, stride)
 
     def run(plan=None, wmma=False):
         return _conv_q.launch(name, x, w_t, epi, plan=plan, wmma=wmma, **kw)
 
     float_in = kind != "s8"
-    plan = _conv_q.conv_plan(BATCH, h, h, ci, co, ksize, float_in)
+    plan = _conv_q.conv_plan(BATCH, h, h, ci, co, ksize, float_in,
+                             stride=stride)
     new, old = chip_smoke.turns_ms(lambda: run(wmma=True), run)
-    ops = 2 * chip_smoke.conv_macs(BATCH, h, h, ci, co, ksize, 1)
+    ops = 2 * chip_smoke.conv_macs(BATCH, h, h, ci, co, ksize, stride)
+    oh = -(-h // stride)
     alts = []
     for bm, bn in _conv_q.TILES:
         if bn > -(-co // 32) * 32:
             continue
-        tw = bm if ksize == 1 else min(bm, 1 << (h - 1).bit_length())
+        tw = bm if ksize == 1 else min(bm, 1 << (oh - 1).bit_length())
         for stages in (3, 4, 5):
             other = _conv_q.Plan(bm, bn, plan.bk, bm // tw, tw, stages)
             if _conv_q.smem_bytes(other) > _conv_q.SMEM_BYTES:
                 continue
             ms = chip_smoke.device_ms(lambda: run(plan=other))
             cost = _conv_q.plan_cost(other, BATCH, h, h, ci, co, ksize,
-                                     float_in)
+                                     float_in, stride=stride)
             alts.append(f"{bm}x{bn}s{stages} {ms * 1e3:.1f}/{cost // 1000}")
-    print(f"{ksize}x{ksize} {kind} {BATCH}x{h}x{h}x{ci}->{co}: kernel "
-          f"{new * 1e3:.1f} us, WMMA {old * 1e3:.1f} us, "
+    print(f"{ksize}x{ksize}/{stride} {kind} {BATCH}x{h}x{h}x{ci}->{co}: "
+          f"kernel {new * 1e3:.1f} us, WMMA {old * 1e3:.1f} us, "
           f"{ops / new / 1e9:.0f} TOP/s, equal {torch.equal(run(), run(wmma=True))}, "
           f"plan {tuple(plan)} | tiles (us / cost k): " + ", ".join(alts),
           flush=True)
@@ -165,6 +173,8 @@ def main() -> int:
             sweep_bf16(*shape)
         if "--bf16-only" in sys.argv[1:]:
             return 0
+        for h, ci, co in DOWN_SHAPES:
+            sweep(h, ci, co, 3, "bf16", stride=2)
         for shape in SHAPES:
             sweep(*shape, "s8")
         for shape in BF16_SHAPES:

@@ -138,6 +138,17 @@ def test_flagship_plans_of_the_3x3s(batch):
     assert got[128] == (128, 128, 64, 1, 128)
 
 
+def test_float_input_ties_take_two_producers():
+    """A bf16-input 3x3 whose 128- and 64-pixel tiles cost the same takes
+    BM = 64 (two producer warpgroups): 32^2 256 -> 512 at b8, one wave of
+    128 x 256 tiles or two of 64 x 256."""
+    plan = _conv_q.conv_plan(8, 32, 32, 256, 512, 3, True)
+    other = plan._replace(bm=128, th=4, tw=32)
+    assert (plan.bm, plan.bn) == (64, 256)
+    assert _conv_q.plan_cost(plan, 8, 32, 32, 256, 512, 3, True) == \
+        _conv_q.plan_cost(other, 8, 32, 32, 256, 512, 3, True)
+
+
 def test_bf16_launch_shapes_are_the_forwards():
     """The bf16 model's fused 1x1 launches (`use_pallas_pointwise`) are
     the 1x1s of `launch_shapes`: 64 px, filter_count 64, block_count 2,
@@ -242,3 +253,137 @@ def test_plan_of_small_and_odd_shapes(n, h, w, ci, co, ksize):
     assert plan.tw >= min(plan.bm, w) or ksize == 1
     assert _conv_q.smem_bytes(plan) <= _conv_q.SMEM_BYTES
 
+
+
+# --- the stride-2 3x3 (`down_conv_block_q`, bf16 or f32 input) ----------
+
+def down_shapes(batch, img, fc):
+    """(x shape, Co) of each stride-2 ConvBlock of the model: ConvBlock_1
+    to ConvBlock_5 (models/yolo.py: Darknet53). The default set's stem
+    region takes ConvBlock_1 and ConvBlock_2, so its serving call launches
+    the last three; the tail and exit routes launch ConvBlock_1 too."""
+    widths = [fc // 32, fc // 16, fc // 8, fc // 4, fc // 2, fc]
+    return [((batch, img >> s, img >> s, widths[s]), widths[s + 1])
+            for s in range(5)]
+
+
+def test_down_shapes_are_the_forwards():
+    """The stride-2 launches of an int8 forward on the plain stem route
+    (64 px, filter_count 64, block_count 2, on the CPU) are
+    `down_shapes`, each on a float input."""
+    cfg = ModelConfig(img_size=(64, 64, 3), number_classes=2,
+                      anchors=((16, 48), (48, 16)), block_count=2,
+                      filter_count=64, compute_dtype="float32",
+                      stem_space_to_depth=False)
+    params, stats = init_params(cfg, 0)
+    x = torch.from_numpy(np.random.RandomState(3).randn(2, 64, 64, 3)
+                         .astype(np.float32))
+    model = TQ.build_quantized_model(params, stats, cfg, "cpu")
+    model.set_act_scales(TQ.calibrate(model, x))
+    seen = []
+    orig = TQ.down_conv_block_q
+
+    def record(xq, w_t, *a, **kw):
+        seen.append((tuple(xq.shape), w_t.shape[1], xq.dtype))
+        return orig(xq, w_t, *a, **kw)
+
+    TQ.down_conv_block_q = record
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        TQ.down_conv_block_q = orig
+    assert sorted(s[:2] for s in seen) == sorted(down_shapes(2, 64, 64))
+    assert all(s[2] in (torch.float32, torch.bfloat16) for s in seen)
+
+
+def down_cases():
+    for batch in (8, 64):
+        for shape, co in down_shapes(batch, **{k: FLAGSHIP[k]
+                                               for k in ("img", "fc")}):
+            yield batch, shape, co
+
+
+@pytest.mark.parametrize("batch,shape,co", list(down_cases()))
+def test_flagship_stride2_plan(batch, shape, co):
+    """Every flagship stride-2 launch at b8 and b64: a plan of the least
+    cost, whose TH x TW rectangles tile the OH x OW output (TW the power of
+    two >= OW, at most BM) on >= 120 of the 132 SMs (the 16^2 1024-channel
+    output at b8 is 2,048 pixels: 128 tiles of 64 x 256), in the shared
+    memory, at most FLOAT_MAX_STAGES stages (a float input)."""
+    n, h, w, ci = shape
+    oh, ow = -(-h // 2), -(-w // 2)
+    plan = _conv_q.conv_plan(n, h, w, ci, co, 3, True, stride=2)
+    assert plan.tw == min(plan.bm, 1 << (ow - 1).bit_length())
+    assert plan.th * plan.tw == plan.bm
+    tiles = _conv_q.plan_tiles(plan, n, oh, ow, co, 3)
+    assert tiles == n * -(-oh // plan.th) * -(-ow // plan.tw) * -(-co //
+                                                                  plan.bn)
+    assert tiles * plan.bm * plan.bn >= n * oh * ow * co
+    assert tiles >= 120
+    assert 2 <= plan.stages <= _conv_q.FLOAT_MAX_STAGES
+    assert _conv_q.smem_bytes(plan) <= _conv_q.SMEM_BYTES
+    assert plan.bk in (64, 128) and plan.bk * -(-ci // plan.bk) < ci + 64
+    cost = _conv_q.plan_cost(plan, n, h, w, ci, co, 3, True, stride=2)
+    for bm, bn in _conv_q.TILES:
+        if bn <= -(-co // 32) * 32:
+            tw = min(bm, 1 << (ow - 1).bit_length())
+            other = _conv_q.Plan(bm, bn, plan.bk, bm // tw, tw, 2)
+            assert cost <= _conv_q.plan_cost(other, n, h, w, ci, co, 3, True,
+                                             stride=2)
+
+
+def test_stride2_costs_its_a_rows_more():
+    """At stride 2 a float input's A rows count their L2 bytes 4 times
+    (each input pixel read by ~2.25 taps, not 9): over the same output
+    tiles, a 128 x 128 plan's K steps cost 7 + 1 rows of 128 instead of
+    4 + 1."""
+    plan = _conv_q.Plan(128, 128, 128, 2, 64, 4)
+    s1 = _conv_q.plan_cost(plan, 8, 64, 64, 128, 256, 3, True)
+    s2 = _conv_q.plan_cost(plan, 8, 128, 128, 128, 256, 3, True, stride=2)
+    assert s2 * (_conv_q.FLOAT_A_COST + 1) == s1 * (_conv_q.FLOAT_A_COST + 4)
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_float_rows_of_a_bm64_block_cost_half(stride):
+    """A BM = 64 block on a float input has two converting producer
+    warpgroups (the block is three warpgroups, as at BM = 128): its A rows
+    cost half as much as one producer's, and an s8 input's (TMA) are not
+    weighted."""
+    def cost(bm, float_in):
+        plan = _conv_q.Plan(bm, 128, 128, 1, bm, 4)
+        return _conv_q.plan_cost(plan, 1, stride, bm * stride, 128, 128, 3,
+                                 float_in, stride=stride)
+
+    a_cost = _conv_q.FLOAT_A_COST - 1 + stride * stride
+    steps = 9
+    assert cost(128, True) == steps * (128 * a_cost + 128) * 128
+    assert cost(64, True) == steps * (64 * a_cost // 2 + 128) * 128
+    assert cost(64, False) == steps * (64 + 128) * 128
+
+
+@pytest.mark.parametrize("n,h,w,ci,co", [
+    (1, 15, 17, 32, 64), (2, 9, 16, 64, 96), (1, 1, 1, 16, 16),
+    (2, 300, 3, 32, 16)])
+def test_stride2_plan_of_small_and_odd_shapes(n, h, w, ci, co):
+    """Odd sizes (top/left pad 1) and tiny outputs: a rectangle at least
+    as wide as the output (up to BM) that covers it."""
+    plan = _conv_q.conv_plan(n, h, w, ci, co, 3, True, stride=2)
+    oh, ow = -(-h // 2), -(-w // 2)
+    assert plan.th * plan.tw == plan.bm and plan.tw >= min(plan.bm, ow)
+    tiles = _conv_q.plan_tiles(plan, n, oh, ow, co, 3)
+    assert tiles * plan.bm * plan.bn >= n * oh * ow * co
+    assert _conv_q.smem_bytes(plan) <= _conv_q.SMEM_BYTES
+    assert plan.stages <= _conv_q.FLOAT_MAX_STAGES
+
+
+@pytest.mark.parametrize("ksize,float_in,esize,stride", [
+    (1, True, 1, 2),     # no 1x1 stride 2
+    (3, False, 1, 2),    # an s8 x: TMA copies stride-1 boxes only
+    (3, True, 2, 2),     # no bf16 operands at stride 2
+    (3, True, 1, 3)])    # stride 1 or 2 only
+def test_stride2_plan_raises_on_a_contract_it_cannot_meet(ksize, float_in,
+                                                          esize, stride):
+    with pytest.raises(ValueError):
+        _conv_q.conv_plan(8, 64, 64, 256, 512, ksize, float_in, esize,
+                          stride=stride)

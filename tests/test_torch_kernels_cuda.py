@@ -35,9 +35,14 @@ def sorted_candidates(rng, c, k):
     return cand, valid
 
 
-@pytest.mark.parametrize("c,k,sparse", [(128, 512, False), (128, 512, True),
-                                        (3, 40, True), (2, 3000, True)])
+@pytest.mark.parametrize("c,k,sparse", [
+    (128, 512, False), (128, 512, True), (3, 40, True), (2, 3000, True),
+    # serving b8 saturated; K around the 64-slot mask words
+    (16, 512, False), (3, 1, False), (3, 63, False), (3, 64, False),
+    (3, 65, False), (3, 65, True), (3, 513, False), (2, 3000, False)])
 def test_nms_kernel_bit_equal_to_plain(cuda, c, k, sparse):
+    """Keep masks bit-equal to the plain version and to the first design
+    (the chain twin); one launch counted a call."""
     cand, valid = sorted_candidates(np.random.RandomState(c + k), c, k)
     if not sparse:
         valid[:] = True
@@ -48,6 +53,25 @@ def test_nms_kernel_bit_equal_to_plain(cuda, c, k, sparse):
     torch.cuda.synchronize()
     assert _build.launch_counts[NMS.NAME] == before + 1
     assert torch.equal(got.cpu(), want)
+    assert torch.equal(got, NMS.suppress_boxes_chain(ct.to(cuda),
+                                                     vt.to(cuda), 0.3))
+
+
+def test_nms_kernel_tie_chain_across_word_boundaries(cuda):
+    """130 slots, each box overlapping the next at IoU exactly 50/150 and
+    the one after not at all: all kept at that threshold (ties survive),
+    the even slots only just below it."""
+    k = 130
+    i = torch.arange(k, dtype=torch.float32)
+    cand = torch.stack([torch.zeros(k), 5 * i, torch.full((k,), 10.0),
+                        5 * i + 10], -1)[None].to(cuda)
+    valid = torch.ones(1, k, dtype=torch.bool, device=cuda)
+    tie = 50.0 / 150.0
+    for thr, expect in ((tie, torch.ones(k, dtype=torch.bool)),
+                        (tie - 1e-4, torch.arange(k) % 2 == 0)):
+        got = NMS.suppress_boxes_t(cand, valid, thr)
+        assert torch.equal(got[0].cpu(), expect)
+        assert torch.equal(got, NMS.suppress_boxes_chain(cand, valid, thr))
 
 
 def test_nms_kernel_threshold_tie_and_degenerate(cuda):
@@ -234,10 +258,17 @@ def test_conv3x3_q_matches_plain(cuda, shape, co, kind, res, emit_s8, out,
 
 @pytest.mark.parametrize("shape,co,kind,emit_s8,out", [
     ((2, 32, 32, 32), 64, "bf16", True, None),
+    # odd H and W: XLA's SAME puts a zero row / column on each side
     ((1, 15, 17, 32), 64, "bf16", True, None),
     ((2, 8, 8, 64), 128, "f32", False, torch.float32),
-    ((8, 32, 32, 512), 1024, "bf16", True, None)])
+    ((8, 32, 32, 512), 1024, "bf16", True, None),
+    ((2, 9, 16, 64), 96, "bf16", True, torch.bfloat16),   # odd H, even W
+    ((1, 16, 11, 48), 48, "f32", True, None),             # even H, odd W
+    ((3, 5, 7, 16), 32, "bf16", False, torch.bfloat16),   # OH*OW < BM
+    ((1, 1, 1, 16), 16, "f32", True, torch.float32)])
 def test_down_conv_q_matches_plain(cuda, shape, co, kind, emit_s8, out):
+    """The stride-2 kernel (wgmma core) equal to its plain version and to
+    its WMMA twin: 0 s8 codes differ, float outputs bit-equal."""
     from yolov3_tpu_torch.ops.kernels import down_conv_q as K
     rng = np.random.RandomState(shape[1] + co)
     w_t, epi = (t.to(cuda) for t in int8_block(rng, 3, shape[-1], co))
@@ -245,7 +276,75 @@ def test_down_conv_q_matches_plain(cuda, shape, co, kind, emit_s8, out):
     kw = dict(inv_in=0.5, inv_next=9.0, alpha=0.2, cast_bf16=kind == "bf16",
               emit_s8=emit_s8, out_dtype=out)
     got = launched(K, lambda: K.down_conv_block_q(x, w_t, epi, **kw))
-    assert_int8_close(got, K.down_conv_block_q_plain(x, w_t, epi, **kw))
+    assert_int8_equal(got, K.down_conv_block_q_plain(x, w_t, epi, **kw))
+    assert_int8_equal(got, down_conv_wmma(x, w_t, epi, kw))
+
+
+def down_conv_wmma(x, w_t, epi, kw, plan=None, wmma=True):
+    """The stride-2 contract through `_conv_q.launch` on the WMMA twin
+    (or, with `wmma=False`, on the wgmma kernel under `plan`)."""
+    from yolov3_tpu_torch.ops.kernels import _conv_q
+    return _conv_q.launch("down_conv_block_q", x, w_t, epi, ksize=3,
+                          stride=2, plan=plan, wmma=wmma, **kw)
+
+
+@pytest.mark.parametrize("shape,co", [
+    ((8, 512, 512, 32), 64), ((8, 128, 128, 128), 256),
+    ((8, 64, 64, 256), 512), ((8, 32, 32, 512), 1024)])
+def test_down_conv_every_plan_at_flagship_shapes(cuda, shape, co):
+    """Each tile plan `conv_plan` can give at the flagship's stride-2
+    launches (b8, bf16 in; ConvBlock_1 on the tail and exit routes, then
+    ConvBlock_3-5): the plan's own and every other tile of TILES with its
+    TW rule and the stage count that fits, each equal to the plain version
+    and the WMMA twin."""
+    from yolov3_tpu_torch.ops.kernels import _conv_q
+    from yolov3_tpu_torch.ops.kernels import down_conv_q as K
+    rng = np.random.RandomState(shape[1] + co)
+    w_t, epi = (t.to(cuda) for t in int8_block(rng, 3, shape[-1], co))
+    x = int8_input(rng, shape, "bf16", cuda)
+    kw = dict(inv_in=0.5, inv_next=9.0, alpha=0.2, cast_bf16=True,
+              emit_s8=True, out_dtype=None)
+    want = K.down_conv_block_q_plain(x, w_t, epi, **kw)
+    assert_int8_equal(down_conv_wmma(x, w_t, epi, kw), want)
+    n, h, w, ci = shape
+    plan = _conv_q.conv_plan(n, h, w, ci, co, 3, True, stride=2)
+    ow = -(-w // 2)
+    plans = {plan}
+    for bm, bn in _conv_q.TILES:
+        if bn <= -(-co // 32) * 32:
+            tw = min(bm, 1 << (ow - 1).bit_length())
+            plans.add(max(
+                (_conv_q.Plan(bm, bn, plan.bk, bm // tw, tw, stages)
+                 for stages in range(2, _conv_q.FLOAT_MAX_STAGES + 1)),
+                key=lambda q: (_conv_q.smem_bytes(q) <= _conv_q.SMEM_BYTES,
+                               q.stages)))
+    for p in sorted(plans):
+        assert_int8_equal(down_conv_wmma(x, w_t, epi, kw, plan=p,
+                                         wmma=False), want)
+
+
+def test_down_conv_inv_next_row_and_plans_it_cannot_run(cuda):
+    """A [4, Co] epi (1/s_next per channel in row 3); a plan whose
+    rectangle is not BM pixels, and a stride-2 launch on an s8 x, are
+    refused."""
+    from yolov3_tpu_torch.ops.kernels import _conv_q
+    from yolov3_tpu_torch.ops.kernels import down_conv_q as K
+    rng = np.random.RandomState(4)
+    w_t, epi = (t.to(cuda) for t in int8_block(rng, 3, 64, 96))
+    x = int8_input(rng, (2, 20, 24, 64), "bf16", cuda)
+    inv = torch.from_numpy(rng.uniform(4, 12, 96).astype(np.float32)).to(cuda)
+    kw = dict(inv_in=0.5, alpha=0.2, cast_bf16=True)
+    got = K.down_conv_block_q(x, w_t, torch.cat([epi, inv[None]]),
+                              inv_next=0.0, **kw)
+    assert_int8_equal(got, K.down_conv_block_q_plain(x, w_t, epi,
+                                                     inv_next=inv, **kw))
+    with pytest.raises(RuntimeError):
+        down_conv_wmma(x, w_t, epi, dict(kw, inv_next=9.0),
+                       plan=_conv_q.Plan(128, 128, 64, 3, 32, 4), wmma=False)
+    with pytest.raises(RuntimeError):
+        down_conv_wmma(int8_input(rng, (2, 20, 24, 64), "s8", cuda), w_t,
+                       epi, dict(kw, inv_next=9.0),
+                       plan=_conv_q.Plan(128, 128, 64, 8, 16, 4), wmma=False)
 
 
 def test_int8_sums_exact_beyond_f32(cuda):

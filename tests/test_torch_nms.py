@@ -146,6 +146,41 @@ class TestSuppressionMatchesPallas:
                                                   interpret=True, unroll=1))
         np.testing.assert_array_equal(port_keep(cand, valid, 0.3), want)
 
+    @pytest.mark.parametrize("k", [1, 63, 64, 65, 513])
+    def test_plain_vs_pallas_t_at_word_edges(self, k):
+        """K around the CUDA kernel's 64-slot mask words (one slot, a word
+        less one, one word, one slot more, eight words and one), every
+        slot valid."""
+        cand, _ = sorted_candidates(np.random.RandomState(k), 2, k)
+        valid = np.ones((2, k), bool)
+        # unroll=1: the Pallas kernel's unrolled loop reaches past the last
+        # slot when K is not a multiple of `unroll`
+        want = np.asarray(suppress_boxes_pallas_t(cand, valid, 0.3,
+                                                  interpret=True, unroll=1))
+        got = port_keep(cand, valid, 0.3)
+        np.testing.assert_array_equal(got, want)
+        assert got[:, 0].all()
+
+    def test_tie_chain_across_word_boundaries(self):
+        """130 slots in a chain: each box overlaps the next at IoU exactly
+        50/150 and the one after it not at all. Ties are kept, so at that
+        threshold every slot survives; just below it greedy keeps the even
+        slots only, across the 64- and 128-slot word boundaries (slot 63,
+        suppressed, must not suppress slot 64)."""
+        k = 130
+        i = np.arange(k, dtype=np.float32)
+        cand = np.stack([np.zeros(k), 5 * i, np.full(k, 10.0), 5 * i + 10],
+                        axis=-1).astype(np.float32)[None]
+        valid = np.ones((1, k), bool)
+        tie = 50.0 / 150.0
+        for thr, expect in ((tie, np.ones(k, bool)),
+                            (tie - 1e-4, np.arange(k) % 2 == 0)):
+            want = np.asarray(suppress_boxes_pallas_t(
+                cand, valid, thr, interpret=True, unroll=1))
+            got = port_keep(cand, valid, thr)
+            np.testing.assert_array_equal(got, want)
+            np.testing.assert_array_equal(got[0], expect)
+
     @pytest.mark.parametrize("seed,c,k", [(5, 4, 96), (6, 2, 256)])
     def test_row_layout_entry_vs_pallas(self, seed, c, k):
         cand, valid = sorted_candidates(np.random.RandomState(seed), c, k)

@@ -1,9 +1,9 @@
-// WMMA core of the port's int8 stride-2 ConvBlock kernels for Hopper
-// (sm_90a): down_conv_block_q.cu (3x3 stride 2, float in) and
-// exit_conv_block_q.cu (3x3 stride 2, s8 in); the 1x1 and 3x3 stride-1
-// kernels run conv_gemm_q_sm90.cuh and keep this core only as their
-// `*_wmma` A/B entries. Each .cu file includes this header and exposes
-// one C entry point that checks its own contract before it launches.
+// WMMA core of the port's exit ConvBlock for Hopper (sm_90a):
+// exit_conv_block_q.cu (3x3 stride 2, s8 in). The 1x1, 3x3 and stride-2
+// (float in) kernels run conv_gemm_q_sm90.cuh and keep this core only as
+// their `*_wmma` A/B entries. Each .cu file includes this header and
+// exposes C entry points that check their own contract before they
+// launch.
 //
 // One implicit GEMM over NHWC tensors, exact in int32:
 //

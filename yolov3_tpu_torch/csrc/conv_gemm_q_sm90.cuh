@@ -1,8 +1,9 @@
-// Hopper-native core of the port's int8 1x1 and 3x3 stride-1 ConvBlock
-// kernels and of its bf16 1x1 ConvBlock (sm_90a): pointwise_conv_block_q.cu
-// and conv3x3_block_q.cu include it and expose one C entry point each
-// (CONVQ90_ENTRY), pointwise_conv_block.cu one more (bf16 operands); each
-// checks its own contract and the tile plan before it launches. The
+// Hopper-native core of the port's int8 1x1, 3x3 and 3x3 stride-2
+// ConvBlock kernels and of its bf16 1x1 ConvBlock (sm_90a):
+// pointwise_conv_block_q.cu, conv3x3_block_q.cu and down_conv_block_q.cu
+// include it and expose one C entry point each (CONVQ90_ENTRY),
+// pointwise_conv_block.cu one more (bf16 operands); each checks its own
+// contract and the tile plan before it launches. The
 // operand type is one template parameter (OP) of one kernel: the ring,
 // barriers, producer, persistent loop and epilogue swizzle are shared.
 //
@@ -18,9 +19,10 @@
 // s8 operands compute what conv_block_q.cuh computes, code for code: the
 // implicit GEMM over NHWC tensors, exact in int32,
 //
-//     acc[p, o] = sum_{u,v} sum_c q(x[n, oh - pad + u, ow - pad + v, c])
+//     acc[p, o] = sum_{u,v} sum_c q(x[n, oh*s - pt + u, ow*s - pl + v, c])
 //                                * W[u, v][o, c]
 //
+// (stride s 1, or 2 for the 3x3 on a float x; pt, pl the XLA SAME pads)
 // with the taps outside the image reading zeros, then the same float32
 // epilogue op by op (see conv_block_q.cuh; -fmad=false, rintf): b/dq,
 // leaky, mul*dq, add, the optional bf16 casts, the s8 residual, the
@@ -32,12 +34,13 @@
 // bytes, 190..3000 operations a byte: the deep 16^2-64^2 stages are bound
 // by the tensor cores, the 128^2 stage by its bytes. The 1x1s do
 // 2*M*Ci*Co over M*(Ci + Co) bytes, 20..340 a byte: all bound by bytes.
-// Both were held back by latency, not by either bound: WMMA fragments,
-// and a K loop that waited on device memory at every step. On this core
-// the s8 launches are bound by the L2 -> SM stream of their tiles (each
-// SM draws ~36 GB/s from L2 whatever the others do, and a 3x3 re-reads
-// each pixel for each of its nine taps), the bf16 / f32 ones by the
-// quantize in the producer. So:
+// The stride-2 3x3s (bf16 in) do 2*M*9*C*Co over about 4*M*C*2 + M*Co
+// bytes (M output pixels), 140..2300 a byte. All were held back by
+// latency, not by either bound: WMMA fragments, and a K loop that waited
+// on device memory at every step. On this core the s8 launches are bound
+// by the L2 -> SM stream of their tiles (each SM draws ~36 GB/s from L2
+// whatever the others do, and a 3x3 re-reads each pixel for each of its
+// nine taps), the bf16 / f32 ones by the quantize in the producer. So:
 // - products: wgmma m64nBNk32 s8 x s8 -> s32 (or k16 bf16 -> f32), A
 //   and B read from shared memory through K-major descriptors (64B or
 //   128B swizzle, BK bytes of K a row), accumulators in the consumer
@@ -54,27 +57,35 @@
 //   TH x TW rectangle of one image (TH*TW = BM): tap (u, v) is then the
 //   same box at (oh0 + u - 1, ow0 + v - 1), and TMA's zero fill of the
 //   elements outside the tensor IS the SAME padding (and the ragged Ci,
-//   Co and pixel edges). Weights: a 3D map over [taps, Co, Ci];
-// - bf16 and f32 inputs: the producer warpgroup loads 16 channels at a
+//   Co and pixel edges). Weights: a 3D map over [taps, Co, Ci]. TMA
+//   copies stride-1 boxes only, so the stride-2 3x3 takes a float x;
+// - bf16 and f32 inputs: the producer warpgroups load 16 channels at a
 //   time, four chunks' loads in flight together, quantizes them to the
 //   codes of conv_block_q.cuh's load_a16 (the 1x1's requantized residual
 //   first) on the FMA pipe alone (quantize_bits), and writes the same
 //   swizzled layout that TMA writes, into the same ring, one arrival a
-//   warp; the weights still come by TMA;
+//   warp; the weights still come by TMA. The stride enters only the
+//   address of each chunk row's pixel (ih = oh*s - pt + u): at stride 2
+//   each input pixel is loaded and quantized by ~2.25 taps, not 9;
 // - the epilogue from the accumulator registers: lanes swap half their
 //   sums with a neighbour so each holds four consecutive channels of
 //   one pixel, and reads the residual and stores s8 / bf16 / f32 four
-//   channels (4, 8 or 16 bytes) at a time;
+//   channels (4, 8 or 16 bytes) at a time; the tile's epilogue rows are
+//   copied into shared memory once a tile (read from device memory, each
+//   4-channel step would wait for its own loads);
 // - the tile plan (BM 64 or 128 pixels, BN 32/64/128/256 channels, BK 64
 //   or 128 bytes, TH x TW, stages) is chosen per launch in Python
 //   (ops/kernels/_conv_q.py::conv_plan): the largest tiles that keep the
 //   132 SMs busy, since each SM's L2 stream is the limit.
 //
 // Block layout: bm/64 consumer warpgroups (threads 0 .. bm*2-1), each
-// owning 64 pixels x BN channels, then one producer warpgroup; setmaxnreg
-// moves registers from the producer to the consumers. The tensor maps are
-// encoded on the host with cuTensorMapEncodeTiled, reached through the
-// runtime's driver entry point (no -lcuda).
+// owning 64 pixels x BN channels, then one producer warpgroup, or for a
+// float x's converting producer as many as make three warpgroups (two
+// under BM = 64, which take the K steps in turns, so that two steps'
+// loads are in flight); setmaxnreg moves registers from the producers to
+// the consumers.
+// The tensor maps are encoded on the host with cuTensorMapEncodeTiled,
+// reached through the runtime's driver entry point (no -lcuda).
 
 #pragma once
 
@@ -108,22 +119,24 @@ struct Params {
   const float* epi_a;
   const float* epi_inv;
   const int8_t* res_in;   // [n, h, w, ci] s8 or null (1x1, bf16 x)
-  const int8_t* res_out;  // [n, h, w, co] s8 or null (3x3)
-  int8_t* out_s8;         // [n, h, w, co] or null
-  void* out_f;            // [n, h, w, co] bf16 or f32, or null
+  const int8_t* res_out;  // [n, oh, ow, co] s8 or null (3x3)
+  int8_t* out_s8;         // [n, oh, ow, co] or null
+  void* out_f;            // [n, oh, ow, co] bf16 or f32, or null
   int out_f_bf16;
   int n, h, w_, ci, co, ksize;
+  int oh, ow, stride, pad_t, pad_l;  // the output's size; stride 1 or 2
   float inv_in, inv_next, res_scale, alpha;
   int cast_bf16;
   int bm, bk, th, tw, stages;  // the tile plan; BN is the template's
-  int tiles_h, tiles_w;        // 3x3: rectangles down and across an image
+  int tiles_h, tiles_w;        // 3x3: rectangles down and across the output
   int kbytes;                  // bytes of one pixel's ci operands
   int kchunks;                 // BK-byte steps over them
   int mtiles, tiles;           // pixel tiles; output tiles (x Co / BN)
 };
 
 // Output tile `t` (pixel tile fastest): channels n0.., and pixels m0..
-// (1x1) or the TH x TW rectangle at (img, oh0, ow0) (3x3).
+// (1x1) or the TH x TW rectangle of the output image at (img, oh0, ow0)
+// (3x3).
 struct Tile {
   int n0, m0, img, oh0, ow0;
 };
@@ -143,6 +156,12 @@ __device__ __forceinline__ Tile tile_of(const Params& p, int t) {
     tl.ow0 = (r % p.tiles_w) * p.tw;
   }
   return tl;
+}
+
+// Producer warpgroups of a block: one TMA thread's, or the converting
+// producer's, which takes what BM / 64 consumer warpgroups leave of three
+__host__ __device__ __forceinline__ int producer_wgs(bool tma, int bm) {
+  return tma ? 1 : 3 - bm / 64;
 }
 
 // --- device helpers ---------------------------------------------------------
@@ -169,6 +188,11 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "r"(bar), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// barrier `id` (1, 2) of one consumer warpgroup's 128 threads
+__device__ __forceinline__ void named_barrier(int id) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(kWG) : "memory");
 }
 
 __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
@@ -456,8 +480,8 @@ __device__ __forceinline__ uint4 quantize_raw(const Params& p,
 }
 
 // four consecutive floats of an epilogue row
-__device__ __forceinline__ void row4(const float* row, int gc, float (&v)[4]) {
-  const float4 r = *reinterpret_cast<const float4*>(row + gc);
+__device__ __forceinline__ void row4(const float* row, int c, float (&v)[4]) {
+  const float4 r = *reinterpret_cast<const float4*>(row + c);
   v[0] = r.x;
   v[1] = r.y;
   v[2] = r.z;
@@ -480,18 +504,20 @@ __device__ __forceinline__ void store_f4(const Params& p, const float (&y)[4],
   }
 }
 
-// The epilogue of four consecutive channels gc..gc+3 of one pixel
-// (element offset `o` of the output) from their s32 sums,
-// conv_block_q.cuh's op for op.
-__device__ __forceinline__ void epilogue4(const Params& p,
+// The epilogue of four consecutive channels lc..lc+3 of a tile (element
+// offset `o` of the output) from their s32 sums, conv_block_q.cuh's op
+// for op; `e` holds the tile's epilogue rows in shared memory, BN floats
+// each (b/dq, mul*dq, add, and 1/s_next with epi_inv).
+template <int BN>
+__device__ __forceinline__ void epilogue4(const Params& p, const float* e,
                                           const uint32_t (&acc)[4], size_t o,
-                                          int gc) {
+                                          int lc) {
   float b[4], m[4], a[4], iv[4];
-  row4(p.epi_b, gc, b);
-  row4(p.epi_m, gc, m);
-  row4(p.epi_a, gc, a);
+  row4(e, lc, b);
+  row4(e + BN, lc, m);
+  row4(e + 2 * BN, lc, a);
   if (p.epi_inv != nullptr)
-    row4(p.epi_inv, gc, iv);
+    row4(e + 3 * BN, lc, iv);
   else
     iv[0] = iv[1] = iv[2] = iv[3] = p.inv_next;
   union {
@@ -522,13 +548,14 @@ __device__ __forceinline__ void epilogue4(const Params& p,
 
 // The bf16 1x1's epilogue of the same four channels from their f32 sums
 // (the bits in acc), conv_block_kernel.py's: leaky(acc + bias) * mul + add
-__device__ __forceinline__ void epilogue4_f(const Params& p,
+template <int BN>
+__device__ __forceinline__ void epilogue4_f(const Params& p, const float* e,
                                             const uint32_t (&acc)[4],
-                                            size_t o, int gc) {
+                                            size_t o, int lc) {
   float b[4], m[4], a[4], y[4];
-  row4(p.epi_b, gc, b);
-  row4(p.epi_m, gc, m);
-  row4(p.epi_a, gc, a);
+  row4(e, lc, b);
+  row4(e + BN, lc, m);
+  row4(e + 2 * BN, lc, a);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     float v = __fadd_rn(__uint_as_float(acc[i]), b[i]);
@@ -560,8 +587,9 @@ conv_gemm_q_kernel(const __grid_constant__ Params p,
   // full[s] at bars + 8 s, empty[s] at bars + 8 (stages + s)
   const uint32_t bars = base + stages * stage_bytes;
   const int nwg = p.bm / 64;
+  const int nprod = producer_wgs(kTmaA, p.bm);
   const int total = p.ksize * p.ksize * p.kchunks;  // K steps a tile
-  const int m_total = p.n * p.h * p.w_;
+  const int m_total = p.n * p.oh * p.ow;  // output pixels
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < stages; ++s) {
@@ -606,38 +634,44 @@ conv_gemm_q_kernel(const __grid_constant__ Params p,
     } else {
       asm volatile("setmaxnreg.dec.sync.aligned.u32 120;\n" ::: "memory");
       constexpr int kGroup = KIND == kBF16 ? 4 : 2;
-      // thread pt converts the chunks pt + i * kWG of every K step: row
-      // r0 + i * rstep of the tile, 16-byte column c, the same each step
+      // producer warpgroup q converts the K steps it = q (mod nprod), so
+      // nprod steps' loads are in flight together; its thread lpt the
+      // chunks lpt + i * kWG of each: row r0 + i * rstep of the tile,
+      // 16-byte column c, the same each step
+      const int q = pt / kWG;
+      const int lpt = pt % kWG;
       const int cpr = p.bk / 16;  // 16-byte chunks a row
       const int cpt = p.bm * cpr / kWG;  // chunks a thread a step: 2..8
-      const int c = pt % cpr;
-      const int r0 = pt / cpr;
+      const int c = lpt % cpr;
+      const int r0 = lpt / cpr;
       const int rstep = kWG / cpr;
       int it = 0;
       for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
         const Tile tl = tile_of<BN>(p, t);
         // each chunk row's pixel, once a tile: its flat index (1x1, in
-        // ph), or its (h, w) position in the image (3x3)
+        // ph), or the input position of its tap (0, 0) (3x3)
         int ph[8], pw[8];
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
           const int r = r0 + i * rstep;
-          ph[i] = p.ksize == 1 ? tl.m0 + r : tl.oh0 + r / p.tw;
-          pw[i] = tl.ow0 + r % p.tw;
+          ph[i] = p.ksize == 1 ? tl.m0 + r
+                               : (tl.oh0 + r / p.tw) * p.stride - p.pad_t;
+          pw[i] = (tl.ow0 + r % p.tw) * p.stride - p.pad_l;
         }
         for (int kit = 0; kit < total; ++kit, ++it) {
+          if (it % nprod != q) continue;
           const int s = it % stages;
           mbar_wait(bars + 8 * (stages + s), ((it / stages) & 1) ^ 1);
           const uint32_t full = bars + 8 * s;
           const uint32_t sa = base + s * stage_bytes;
           const int tap = kit / p.kchunks;
           const int k0 = (kit - tap * p.kchunks) * p.bk;
-          if (pt == 0) {
+          if (lpt == 0) {
             mbar_arrive_tx(full, b_bytes);
             tma_3d(sa + a_bytes, &map_b, full, k0, tl.n0, tap);
           }
-          const int u = p.ksize == 1 ? 0 : tap / 3 - 1;
-          const int v = p.ksize == 1 ? 0 : tap % 3 - 1;
+          const int u = tap / 3;
+          const int v = tap % 3;
           const int kc = k0 + 16 * c;
           uint8_t* const tile = base_ptr + s * stage_bytes;
           // kGroup chunks at a time: all their loads first
@@ -685,9 +719,10 @@ conv_gemm_q_kernel(const __grid_constant__ Params p,
     }
   } else {
     // ---- consumer warpgroups: products and epilogue ----
-    // 384 threads start at 168 registers; the producer warpgroup gives up
-    // what the consumers take (the TMA one more than the converting one)
-    if constexpr (kTmaA)
+    // 384 threads start at 168 registers; the producer warpgroups give up
+    // what the consumers take (the TMA one more than the converting one;
+    // two converting ones leave a single consumer as much)
+    if (kTmaA || nwg == 1)
       asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
     else
       asm volatile("setmaxnreg.inc.sync.aligned.u32 192;\n" ::: "memory");
@@ -701,6 +736,11 @@ conv_gemm_q_kernel(const __grid_constant__ Params p,
     const int q = lane & 3;
     const bool odd = q & 1;
     const int row = g * 64 + warp * 16 + (lane >> 2) + (odd ? 8 : 0);
+    // this warpgroup's copy of a tile's epilogue rows, after the ring's
+    // barriers: four rows of BN floats
+    float* const e = reinterpret_cast<float*>(
+                         base_ptr + stages * (stage_bytes + 16)) +
+                     g * 4 * BN;
     int it = 0;
     for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
       const Tile tl = tile_of<BN>(p, t);
@@ -729,6 +769,22 @@ conv_gemm_q_kernel(const __grid_constant__ Params p,
       fence_regs(acc);
       if (lane == 0) mbar_arrive(bars + 8 * (stages + (it - 1) % stages));
 
+      // the tile's epilogue rows into shared memory, once a tile (read
+      // from device memory, each 4-channel epilogue below would wait for
+      // its own loads). The first barrier: the whole warpgroup is done
+      // with the last tile's rows.
+      named_barrier(1 + g);
+      for (int i = threadIdx.x % kWG; i < BN; i += kWG) {
+        const int gc = tl.n0 + i;
+        if (gc < p.co) {
+          e[i] = p.epi_b[gc];
+          e[BN + i] = p.epi_m[gc];
+          e[2 * BN + i] = p.epi_a[gc];
+          if (p.epi_inv != nullptr) e[3 * BN + i] = p.epi_inv[gc];
+        }
+      }
+      named_barrier(1 + g);
+
       bool row_ok;
       size_t orow;
       if (p.ksize == 1) {
@@ -738,8 +794,8 @@ conv_gemm_q_kernel(const __grid_constant__ Params p,
       } else {
         const int oh = tl.oh0 + row / p.tw;
         const int ow = tl.ow0 + row % p.tw;
-        row_ok = oh < p.h && ow < p.w_;
-        orow = (static_cast<size_t>(tl.img * p.h + oh) * p.w_ + ow) * p.co;
+        row_ok = oh < p.oh && ow < p.ow;
+        orow = (static_cast<size_t>(tl.img * p.oh + oh) * p.ow + ow) * p.co;
       }
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j) {
@@ -750,12 +806,13 @@ conv_gemm_q_kernel(const __grid_constant__ Params p,
         const uint32_t v[4] = {odd ? r0 : acc[4 * j], odd ? r1 : acc[4 * j + 1],
                                odd ? acc[4 * j + 2] : r0,
                                odd ? acc[4 * j + 3] : r1};
-        const int gc = tl.n0 + 8 * j + 4 * (q >> 1);
+        const int lc = 8 * j + 4 * (q >> 1);
+        const int gc = tl.n0 + lc;
         if (row_ok && gc < p.co) {
           if constexpr (OP == kOpS8)
-            epilogue4(p, v, orow + gc, gc);
+            epilogue4<BN>(p, e, v, orow + gc, lc);
           else
-            epilogue4_f(p, v, orow + gc, gc);
+            epilogue4_f<BN>(p, e, v, orow + gc, lc);
         }
       }
     }
@@ -807,8 +864,10 @@ inline bool encode(CUtensorMap* map, const void* ptr, int rank,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// alignment slack, the ring and its barriers, and each consumer
+// warpgroup's four epilogue rows of BN floats
 inline int smem_bytes(int bm, int bn, int bk, int stages) {
-  return kAlign + stages * ((bm + bn) * bk + 16);
+  return kAlign + stages * ((bm + bn) * bk + 16) + bm / 64 * 16 * bn;
 }
 
 template <int BN, int KIND, int OP>
@@ -822,8 +881,10 @@ int run(const Params& p, const CUtensorMap& a, const CUtensorMap& b,
     if (err != cudaSuccess) return static_cast<int>(err);
     smem_set = smem;
   }
+  constexpr bool tma = OP == kOpBF16 || KIND == kS8;
   conv_gemm_q_kernel<BN, KIND, OP>
-      <<<grid, (p.bm / 64 + 1) * kWG, smem, stream>>>(p, a, b);
+      <<<grid, (p.bm / 64 + producer_wgs(tma, p.bm)) * kWG, smem, stream>>>(
+          p, a, b);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -849,11 +910,22 @@ int run_kind(const Params& p, int x_kind, const CUtensorMap& a,
 
 // Check the plan, encode the maps and launch on `stream`; returns a
 // cudaError_t code (0 on success). OP's operands: s8 (a 1x1 or 3x3 on
-// an s8, bf16 or f32 x) or bf16 (a 1x1 on a bf16 x).
+// an s8, bf16 or f32 x, or a 3x3 stride 2 on a bf16 or f32 x) or bf16 (a
+// 1x1 on a bf16 x).
 template <int OP>
 int launch(Params p, int x_kind, int bn, cudaStream_t stream) {
-  const long long m = static_cast<long long>(p.n) * p.h * p.w_;
+  const long long m = static_cast<long long>(p.n) * p.oh * p.ow;
   if (m == 0 || p.co == 0) return 0;
+  // stride 2 only through the converting producer (TMA copies stride-1
+  // boxes); the output covers the input at the stride, and the padding
+  // is within the taps' reach
+  const bool strided =
+      p.stride == 1
+          ? p.oh == p.h && p.ow == p.w_
+          : p.stride == 2 && p.ksize == 3 && OP == kOpS8 && x_kind != kS8 &&
+                p.oh == (p.h + 1) / 2 && p.ow == (p.w_ + 1) / 2;
+  const bool pads = p.pad_t >= 0 && p.pad_l >= 0 && p.pad_t < p.ksize &&
+                    p.pad_l < p.ksize;
   const int esize = OP == kOpS8 ? 1 : 2;
   const int smem = smem_bytes(p.bm, bn, p.bk, p.stages);
   const bool rect = p.ksize == 1 ? (p.th == 1 && p.tw == p.bm)
@@ -864,7 +936,8 @@ int launch(Params p, int x_kind, int bn, cudaStream_t stream) {
                          ? p.ci % 16 == 0 && p.co % 16 == 0
                          : p.ksize == 1 && x_kind == kBF16 && p.ci % 8 == 0 &&
                                p.co % 8 == 0;
-  if (!chans || m > 0x7fffffffLL || !(p.ksize == 1 || p.ksize == 3) ||
+  if (!chans || !strided || !pads || m > 0x7fffffffLL ||
+      !(p.ksize == 1 || p.ksize == 3) ||
       !(p.bm == 64 || p.bm == 128) ||
       !(bn == 32 || bn == 64 || bn == 128 || bn == 256) ||
       !(p.bk == 64 || p.bk == 128) || !rect || p.th < 1 || p.tw < 1 ||
@@ -876,8 +949,8 @@ int launch(Params p, int x_kind, int bn, cudaStream_t stream) {
   if (p.ksize == 1) {
     mtiles = (m + p.bm - 1) / p.bm;
   } else {
-    p.tiles_h = (p.h + p.th - 1) / p.th;
-    p.tiles_w = (p.w_ + p.tw - 1) / p.tw;
+    p.tiles_h = (p.oh + p.th - 1) / p.th;
+    p.tiles_w = (p.ow + p.tw - 1) / p.tw;
     mtiles = static_cast<long long>(p.n) * p.tiles_h * p.tiles_w;
   }
   const long long tiles = mtiles * ((p.co + bn - 1) / bn);
@@ -940,10 +1013,11 @@ int launch(Params p, int x_kind, int bn, cudaStream_t stream) {
 }  // namespace
 }  // namespace convq90
 
-// The C entry point of the int8 1x1 and 3x3 kernels: conv_block_q.cuh's
-// CONVQ_ENTRY arguments, then `inv_next_row` and the tile plan (bm, bn,
-// bk, th, tw, stages); `check` is the kernel's own contract (a
-// cudaErrorInvalidValue when it is broken, as for a plan it cannot run).
+// The C entry point of the int8 1x1, 3x3 and stride-2 kernels:
+// conv_block_q.cuh's CONVQ_ENTRY arguments, then `inv_next_row` and the
+// tile plan (bm, bn, bk, th, tw, stages); `check` is the kernel's own
+// contract (a cudaErrorInvalidValue when it is broken, as for a plan it
+// cannot run).
 #define CONVQ90_ENTRY(NAME, CHECK)                                          \
   extern "C" int NAME(                                                      \
       const void* x, int x_kind, const int8_t* w, const float* epi,         \
@@ -972,6 +1046,11 @@ int launch(Params p, int x_kind, int bn, cudaStream_t stream) {
     p.ci = ci;                                                              \
     p.co = co;                                                              \
     p.ksize = ksize;                                                        \
+    p.oh = oh;                                                              \
+    p.ow = ow;                                                              \
+    p.stride = stride;                                                      \
+    p.pad_t = pad_t;                                                        \
+    p.pad_l = pad_l;                                                        \
     p.inv_in = inv_in;                                                      \
     p.inv_next = inv_next;                                                  \
     p.res_scale = res_scale;                                                \

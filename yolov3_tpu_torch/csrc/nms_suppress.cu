@@ -7,37 +7,176 @@
 //
 //     keep[i] = valid[i] && no kept j < i has IoU(j, i) > threshold
 //
-// What bounds it: not bytes (C*K*17 bytes in and out, about 1 MB at
-// C = 128, K = 512) but a latency chain of up to K block-wide reductions,
-// one per candidate, each of which must finish before the next decision.
+// What bounds it: not bytes (C*K*18 bytes in and out, about 1 MB at
+// C = 128, K = 512) and not the IoU tests (~2M at C = 16, K = 512, a few
+// us of the card's f32 rate), but the recurrence: decision i needs every
+// decision before it. The first design (nms_suppress_chain below) ran
+// one block per problem and one block-wide OR per candidate, ~0.74 us a
+// step at K = 512 on 16 of the 132 SMs.
 //
-// Design: one thread block per problem. The block copies its K boxes into
-// shared memory as l/t/r/b planes plus the areas (5*K*4 bytes, 10 KB at
-// K = 512) and finds its own loop bound, the highest valid slot + 1, so a
-// sparse problem stops early. Thread `tid` owns slots j = tid, tid + T, ...
-// and is the only thread that reads or writes keep[j], so the keep flags
-// need no barrier of their own; each step i is one `__syncthreads_or`
-// over "some kept j < i I own has IoU(j, i) > threshold", after which the
-// owner of i records valid[i] && !hit. Since keep[j] is still 0 for
-// j >= i, the j < i rule follows on its own.
+// Design: the function splits into its parallel part and its serial part.
+// 1. Mask pass (nms_mask_kernel): every IoU test that the recurrence could
+//    need, on the whole card: mask[c][i][w] bit b says IoU(i, j) >
+//    threshold for slot j = 64 w + b > i. One block of 64 threads per
+//    (problem, 64-row block, 64-column word) on or above the diagonal;
+//    thread t owns row i and writes one 64-bit word. Rows of invalid
+//    slots are never read as suppressors and are written as 0. The
+//    workspace [C, K, ceil(K/64)] u64 is the wrapper's (512 KB at
+//    C = 16, K = 512).
+// 2. Scan (nms_scan_kernel): one warp per problem walks the words of
+//    slots up to its highest valid slot. For word w it ORs, over the
+//    lanes, the words w of the kept rows before it (the slots they
+//    suppress; a warp OR of up to 64w loads in parallel), marks the
+//    invalid slots as removed too, and then decides its 64 slots in
+//    order: slot 64 w + b is kept iff bit b is clear, and a kept slot
+//    ORs in its own row's word w (the later slots of the word it
+//    suppresses). The rows of the word are loaded before the OR, and
+//    broadcast by shuffles that do not wait on the decisions, so a step
+//    of the serial chain is a bit test and an OR in registers. A kept
+//    word is written to shared memory for the later words' ORs.
+// Two launches a call: the serving call has one device op more than with
+// the first design.
 //
 // Numerics: the IoU is written op for op as ops/nms.py::pairwise_iou,
 // with explicitly rounded intrinsics (and -fmad=false), so no multiply and
-// add are contracted into an FMA, and with IEEE division. The result is
-// bit-equal to the plain PyTorch version and to the host numpy oracle.
-// Degenerate boxes give 0/0 = NaN, and NaN > threshold is false on both.
+// add are contracted into an FMA, and with IEEE division; the earlier
+// box's operands come first, as in the first design (IEEE min, max and
+// add are commutative besides). The result is bit-equal to the plain
+// PyTorch version, to the host numpy oracle and to the first design.
+// Degenerate boxes give 0/0 = NaN, and NaN > threshold is false on all.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 128;
+typedef unsigned long long u64;
 
-__global__ void __launch_bounds__(kThreads)
-nms_suppress_kernel(const float* __restrict__ cand,
-                    const uint8_t* __restrict__ valid,
-                    uint8_t* __restrict__ keep, int k, float thr) {
+constexpr int kWord = 64;            // slots a mask word covers
+constexpr int kChainThreads = 128;
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ float box_area(float4 q) {
+  return __fmul_rn(__fsub_rn(q.z, q.x), __fsub_rn(q.w, q.y));
+}
+
+// IoU(e, x) > thr of an earlier box e and a later box x (area ea, xa)
+__device__ __forceinline__ bool overlaps(float el, float et, float er,
+                                         float eb, float ea, float xl,
+                                         float xt, float xr, float xb,
+                                         float xa, float thr) {
+  const float iw = fmaxf(__fsub_rn(fminf(er, xr), fmaxf(el, xl)), 0.0f);
+  const float ih = fmaxf(__fsub_rn(fminf(eb, xb), fmaxf(et, xt)), 0.0f);
+  const float inter = __fmul_rn(iw, ih);
+  return __fdiv_rn(inter, __fsub_rn(__fadd_rn(ea, xa), inter)) > thr;
+}
+
+// Block (c, rb * words + w): rows 64 rb .. of problem c against the
+// slots of word w; blocks below the diagonal (w < rb) have nothing to do.
+__global__ void __launch_bounds__(kWord)
+nms_mask_kernel(const float* __restrict__ cand,
+                const uint8_t* __restrict__ valid, u64* __restrict__ mask,
+                int k, int words, float thr) {
+  const int rb = blockIdx.y / words;
+  const int w = blockIdx.y - rb * words;
+  if (w < rb) return;
+  __shared__ float sl[kWord], st[kWord], sr[kWord], sb[kWord], sa[kWord];
+  const size_t base = static_cast<size_t>(blockIdx.x) * k;
+  const float4* box = reinterpret_cast<const float4*>(cand) + base;
+  const int t = threadIdx.x;
+  const int j0 = w * kWord;
+  if (j0 + t < k) {
+    const float4 q = box[j0 + t];
+    sl[t] = q.x;
+    st[t] = q.y;
+    sr[t] = q.z;
+    sb[t] = q.w;
+    sa[t] = box_area(q);
+  }
+  __syncthreads();
+  const int i = rb * kWord + t;
+  if (i >= k) return;
+  u64 bits = 0;
+  if (valid[base + i]) {
+    const float4 q = box[i];
+    const float a = box_area(q);
+    const int n = min(kWord, k - j0);
+    for (int b = max(0, i - j0 + 1); b < n; ++b)
+      if (overlaps(q.x, q.y, q.z, q.w, a, sl[b], st[b], sr[b], sb[b], sa[b],
+                   thr))
+        bits |= 1ull << b;
+  }
+  mask[(base + i) * words + w] = bits;
+}
+
+// One warp per problem; kept[w] in shared memory holds word w's kept bits.
+__global__ void __launch_bounds__(32)
+nms_scan_kernel(const uint8_t* __restrict__ valid,
+                const u64* __restrict__ mask, uint8_t* __restrict__ keep,
+                int k, int words) {
+  extern __shared__ u64 kept[];
+  const int lane = threadIdx.x;
+  const size_t base = static_cast<size_t>(blockIdx.x) * k;
+  const uint8_t* v = valid + base;
+  const u64* m = mask + base * words;
+
+  int last = 0;
+  for (int j = lane; j < k; j += 32)
+    if (v[j]) last = j + 1;
+  const int bound = static_cast<int>(
+      __reduce_max_sync(kFull, static_cast<unsigned>(last)));
+  const int nw = (bound + kWord - 1) / kWord;
+
+  for (int w = 0; w < nw; ++w) {
+    const int j0 = w * kWord;
+    const int lo = j0 + lane, hi = j0 + 32 + lane;
+    // the word's own rows (word w of rows j0 .. j0 + 63)
+    const u64 d_lo = lo < k ? m[static_cast<size_t>(lo) * words + w] : 0;
+    const u64 d_hi = hi < k ? m[static_cast<size_t>(hi) * words + w] : 0;
+    // the slots of word w that the kept rows before it suppress
+    u64 acc = 0;
+#pragma unroll 4
+    for (int i = lane; i < j0; i += 32)
+      if ((kept[i / kWord] >> (i % kWord)) & 1)
+        acc |= m[static_cast<size_t>(i) * words + w];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      acc |= __shfl_xor_sync(kFull, acc, off);
+    const unsigned ok_lo = __ballot_sync(kFull, lo < k && v[lo]);
+    const unsigned ok_hi = __ballot_sync(kFull, hi < k && v[hi]);
+    // removed: suppressed, or not a valid slot (it never suppresses)
+    u64 cur = acc | ~((static_cast<u64>(ok_hi) << 32) | ok_lo);
+#pragma unroll
+    for (int b = 0; b < 32; ++b) {
+      const u64 row = __shfl_sync(kFull, d_lo, b);
+      if (!((cur >> b) & 1)) cur |= row;
+    }
+#pragma unroll
+    for (int b = 0; b < 32; ++b) {
+      const u64 row = __shfl_sync(kFull, d_hi, b);
+      if (!((cur >> (32 + b)) & 1)) cur |= row;
+    }
+    if (lane == 0) kept[w] = ~cur;
+    __syncwarp();
+  }
+
+  for (int j = lane; j < k; j += 32)
+    keep[base + j] =
+        j < nw * kWord ? static_cast<uint8_t>((kept[j / kWord] >>
+                                               (j % kWord)) & 1)
+                       : 0;
+}
+
+// The first design, kept for A/B timing (entry nms_suppress_chain): one
+// thread block per problem, the boxes in shared memory as l/t/r/b planes
+// plus the areas, and each step i one `__syncthreads_or` over "some kept
+// j < i that I own has IoU(j, i) > threshold", after which the owner of
+// i records valid[i] && !hit. Thread `tid` owns slots tid, tid + T, ...,
+// the only thread that reads or writes their keep flags.
+__global__ void __launch_bounds__(kChainThreads)
+nms_suppress_chain_kernel(const float* __restrict__ cand,
+                          const uint8_t* __restrict__ valid,
+                          uint8_t* __restrict__ keep, int k, float thr) {
   extern __shared__ float smem[];
   float* l = smem;
   float* t = l + k;
@@ -55,13 +194,13 @@ nms_suppress_kernel(const float* __restrict__ cand,
   if (tid == 0) s_bound = 0;
   __syncthreads();
   int my_bound = 0;
-  for (int j = tid; j < k; j += kThreads) {
+  for (int j = tid; j < k; j += kChainThreads) {
     const float4 q = box[j];
     l[j] = q.x;
     t[j] = q.y;
     r[j] = q.z;
     b[j] = q.w;
-    area[j] = __fmul_rn(__fsub_rn(q.z, q.x), __fsub_rn(q.w, q.y));
+    area[j] = box_area(q);
     kept[j] = 0;
     if (v[j]) my_bound = j + 1;
   }
@@ -72,41 +211,51 @@ nms_suppress_kernel(const float* __restrict__ cand,
   for (int i = 0; i < bound; ++i) {
     const float li = l[i], ti = t[i], ri = r[i], bi = b[i], ai = area[i];
     int hit = 0;
-    for (int j = tid; j < i; j += kThreads) {
-      if (kept[j]) {
-        const float iw = fmaxf(__fsub_rn(fminf(r[j], ri), fmaxf(l[j], li)),
-                               0.0f);
-        const float ih = fmaxf(__fsub_rn(fminf(b[j], bi), fmaxf(t[j], ti)),
-                               0.0f);
-        const float inter = __fmul_rn(iw, ih);
-        const float iou =
-            __fdiv_rn(inter, __fsub_rn(__fadd_rn(area[j], ai), inter));
-        hit |= iou > thr;
-      }
-    }
+    for (int j = tid; j < i; j += kChainThreads)
+      if (kept[j])
+        hit |= overlaps(l[j], t[j], r[j], b[j], area[j], li, ti, ri, bi, ai,
+                        thr);
     hit = __syncthreads_or(hit);
-    if (i % kThreads == tid) kept[i] = (v[i] && !hit) ? 1 : 0;
+    if (i % kChainThreads == tid) kept[i] = (v[i] && !hit) ? 1 : 0;
   }
 
-  for (int j = tid; j < k; j += kThreads) keep[base + j] = kept[j];
+  for (int j = tid; j < k; j += kChainThreads) keep[base + j] = kept[j];
 }
 
 }  // namespace
 
-// cand [c, k, 4] f32 contiguous, valid [c, k] u8 -> keep [c, k] u8.
-// Returns a cudaError_t code (0 on success).
+// cand [c, k, 4] f32 contiguous, valid [c, k] u8 -> keep [c, k] u8, with
+// `mask` a [c, k, ceil(k/64)] u64 workspace. Returns a cudaError_t code
+// (0 on success).
 extern "C" int nms_suppress(const float* cand, const uint8_t* valid,
-                            uint8_t* keep, int c, int k, float thr,
-                            cudaStream_t stream) {
+                            uint8_t* keep, u64* mask, int c, int k,
+                            float thr, cudaStream_t stream) {
+  if (c == 0 || k == 0) return 0;
+  const int words = (k + kWord - 1) / kWord;
+  if (mask == nullptr || words * words > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  nms_mask_kernel<<<dim3(c, words * words), kWord, 0, stream>>>(
+      cand, valid, mask, k, words, thr);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  nms_scan_kernel<<<c, 32, words * sizeof(u64), stream>>>(valid, mask, keep,
+                                                          k, words);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The first design's entry, same contract without the workspace.
+extern "C" int nms_suppress_chain(const float* cand, const uint8_t* valid,
+                                  uint8_t* keep, int c, int k, float thr,
+                                  cudaStream_t stream) {
   if (c == 0 || k == 0) return 0;
   const size_t smem = static_cast<size_t>(k) * (5 * sizeof(float) + 1);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        nms_suppress_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        nms_suppress_chain_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  nms_suppress_kernel<<<c, kThreads, smem, stream>>>(cand, valid, keep, k,
-                                                      thr);
+  nms_suppress_chain_kernel<<<c, kChainThreads, smem, stream>>>(
+      cand, valid, keep, k, thr);
   return static_cast<int>(cudaGetLastError());
 }

@@ -174,6 +174,9 @@ extern "C" int pointwise_conv_block(const void* x, const void* w,
   p.ci = ci;
   p.co = co;
   p.ksize = 1;
+  p.oh = 1;
+  p.ow = m;
+  p.stride = 1;
   p.alpha = alpha;
   p.bm = bm;
   p.bk = bk;

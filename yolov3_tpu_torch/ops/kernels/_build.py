@@ -34,7 +34,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "yolov3_tpu_torch")
 # the libraries; `s2d_region_block_q` also holds the `s2d_tail_block_q`
-# entry point
+# entry point, `nms_suppress` its first design `nms_suppress_chain`
 KERNELS = ("nms_suppress", "pointwise_conv_block", "pointwise_conv_block_q",
            "conv3x3_block_q", "down_conv_block_q", "exit_conv_block_q",
            "s2d_region_block_q", "greedy_suppress")

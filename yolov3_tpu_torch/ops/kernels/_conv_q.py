@@ -2,19 +2,18 @@
 their arithmetic, the tile plan of the Hopper core, and the ctypes launch
 of their CUDA entry points.
 
-The 1x1 and 3x3 kernels (`csrc/pointwise_conv_block_q.cu`,
-`conv3x3_block_q.cu`) run one wgmma + TMA implicit GEMM
-(`csrc/conv_gemm_q_sm90.cuh`) under the tile plan `conv_plan` picks per
-launch (the bf16 1x1 of `conv_block.py` runs the same core with bf16
-operands, planned here too); the stride-2 kernel
-(`down_conv_block_q.cu`) and the `*_wmma` entries (the 1x1 and 3x3 on
-the older core, for A/B timing) run the WMMA core
-(`csrc/conv_block_q.cuh`). Each has its own entry point and
-contract. The modules `pointwise_q`, `conv3x3_q` and `down_conv_q` are
-their public wrappers. Layouts: activations NHWC; weights `w_t` [taps,
-Co, Ci] s8 (each output channel's K contiguous, the kernels' B layout);
-`epi` [3, Co] f32 rows (b/dq, mul*dq, add), or [4, Co] for the wgmma
-kernels with 1/s_next per channel in row 3.
+The 1x1, 3x3 and stride-2 kernels (`csrc/pointwise_conv_block_q.cu`,
+`conv3x3_block_q.cu`, `down_conv_block_q.cu`) run one wgmma + TMA
+implicit GEMM (`csrc/conv_gemm_q_sm90.cuh`) under the tile plan
+`conv_plan` picks per launch (the bf16 1x1 of `conv_block.py` runs the
+same core with bf16 operands, planned here too); their `*_wmma` entries
+(the same contracts on the older core, for A/B timing) run the WMMA core
+(`csrc/conv_block_q.cuh`), as does the exit conv. Each has its own
+entry point and contract. The modules `pointwise_q`, `conv3x3_q` and
+`down_conv_q` are their public wrappers. Layouts: activations NHWC;
+weights `w_t` [taps, Co, Ci] s8 (each output channel's K contiguous, the
+kernels' B layout); `epi` [3, Co] f32 rows (b/dq, mul*dq, add), or
+[4, Co] for the wgmma kernels with 1/s_next per channel in row 3.
 
 The plain version sums the int8 products in float64, which is exact
 below 2^53 (the largest |acc| here is 9 * 1024 * 127^2 ~ 1.5e8), then runs
@@ -38,7 +37,8 @@ BF16 = torch.bfloat16
 IN_KINDS = {torch.int8: 0, BF16: 1, F32: 2}
 # the kernels on the wgmma core; NAME + "_wmma" is the same contract on the
 # WMMA core, in the same library
-WGMMA_KERNELS = ("pointwise_conv_block_q", "conv3x3_block_q")
+WGMMA_KERNELS = ("pointwise_conv_block_q", "conv3x3_block_q",
+                 "down_conv_block_q")
 SMS = 132              # H100 SXM streaming multiprocessors
 SMEM_BYTES = 232448    # shared memory a block can use
 MAX_STAGES = 5
@@ -47,7 +47,12 @@ MAX_STAGES = 5
 # read by nine taps), which beats a fifth stage on the H100 (PERF.md)
 FLOAT_MAX_STAGES = 4
 # a float input's A rows cost this many weight rows: the producer loads
-# and quantizes them instead of one TMA copy
+# and quantizes them instead of one TMA copy (one of the four is the
+# row's bytes from L2; at stride 2 a tile's nine taps share a quarter as
+# many pixels through L1, each input pixel read by ~2.25 taps instead of
+# 9, so those bytes count stride^2 times). A BM = 64 block has two
+# converting producer warpgroups (the block is three warpgroups), which
+# halves the cost of its rows.
 FLOAT_A_COST = 4
 # (pixels, channels) of a block's output tile
 TILES = ((128, 256), (128, 128), (64, 256), (64, 128), (128, 64), (64, 64),
@@ -57,7 +62,8 @@ _fns = {}
 
 class Plan(NamedTuple):
     """A wgmma launch's tiles: BM output pixels (a TH x TW rectangle of one
-    image for the 3x3; TH = 1, TW = BM for the 1x1) x BN output channels,
+    output image for the 3x3s; TH = 1, TW = BM for the 1x1) x BN output
+    channels,
     K steps of BK bytes (64 or 128, the TMA / wgmma swizzle span: 64 or
     128 s8 channels, 32 or 64 bf16 ones), and a ring of `stages` (A, B)
     tiles in shared memory."""
@@ -71,14 +77,16 @@ class Plan(NamedTuple):
 
 def smem_bytes(plan: Plan) -> int:
     """Dynamic shared memory of a launch (csrc/conv_gemm_q_sm90.cuh::
-    smem_bytes): 1 KB of alignment slack, the ring and its barriers."""
-    return 1024 + plan.stages * ((plan.bm + plan.bn) * plan.bk + 16)
+    smem_bytes): 1 KB of alignment slack, the ring and its barriers, and
+    each consumer warpgroup's copy of the tile's four epilogue rows."""
+    return (1024 + plan.stages * ((plan.bm + plan.bn) * plan.bk + 16)
+            + plan.bm // 64 * 16 * plan.bn)
 
 
 def plan_tiles(plan: Plan, n: int, h: int, w: int, co: int,
                 ksize: int) -> int:
-    """Output tiles of a launch under `plan` (the kernel runs
-    min(tiles, SMS) persistent blocks that walk them)."""
+    """Output tiles of a launch under `plan` over an [n, h, w, co] output
+    (the kernel runs min(tiles, SMS) persistent blocks that walk them)."""
     if ksize == 1:
         mtiles = -(-(n * h * w) // plan.bm)
     else:
@@ -87,56 +95,69 @@ def plan_tiles(plan: Plan, n: int, h: int, w: int, co: int,
 
 
 def plan_cost(plan: Plan, n: int, h: int, w: int, ci: int, co: int,
-              ksize: int, float_in: bool = False, esize: int = 1) -> int:
+              ksize: int, float_in: bool = False, esize: int = 1,
+              stride: int = 1) -> int:
     """The plan's time in the planner's model: the bytes one SM streams
     from L2, K steps of (BM + BN) x BK bytes a tile (a float input's A
-    rows FLOAT_A_COST times over; `esize` bytes an operand), over
-    ceil(tiles / SMS) tiles. On the H100 every SM's stream runs at about
-    the same rate whether or not the others are busy, so fewer, larger
-    tiles win until they leave SMs idle."""
+    rows FLOAT_A_COST times over, its L2 bytes stride^2 times, over its
+    3 - BM/64 producer warpgroups; `esize` bytes an operand), over
+    ceil(tiles / SMS) tiles of the output. On the H100 every SM's stream
+    runs at about the same rate whether or not the others are busy, so
+    fewer, larger tiles win until they leave SMs idle."""
     steps = ksize * ksize * -(-(ci * esize) // plan.bk)
-    waves = -(-plan_tiles(plan, n, h, w, co, ksize) // SMS)
-    a_rows = plan.bm * (FLOAT_A_COST if float_in else 1)
+    waves = -(-plan_tiles(plan, n, -(-h // stride), -(-w // stride), co,
+                          ksize) // SMS)
+    a_rows = (plan.bm * (FLOAT_A_COST - 1 + stride * stride)
+              // (3 - plan.bm // 64) if float_in else plan.bm)
     return waves * steps * (a_rows + plan.bn) * plan.bk
 
 
 @functools.lru_cache(maxsize=None)
 def conv_plan(n: int, h: int, w: int, ci: int, co: int, ksize: int,
-              float_in: bool = False, esize: int = 1) -> Plan:
-    """The tile plan of a 1x1 (ksize 1) or 3x3 stride-1 launch on the
-    wgmma core, x [n, h, w, ci] with co output channels: s8 operands
-    (`esize` 1) on an s8 x, or a bf16 / f32 one with `float_in`; or bf16
-    operands (`esize` 2, a 1x1 on a bf16 x through TMA, channels in 8s).
+              float_in: bool = False, esize: int = 1,
+              stride: int = 1) -> Plan:
+    """The tile plan of a 1x1 (ksize 1) or 3x3 launch on the wgmma core,
+    x [n, h, w, ci] with co output channels: s8 operands (`esize` 1) on an
+    s8 x, or a bf16 / f32 one with `float_in`; or bf16 operands (`esize`
+    2, a 1x1 on a bf16 x through TMA, channels in 8s). `stride` 2: a 3x3
+    with s8 operands on a float x (the converting producer).
 
     BK: 64 or 128 bytes, whichever pads Ci's bytes less (128 on a tie).
     Tile: of TILES with BN at most Co rounded up to 32, the least
-    `plan_cost` (ties: the larger BM, then BN). 3x3 rectangle: TW the
-    power of two >= W, at most BM; TH = BM / TW. Stages: as many as fit in
-    SMEM_BYTES, at most MAX_STAGES (FLOAT_MAX_STAGES for a float input).
+    `plan_cost` (ties: the larger BM, or for a float input the smaller,
+    whose two producer warpgroups measured faster on the H100 (PERF.md);
+    then the larger BN). 3x3 rectangle: TW the
+    power of two >= the output's W, at most BM; TH = BM / TW. Stages: as
+    many as fit in SMEM_BYTES, at most MAX_STAGES (FLOAT_MAX_STAGES for a
+    float input).
     Cached: a serving call plans each of its ~64 launches again, and the
     search (~20 us of Python) would otherwise add to the host's
     dispatch."""
-    if ksize not in (1, 3) or esize not in (1, 2) or (
-            esize == 2 and (ksize != 1 or float_in)):
-        raise ValueError(f"conv_plan: no {ksize}x{ksize} kernel with "
-                         f"{esize}-byte operands (float_in={float_in})")
+    if ksize not in (1, 3) or esize not in (1, 2) or stride not in (1, 2) or (
+            esize == 2 and (ksize != 1 or float_in)) or (
+            stride == 2 and (ksize != 3 or esize != 1 or not float_in)):
+        raise ValueError(f"conv_plan: no {ksize}x{ksize} stride-{stride} "
+                         f"kernel with {esize}-byte operands "
+                         f"(float_in={float_in})")
     step = 16 // esize
     if min(n, h, w, ci, co) < 1 or ci % step or co % step:
         raise ValueError(f"conv_plan: x ({n}, {h}, {w}, {ci}) -> {co} needs "
                          f"positive sizes and channels multiple of {step}")
     kb = ci * esize
     bk = 64 if -(-kb // 64) * 64 < -(-kb // 128) * 128 else 128
+    ow = -(-w // stride)
     plans = []
     for bm, bn in TILES:
         if bn > -(-co // 32) * 32:
             continue
-        tw = bm if ksize == 1 else min(bm, 1 << (w - 1).bit_length())
+        tw = bm if ksize == 1 else min(bm, 1 << (ow - 1).bit_length())
         stages = min(FLOAT_MAX_STAGES if float_in else MAX_STAGES,
-                     (SMEM_BYTES - 1024) // ((bm + bn) * bk + 16))
+                     (SMEM_BYTES - 1024 - bm // 64 * 16 * bn)
+                     // ((bm + bn) * bk + 16))
         plans.append(Plan(bm, bn, bk, bm // tw, tw, stages))
     return min(plans, key=lambda q: (
-        plan_cost(q, n, h, w, ci, co, ksize, float_in, esize), -q.bm,
-        -q.bn))
+        plan_cost(q, n, h, w, ci, co, ksize, float_in, esize, stride),
+        q.bm if float_in else -q.bm, -q.bn))
 
 
 def same_pads(size: int, k: int, s: int) -> Tuple[int, int]:
@@ -300,7 +321,8 @@ def launch(name: str, x: torch.Tensor, w_t: torch.Tensor, epi: torch.Tensor,
     if planned:
         extra = (int(epi.shape[0] == 4),
                  *(plan or conv_plan(n, h, w, ci, co, ksize,
-                                     x.dtype != torch.int8)))
+                                     x.dtype != torch.int8,
+                                     stride=stride)))
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _kernel_fn(name, entry, planned)(
         x.data_ptr(), IN_KINDS[x.dtype], w_t.data_ptr(), epi.data_ptr(),

@@ -3,11 +3,15 @@ versions.
 
 `suppress_boxes_t` replaces `yolov3_tpu/ops/pallas/nms_kernel.py::
 suppress_boxes_pallas_t` (and `suppress_boxes_pallas`, the same contract
-in row layout). Its kernel is `csrc/nms_suppress.cu`: one thread block per
-(image, class) problem, the boxes in shared memory as l/t/r/b planes, and
-one block-wide OR per candidate up to the problem's highest valid slot. It
-is bound by that latency chain of K reductions, not by bytes; the source
-note says more.
+in row layout). Its kernel is `csrc/nms_suppress.cu`, two launches a
+call: every IoU test the recurrence could need, on the whole card, into a
+bitmask (one 64-bit word per row and 64 later slots; the workspace
+[C, K, ceil(K/64)] is allocated here), then one warp per (image, class)
+problem that decides its slots in order with a bit test and an OR in
+registers a step, up to the problem's highest valid slot. The source
+note says more. `suppress_boxes_chain` runs the first design (one block
+per problem, one block-wide OR per candidate), the same contract, for
+A/B timing only; no path calls it.
 
 `greedy_suppress` replaces `nms_kernel.py::greedy_suppress_pallas`, the
 same recurrence from a precomputed IoU slab (`csrc/greedy_suppress.cu`).
@@ -28,17 +32,22 @@ from yolov3_tpu_torch.ops.kernels import _build
 from yolov3_tpu_torch.ops.nms import _greedy_suppress, pairwise_iou
 
 NAME = "nms_suppress"
+CHAIN = "nms_suppress_chain"
 GREEDY = "greedy_suppress"
+WORD = 64  # slots of a mask word
 _fns = {}
 
 
 def _kernel_fn(name: str = NAME):
+    """The C entry point `name`: of the library `nms_suppress` (the mask +
+    scan entry, with the workspace pointer, and its chain twin) or
+    `greedy_suppress`."""
     fn = _fns.get(name)
     if fn is None:
-        fn = getattr(_build.load(name), name)
+        fn = getattr(_build.load(GREEDY if name == GREEDY else NAME), name)
         p = ctypes.c_void_p
-        fn.argtypes = [p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                       p]
+        fn.argtypes = ([p, p, p] + ([p] if name == NAME else [])
+                       + [ctypes.c_int, ctypes.c_int, ctypes.c_float, p])
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
@@ -62,8 +71,9 @@ def _check(cand: torch.Tensor, valid: torch.Tensor) -> None:
         raise ValueError("cand and valid must be on one device")
 
 
-def _launch(cand: torch.Tensor, valid: torch.Tensor,
-            iou_threshold: float) -> torch.Tensor:
+def _launch(cand: torch.Tensor, valid: torch.Tensor, iou_threshold: float,
+            entry: str = NAME) -> torch.Tensor:
+    """Launch `entry` (NAME, or its chain twin CHAIN) on CUDA tensors."""
     if cand.dtype != torch.float32 or valid.dtype != torch.bool:
         raise TypeError(f"need float32 cand and bool valid, got {cand.dtype} "
                         f"and {valid.dtype}")
@@ -71,13 +81,19 @@ def _launch(cand: torch.Tensor, valid: torch.Tensor,
         raise ValueError("cand and valid must be contiguous")
     c, k, _ = cand.shape
     if k * 21 > 227 * 1024:
+        # the chain twin holds a problem's boxes in shared memory; both
+        # entries take the same K
         raise ValueError(f"K = {k} candidates do not fit in shared memory")
     keep = torch.empty((c, k), dtype=torch.bool, device=cand.device)
+    ptrs = [cand.data_ptr(), valid.data_ptr(), keep.data_ptr()]
+    if entry == NAME:
+        mask = torch.empty((c, k, -(-k // WORD)), dtype=torch.int64,
+                           device=cand.device)
+        ptrs.append(mask.data_ptr())
     stream = torch.cuda.current_stream(cand.device).cuda_stream
-    err = _kernel_fn()(cand.data_ptr(), valid.data_ptr(), keep.data_ptr(),
-                       c, k, float(iou_threshold), stream)
-    _build.check(err, NAME)
-    _build.launch_counts[NAME] += 1
+    err = _kernel_fn(entry)(*ptrs, c, k, float(iou_threshold), stream)
+    _build.check(err, entry)
+    _build.launch_counts[entry] += 1
     return keep
 
 
@@ -89,6 +105,18 @@ def suppress_boxes_t(cand: torch.Tensor, valid: torch.Tensor,
     if cand.device.type == "cpu":
         return suppress_boxes_plain(cand, valid, iou_threshold)
     return _launch(cand, valid, iou_threshold)
+
+
+def suppress_boxes_chain(cand: torch.Tensor, valid: torch.Tensor,
+                         iou_threshold: float) -> torch.Tensor:
+    """The first design of `suppress_boxes_t`'s kernel (entry
+    nms_suppress_chain, counted under that name), on CUDA tensors only:
+    the A/B twin that chip_smoke.py and the card tests hold the kernel
+    against."""
+    _check(cand, valid)
+    if cand.device.type != "cuda":
+        raise ValueError("suppress_boxes_chain runs on CUDA tensors only")
+    return _launch(cand, valid, iou_threshold, CHAIN)
 
 
 def suppress_boxes(cand: torch.Tensor, valid: torch.Tensor,
