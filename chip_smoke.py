@@ -25,8 +25,10 @@ Phases, in order; any failure exits non-zero:
      both timed in turns (chain, kernel, kernel, chain) at each shape;
      the IoU-slab kernel (`greedy_suppress`, called once between the
      counters' reset and read on the slab of `pairwise_iou`) bit-equal to
-     its plain version and to the box kernel; the 1x1 block within rtol =
-     atol = 2e-2 in bf16 of its plain version and of its WMMA twin
+     its plain version, its first design (`greedy_suppress_chain`) and
+     the box kernel, timed in turns beside the chain; the 1x1 block
+     within rtol = atol = 2e-2 in bf16 of its plain version and of its
+     WMMA twin
      (`pointwise_conv_block_wmma`), both timed in turns per launch shape.
      Each kernel's time beside each call's bound.
   5. int8 reference check at 64 px, full width, bf16, both sides under
@@ -49,13 +51,14 @@ Phases, in order; any failure exits non-zero:
      stride-2 launches (ConvBlock_1 among them) equal to its plain version
      and its WMMA twin.
   7. Each int8 kernel against its plain version on every input the int8
-     serving calls handed it (s8 within 1 code, the 1x1, 3x3 and stride-2
-     exactly and equal to their WMMA twins; for the region, tail and exit
-     also the share of codes that differ; the region and the tail equal to
-     their first design, the `_mma` twins, timed in turns beside them),
-     and per shape the kernel's (with the 1x1's, 3x3's and stride-2's tile
-     plan, and their WMMA twins timed in turns, twin, kernel, kernel,
-     twin, as `previous_ms`), the plain version's and the library
+     serving calls handed it (s8 within 1 code, the 1x1, 3x3, stride-2
+     and exit exactly and equal to their WMMA twins; for the region, tail
+     and exit also the share of codes that differ; the region and the
+     tail equal to their first design, the `_mma` twins, timed in turns
+     beside them), and per shape the kernel's (with the 1x1's, 3x3's,
+     stride-2's and exit's tile plan, and their WMMA twins timed in turns,
+     twin, kernel, kernel, twin, as `previous_ms`), the plain version's
+     and the library
      yardstick's time
      (`torch._int_mm` on the rows or an im2col, plus the epilogue ops,
      stage by stage for the region) beside the bound; for the region also
@@ -152,7 +155,7 @@ CONV_KERNELS = ("pointwise_conv_block_q", "conv3x3_block_q",
 # the kernels on the wgmma core: exact against their plain versions and
 # against their WMMA twins (entry NAME + "_wmma")
 WGMMA_KERNELS = ("pointwise_conv_block_q", "conv3x3_block_q",
-                 "down_conv_block_q")
+                 "down_conv_block_q", "exit_conv_block_q")
 REGION_KERNELS = ("s2d_region_block_q", "s2d_tail_block_q",
                   "exit_conv_block_q")
 
@@ -454,7 +457,9 @@ def nms_case(torch, cand, valid, label):
 
 def greedy_case(torch, cand, valid, label):
     """The IoU-slab kernel (greedy_suppress) on the slab of `cand`: keep
-    bit-equal to its plain version and to the box kernel (nms_suppress)."""
+    bit-equal to its plain version, to its first design (the chain twin
+    greedy_suppress_chain) and to the box kernel (nms_suppress); the
+    kernel and the chain timed in turns."""
     from yolov3_tpu_torch.ops.kernels import nms_suppress as K
     from yolov3_tpu_torch.ops.nms import pairwise_iou
     from yolov3_tpu_torch.ops.kernels import _build as build
@@ -468,13 +473,17 @@ def greedy_case(torch, cand, valid, label):
     if launches != 1:
         raise AssertionError(f"greedy_suppress launched {launches} times")
     want = K.greedy_suppress_plain(iou, valid, 0.3)
+    chain = K.greedy_suppress_chain(iou, valid, 0.3)
     boxes = K.suppress_boxes_t(cand, valid, 0.3)
     err = float((got.int() - want.int()).abs().max())
-    if not (err == 0 and torch.equal(got, boxes)):
+    if not (err == 0 and torch.equal(got, chain)
+            and torch.equal(got, boxes)):
         raise AssertionError(f"greedy_suppress keep mask differs ({label}): "
                              f"{int((got != want).sum())} slots from plain, "
+                             f"{int((got != chain).sum())} from the chain, "
                              f"{int((got != boxes).sum())} from nms_suppress")
-    ms = device_ms(lambda: K.greedy_suppress(iou, valid, 0.3))
+    ms, previous = turns_ms(lambda: K.greedy_suppress_chain(iou, valid, 0.3),
+                            lambda: K.greedy_suppress(iou, valid, 0.3))
     event = cuda_ms(lambda: K.greedy_suppress(iou, valid, 0.3), 20)
     plain = cuda_ms(lambda: K.greedy_suppress_plain(iou, valid, 0.3), 2, 1)
     c, k = valid.shape
@@ -485,11 +494,13 @@ def greedy_case(torch, cand, valid, label):
     pairs = float(((kept.cumsum(dim=1) - kept) * valid).sum())
     b_ms, b_by = bound(pairs * 4 + 2 * c * k, pairs, F32_OPS_S)
     log(f"greedy_suppress {label} C={c} K={k} valid={int(valid.sum())}: "
-        f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.6f} ms "
+        f"kernel {ms:.4f} ms (events {event:.4f}), chain twin "
+        f"{previous:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.6f} ms "
         f"({b_by}, {pairs:.0f} IoU entries; the whole slab "
-        f"{c * k * k * 4 / 1e6:.1f} MB), keep bit-equal to plain and "
-        f"nms_suppress ({int(got.sum())} kept)")
-    return dict(label=label, c=c, k=k, ms=ms, event_ms=event, plain_ms=plain,
+        f"{c * k * k * 4 / 1e6:.1f} MB), keep bit-equal to plain, the "
+        f"chain and nms_suppress ({int(got.sum())} kept)")
+    return dict(label=label, c=c, k=k, ms=ms, previous_ms=previous,
+                event_ms=event, plain_ms=plain,
                 bound_ms=b_ms, bound_by=b_by, iou_entries=pairs,
                 slab_bytes=c * k * k * 4, max_abs_err=err,
                 launches=launches)
@@ -573,6 +584,8 @@ def wmma_twin(name, args, kw):
     entry NAME + "_wmma" of the same library, same contract); timed and
     compared here only, never on a serving path."""
     from yolov3_tpu_torch.ops.kernels import _conv_q
+    if name == "exit_conv_block_q":
+        return int8_module(name).exit_conv_block_q_wmma(*args, **kw)
     x, w_t, epi = args
     out = kw.get("out_dtype")
     res = kw.get("residual_q")
@@ -590,7 +603,7 @@ def wmma_twin(name, args, kw):
 
 
 def launch_stride(name):
-    return 2 if name == "down_conv_block_q" else 1
+    return 2 if name in ("down_conv_block_q", "exit_conv_block_q") else 1
 
 
 def launch_plan(name, args):
@@ -1014,25 +1027,31 @@ def region_chain(torch, args, kw, epi):
 def phase_region_kernels(torch, calls, exact_epi):
     """Every recorded stem-region launch (region, tail, exit) against its
     plain version on the serving inputs (s8 within 1 code, and the share
-    of codes that differ); the region and the tail also against their
-    first design (`_mma` twin): 0 codes may differ. The kernel's (and the
+    of codes that differ; the exit, on the wgmma core, exactly); each
+    against its first design (the region's and the tail's `_mma` twin,
+    the exit's WMMA twin): 0 codes may differ. The kernel's (and the
     twin's, in turns: twin, kernel, kernel, twin) and the library's device
-    times, the plain version's event time, beside the bound; for the
-    region also the unfused chain of kernels 7, 5, 6 and 7 on the same
-    input."""
+    times, the plain version's event time, beside the bound (and the
+    exit's tile plan); for the region also the unfused chain of kernels
+    7, 5, 6 and 7 on the same input."""
     summary = {}
     for name, args, kw, out in calls:
         mod = int8_module(name)
         kern, plain = getattr(mod, name), getattr(mod, f"{name}_plain")
         want = plain(*args, **kw)
         code, differ, total, _ = int8_compare(torch, out, want)
-        if code > 1:
-            raise AssertionError(f"{name}: s8 codes differ from the plain "
-                                 f"version by {code}")
+        if code > 1 or (name in WGMMA_KERNELS and differ):
+            raise AssertionError(f"{name}: {differ} s8 codes differ from the "
+                                 f"plain version, by up to {code}")
         lib_c, lib_differ, _, _ = int8_compare(
             torch, region_library(torch, name, args, kw), want)
         extra = {}
-        twin = getattr(mod, f"{name}_mma", None)
+        # the first design: the region's and the tail's `_mma`, the exit's
+        # WMMA twin
+        twin = (getattr(mod, f"{name}_mma", None)
+                or getattr(mod, f"{name}_wmma", None))
+        if name in WGMMA_KERNELS:
+            extra["plan"] = list(launch_plan(name, args))
         if twin is not None:
             t_code, t_differ, _, _ = int8_compare(torch, out,
                                                   twin(*args, **kw))
@@ -1043,6 +1062,7 @@ def phase_region_kernels(torch, calls, exact_epi):
                 lambda: twin(*args, **kw), lambda: kern(*args, **kw))
         else:
             ms = device_ms(lambda: kern(*args, **kw))
+        plan_s = f", plan {tuple(extra['plan'])}" if "plan" in extra else ""
         event = cuda_ms(lambda: kern(*args, **kw), 20)
         plain_ms = cuda_ms(lambda: plain(*args, **kw), 2, 1)
         lib = device_ms(lambda: region_library(torch, name, args, kw), 5, 2)
@@ -1059,9 +1079,9 @@ def phase_region_kernels(torch, calls, exact_epi):
                    codes_differing=differ / total,
                    library_codes_differing=lib_differ / total, **extra)
         old_s = (f", first design {extra['previous_ms']:.4f} ms (0 codes "
-                 f"differ)" if extra else "")
+                 f"differ)" if "previous_ms" in extra else "")
         log(f"{name} {row['shape']} fast={row['fast']}: kernel {ms:.4f} ms "
-            f"(events {event:.4f}){old_s}, "
+            f"(events {event:.4f}){old_s}{plan_s}, "
             f"plain {plain_ms:.4f} ms, library {lib:.4f} ms (events "
             f"{lib_event:.4f}), bound "
             f"{b_ms:.4f} ms ({b_by}), {ops / ms / 1e9:.1f} TOP/s; vs plain "
@@ -1262,7 +1282,8 @@ def main(argv=None) -> int:
          "max_abs_err": max(r["max_abs_err"] for r in greedy_rows),
          "ms": greedy["ms"], "event_ms": greedy["event_ms"],
          "plain_ms": greedy["plain_ms"], "bound_ms": greedy["bound_ms"],
-         "bound_by": greedy["bound_by"], "library_ms": None})
+         "bound_by": greedy["bound_by"], "library_ms": None,
+         "previous_ms": greedy["previous_ms"]})
     for kern in kernels:
         for key, v in kern.items():
             if isinstance(v, float) and not math.isfinite(v):

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Time the port's kernels on the wgmma core (the int8 1x1, 3x3 and
-stride-2 3x3, and the bf16 1x1) at every ConvBlock shape of the flagship
-model (512 px, filter_count 1024, block_count 8) at batch 8, under each
-tile plan, on one NVIDIA GPU.
+"""Time the port's kernels on the wgmma core (the int8 1x1, 3x3,
+stride-2 3x3 and exit, and the bf16 1x1) at every ConvBlock shape of the
+flagship model (512 px, filter_count 1024, block_count 8) at batch 8,
+under each tile plan, on one NVIDIA GPU.
 
-    python3 scripts/conv_q_sweep.py [--bf16-only]
+    python3 scripts/conv_q_sweep.py [--bf16-only | --exit-only]
 
-For each shape and input type (s8 through TMA; bf16 through the converting
-producer, the only way in at stride 2; bf16 operands for the bf16 1x1):
+For each shape and input type (s8 through TMA, at stride 2 too: the stem
+region's exit conv; bf16 through the converting producer; bf16 operands
+for the bf16 1x1):
 the plan `conv_plan` picks, the
 kernel's device time under it beside the WMMA core's (`*_wmma` entries),
 both timed in turns (WMMA, kernel, kernel, WMMA), the achieved TOP/s (or
@@ -50,6 +51,9 @@ BF16_SHAPES = ((16, 512, 1024, 3), (32, 256, 512, 3), (64, 128, 256, 3),
 # in: ConvBlock_3-5 on every route, ConvBlock_1 on the tail and exit ones
 DOWN_SHAPES = ((128, 128, 256), (64, 256, 512), (32, 512, 1024),
                (512, 32, 64))
+# (input H = W, Ci, Co) of the stem region's exit conv at b8, s8 in
+# (ConvBlock_2 on the exit route: `exit_conv_block_q`)
+EXIT_SHAPES = ((256, 64, 128),)
 # (H = W, Ci, Co) of the flagship's bf16 1x1 ConvBlocks at b8 (34 launches
 # of 9 shapes)
 PW_BF16_SHAPES = ((256, 64, 32), (128, 128, 64), (64, 256, 128),
@@ -60,7 +64,9 @@ BATCH = 8
 
 def case(rng, h, ci, co, ksize, kind, stride=1):
     """(name, x, w_t, epi, launch kwargs) of a random block: s8 or bf16 x,
-    an s8 output, the stride-1 3x3's s8 residual on an s8 input."""
+    an s8 output, the stride-1 3x3's s8 residual on an s8 input; an s8
+    input at stride 2 is the exit conv's, whose epi carries 1/s_next in
+    row 3."""
     w = torch.from_numpy((rng.standard_normal((co, ci, ksize, ksize))
                           / np.sqrt(ksize * ksize * ci)).astype(np.float32))
     b, g, o, m = (torch.from_numpy(v.astype(np.float32)) for v in (
@@ -78,11 +84,14 @@ def case(rng, h, ci, co, ksize, kind, stride=1):
         x = torch.from_numpy(rng.standard_normal(shape).astype(
             np.float32) * 2).cuda().to(torch.bfloat16)
     res = None
-    if ksize == 3 and kind == "s8":
+    if ksize == 3 and kind == "s8" and stride == 1:
         res = torch.from_numpy(rng.integers(
             -127, 128, (BATCH, h, h, co)).astype(np.int8)).cuda()
     name = ("pointwise_conv_block_q" if ksize == 1 else "conv3x3_block_q"
-            if stride == 1 else "down_conv_block_q")
+            if stride == 1 else "down_conv_block_q" if kind != "s8"
+            else "exit_conv_block_q")
+    if name == "exit_conv_block_q":
+        epi = quant.exit_epi(epi.cpu(), 1 / 9.0).cuda()
     kw = dict(ksize=ksize, stride=stride, inv_in=0.5, inv_next=9.0,
               alpha=0.2, cast_bf16=True, residual_out=res, emit_s8=True)
     return name, x, w_t, epi, kw
@@ -108,7 +117,8 @@ def sweep(h, ci, co, ksize, kind, stride=1):
         tw = bm if ksize == 1 else min(bm, 1 << (oh - 1).bit_length())
         for stages in (3, 4, 5):
             other = _conv_q.Plan(bm, bn, plan.bk, bm // tw, tw, stages)
-            if _conv_q.smem_bytes(other) > _conv_q.SMEM_BYTES:
+            staged = _conv_q.staged(other, float_in, stride)
+            if _conv_q.smem_bytes(other, staged) > _conv_q.SMEM_BYTES:
                 continue
             ms = chip_smoke.device_ms(lambda: run(plan=other))
             cost = _conv_q.plan_cost(other, BATCH, h, h, ci, co, ksize,
@@ -169,9 +179,14 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
     with torch.inference_mode():
-        for shape in PW_BF16_SHAPES:
+        for shape in (() if "--exit-only" in sys.argv[1:]
+                      else PW_BF16_SHAPES):
             sweep_bf16(*shape)
         if "--bf16-only" in sys.argv[1:]:
+            return 0
+        for h, ci, co in EXIT_SHAPES:
+            sweep(h, ci, co, 3, "s8", stride=2)
+        if "--exit-only" in sys.argv[1:]:
             return 0
         for h, ci, co in DOWN_SHAPES:
             sweep(h, ci, co, 3, "bf16", stride=2)

@@ -10,6 +10,9 @@ has the least cost in the planner's model (the bytes an SM streams from
 L2), keeps at least 120 of the card's 132 SMs busy, fits the shared
 memory and the TMA box limits;
 the shape list is checked against the launches of a small int8 forward.
+The stride-2 3x3 plans too: on a float input (`down_conv_block_q`, the
+converting producer) and on an s8 one (`exit_conv_block_q`, TMA at
+element strides of 2, whose traversal box spans 2TH x 2TW).
 """
 
 import numpy as np
@@ -379,7 +382,7 @@ def test_stride2_plan_of_small_and_odd_shapes(n, h, w, ci, co):
 
 @pytest.mark.parametrize("ksize,float_in,esize,stride", [
     (1, True, 1, 2),     # no 1x1 stride 2
-    (3, False, 1, 2),    # an s8 x: TMA copies stride-1 boxes only
+    (1, False, 1, 2),    # nor on an s8 x
     (3, True, 2, 2),     # no bf16 operands at stride 2
     (3, True, 1, 3)])    # stride 1 or 2 only
 def test_stride2_plan_raises_on_a_contract_it_cannot_meet(ksize, float_in,
@@ -387,3 +390,125 @@ def test_stride2_plan_raises_on_a_contract_it_cannot_meet(ksize, float_in,
     with pytest.raises(ValueError):
         _conv_q.conv_plan(8, 64, 64, 256, 512, ksize, float_in, esize,
                           stride=stride)
+
+
+# --- the exit conv (`exit_conv_block_q`: an s8 input at stride 2, TMA) ---
+
+def assert_s8_stride2_plan(plan, n, h, w, ci, co):
+    """A plan of the least cost whose TH x TW rectangles tile the OH x OW
+    output (TW the power of two >= OW, at most BM), whose strided TMA box
+    (2TH x 2TW) stays within BOX_MAX, at most MAX_STAGES stages that fit
+    the shared memory beside the staged output rows (the s8 stride-2
+    path)."""
+    oh, ow = -(-h // 2), -(-w // 2)
+    assert plan.tw == min(plan.bm, 1 << (ow - 1).bit_length())
+    assert plan.th * plan.tw == plan.bm
+    assert 2 * plan.tw <= _conv_q.BOX_MAX and 2 * plan.th <= _conv_q.BOX_MAX
+    tiles = _conv_q.plan_tiles(plan, n, oh, ow, co, 3)
+    assert tiles == n * -(-oh // plan.th) * -(-ow // plan.tw) * -(-co //
+                                                                  plan.bn)
+    assert tiles * plan.bm * plan.bn >= n * oh * ow * co
+    assert 2 <= plan.stages <= _conv_q.MAX_STAGES
+    assert _conv_q.staged(plan, stride=2)
+    assert _conv_q.smem_bytes(plan, True) <= _conv_q.SMEM_BYTES
+    assert plan.bk in (64, 128) and plan.bk * -(-ci // plan.bk) < ci + 64
+    cost = _conv_q.plan_cost(plan, n, h, w, ci, co, 3, stride=2)
+    for bm, bn in _conv_q.TILES:
+        if bn <= -(-co // 32) * 32:
+            tw = min(bm, 1 << (ow - 1).bit_length())
+            other = _conv_q.Plan(bm, bn, plan.bk, bm // tw, tw, 2)
+            assert cost <= _conv_q.plan_cost(other, n, h, w, ci, co, 3,
+                                             stride=2)
+
+
+@pytest.mark.parametrize("batch", [8, 64])
+def test_flagship_exit_plan(batch):
+    """The flagship exit (ConvBlock_2: s8 256^2 x 64 -> 128, a 128^2
+    output): 128 x 128 tiles of one output row (TW 128, a 256-pixel
+    strided box), K steps of 64 bytes (Ci = 64), five stages beside the
+    staged output rows, on every SM (1,024 tiles at b8)."""
+    plan = _conv_q.conv_plan(batch, 256, 256, 64, 128, 3, stride=2)
+    assert plan == _conv_q.Plan(128, 128, 64, 1, 128, 5)
+    assert_s8_stride2_plan(plan, batch, 256, 256, 64, 128)
+    assert _conv_q.plan_tiles(plan, batch, 128, 128, 128, 3) >= 1024
+
+
+@pytest.mark.parametrize("n,h,w,ci,co", [
+    (2, 9, 13, 32, 64), (1, 9, 13, 16, 16), (3, 5, 7, 64, 48),
+    (2, 300, 3, 32, 16), (1, 1, 1, 16, 16), (2, 16, 500, 64, 128)])
+def test_s8_stride2_plan_of_small_and_odd_shapes(n, h, w, ci, co):
+    """Odd sizes (SAME pads 1 top/left), outputs narrower than BM and one
+    wider than the box (OW 250: TW stays at BM <= 128)."""
+    plan = _conv_q.conv_plan(n, h, w, ci, co, 3, stride=2)
+    assert_s8_stride2_plan(plan, n, h, w, ci, co)
+
+
+def test_s8_stride2_costs_its_a_rows_once_a_tap():
+    """TMA lands only the pixels at the stride, so an s8 input's A rows
+    count once a tap as at stride 1: the exit's plan costs what the same
+    plan costs on a stride-1 3x3 of the same output; a float input's rows
+    cost FLOAT_A_COST - 1 + 4 times as much over its producers."""
+    plan = _conv_q.Plan(128, 128, 64, 1, 128, 5)
+    s2 = _conv_q.plan_cost(plan, 8, 256, 256, 64, 128, 3, stride=2)
+    assert s2 == _conv_q.plan_cost(plan, 8, 128, 128, 64, 128, 3)
+    assert s2 == 8 * 9 * (128 + 128) * 64
+    f2 = _conv_q.plan_cost(plan, 8, 256, 256, 64, 128, 3, True, stride=2)
+    assert f2 == 8 * 9 * (128 * (_conv_q.FLOAT_A_COST + 3) + 128) * 64
+
+
+def test_exit_launch_of_the_small_model():
+    """The exit launch of a small int8 forward under {exit_pallas} (64
+    px, filter_count 256, block_count 1, on the CPU): one launch, s8 in,
+    whose channels the kernel takes, and the plan `_conv_q.launch` would
+    give it on the card (the same as for its shape at any other batch)."""
+    cfg = ModelConfig(img_size=(64, 64, 3), number_classes=2,
+                      anchors=((16, 48), (48, 16)), block_count=1,
+                      filter_count=256, compute_dtype="float32")
+    params, stats = init_params(cfg, 0)
+    x = torch.from_numpy(np.random.RandomState(3).randn(2, 64, 64, 3)
+                         .astype(np.float32))
+    kernels = {"exit_pallas": True}
+    model = TQ.build_quantized_model(params, stats, cfg, "cpu",
+                                     kernels=kernels)
+    model.set_act_scales(TQ.calibrate(model, x))
+    assert model.region_route(64, 64, kernels) == "exit"
+    seen = []
+    orig = TQ.exit_conv_block_q
+
+    def record(xq, w_t, epi, **kw):
+        seen.append((xq.dtype, tuple(xq.shape), tuple(w_t.shape),
+                     tuple(epi.shape)))
+        return orig(xq, w_t, epi, **kw)
+
+    TQ.exit_conv_block_q = record
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        TQ.exit_conv_block_q = orig
+    assert len(seen) == 1
+    dtype, (n, h, w, ci), (taps, co, wci), epi = seen[0]
+    assert dtype == torch.int8 and (taps, wci) == (9, ci) and epi == (4, co)
+    assert (n, h, w, ci, co) == (2, 32, 32, 16, 32)
+    assert ci % 16 == 0 and co % 16 == 0
+    plan = _conv_q.conv_plan(n, h, w, ci, co, 3, False, stride=2)
+    assert_s8_stride2_plan(plan, n, h, w, ci, co)
+    assert (plan.th, plan.tw) == (plan.bm // 16, 16)
+
+
+@pytest.mark.parametrize("bm,bn,stages,fits", [
+    (128, 128, 5, True), (128, 128, 12, True), (128, 128, 13, False),
+    (128, 256, 7, True), (128, 256, 8, False), (64, 32, 5, True)])
+def test_staged_rows_mirror_the_kernel(bm, bn, stages, fits):
+    """The s8 output is staged in shared memory only on the s8 stride-2
+    path, when BM rows of BN + 16 bytes fit beside the ring
+    (csrc/conv_gemm_q_sm90.cuh::launch's rule); never at stride 1 or on
+    a float input."""
+    plan = _conv_q.Plan(bm, bn, 64, 1, bm, stages)
+    assert _conv_q.staged(plan, stride=2) == fits
+    assert _conv_q.smem_bytes(plan, True) == (
+        _conv_q.smem_bytes(plan) + bm * (bn + 16))
+    assert _conv_q.smem_bytes(plan) == (
+        1024 + stages * ((bm + bn) * 64 + 16) + bm // 64 * 16 * bn)
+    assert not _conv_q.staged(plan)
+    assert not _conv_q.staged(plan, True, 2)

@@ -468,43 +468,173 @@ def test_s2d_tail_equals_plain_and_twin(cuda, n, h1, w1, c, cm, co):
     assert_int8_equal(got, K.s2d_tail_block_q_mma(x, *ws[1:], epi, **kw))
 
 
-@pytest.mark.parametrize("shape,co,cast", [((2, 16, 16, 64), 128, True),
-                                           ((1, 9, 13, 32), 64, False),
-                                           ((8, 64, 64, 64), 128, True)])
-def test_exit_conv_matches_plain(cuda, shape, co, cast):
+def exit_case(rng, shape, co, cuda):
+    """s8 x, w_t and the exit's [4, Co] epi (1/s_next in row 3) of a
+    random block."""
     from yolov3_tpu_torch.ops import quant
-    from yolov3_tpu_torch.ops.kernels import exit_conv_q as K
-    rng = np.random.RandomState(shape[1] + co)
     w_t, epi3 = int8_block(rng, 3, shape[-1], co)
     epi = quant.exit_epi(epi3, 0.07).to(cuda)
-    x = int8_input(rng, shape, "s8", cuda)
-    w_t = w_t.to(cuda)
+    return int8_input(rng, shape, "s8", cuda), w_t.to(cuda), epi
+
+
+@pytest.mark.parametrize("shape,co,cast", [
+    ((2, 16, 16, 64), 128, True), ((1, 9, 13, 32), 64, False),
+    ((8, 64, 64, 64), 128, True),
+    # the flagship exit at b8 (ConvBlock_2 at 512 px), both casts
+    ((8, 256, 256, 64), 128, True), ((8, 256, 256, 64), 128, False),
+    # odd H and W (SAME pads 1 top/left), and odd H with even W
+    ((1, 9, 13, 32), 64, True), ((2, 15, 8, 16), 48, False),
+    # OH*OW < BM with N > 1; one pixel; an output wider than TW = 128
+    ((3, 5, 7, 16), 32, True), ((1, 1, 1, 16), 16, False),
+    ((1, 6, 520, 32), 32, True)])
+def test_exit_conv_matches_plain(cuda, shape, co, cast):
+    """The exit kernel (wgmma core, s8 x by strided TMA) equal to its plain
+    version and to its WMMA twin: 0 s8 codes differ."""
+    from yolov3_tpu_torch.ops.kernels import exit_conv_q as K
+    x, w_t, epi = exit_case(np.random.RandomState(shape[1] + co), shape, co,
+                            cuda)
     kw = dict(alpha=0.2, cast_bf16=cast)
     got = launched(K, lambda: K.exit_conv_block_q(x, w_t, epi, **kw))
-    assert_int8_close(got, K.exit_conv_block_q_plain(x, w_t, epi, **kw))
+    assert got.shape == (shape[0], -(-shape[1] // 2), -(-shape[2] // 2), co)
+    assert_int8_equal(got, K.exit_conv_block_q_plain(x, w_t, epi, **kw))
+    before = _build.launch_counts[K.NAME + "_wmma"]
+    assert_int8_equal(got, K.exit_conv_block_q_wmma(x, w_t, epi, **kw))
+    assert _build.launch_counts[K.NAME + "_wmma"] == before + 1
 
 
-@pytest.mark.parametrize("c,k,sparse", [(128, 512, False), (128, 512, True),
-                                        (5, 37, True)])
-def test_greedy_kernel_bit_equal(cuda, c, k, sparse):
+def exit_plans(n, h, w, ci, co):
+    """The exit's plan, and every other tile of TILES with the TW rule, at
+    2 stages and at the most that fit beside the staged output rows (and,
+    for BM = 128 and BN = 128, more than fit beside them: the common
+    path's store)."""
+    from yolov3_tpu_torch.ops.kernels import _conv_q
+    plan = _conv_q.conv_plan(n, h, w, ci, co, 3, stride=2)
+    ow = -(-w // 2)
+    plans = {plan}
+    for bm, bn in _conv_q.TILES:
+        if bn <= -(-co // 32) * 32:
+            tw = min(bm, 1 << (ow - 1).bit_length())
+            fit = [q for q in (
+                _conv_q.Plan(bm, bn, plan.bk, bm // tw, tw, stages)
+                for stages in range(2, 14)) if _conv_q.smem_bytes(q)
+                <= _conv_q.SMEM_BYTES]
+            plans.update((fit[0], max(q for q in fit if _conv_q.staged(
+                q, stride=2))))
+            if (bm, bn) == (128, 128):
+                plans.add(max(fit))
+    return sorted(plans)
+
+
+@pytest.mark.parametrize("cast", [True, False])
+def test_exit_conv_every_plan_at_the_flagship_shape(cuda, cast):
+    """Each tile plan `conv_plan` can give at the flagship exit (b8, s8
+    256^2 x 64 -> 128), each equal to the plain version and the WMMA
+    twin."""
+    from yolov3_tpu_torch.ops.kernels import _conv_q
+    from yolov3_tpu_torch.ops.kernels import exit_conv_q as K
+    shape, co = (8, 256, 256, 64), 128
+    x, w_t, epi = exit_case(np.random.RandomState(5 + cast), shape, co, cuda)
+    kw = dict(alpha=0.2, cast_bf16=cast)
+    want = K.exit_conv_block_q_plain(x, w_t, epi, **kw)
+    assert_int8_equal(K.exit_conv_block_q_wmma(x, w_t, epi, **kw), want)
+    for p in exit_plans(*shape, co):
+        assert_int8_equal(_conv_q.launch(
+            K.NAME, x, w_t, epi, ksize=3, stride=2, inv_in=1.0, inv_next=0.0,
+            plan=p, **kw), want)
+
+
+def test_exit_conv_refuses_what_it_cannot_run(cuda):
+    """A plan whose TW (or TH) would take the strided box past TMA's 256
+    elements, or whose rectangle is not BM pixels; a 3-row epi; a float
+    x."""
+    from yolov3_tpu_torch.ops.kernels import _conv_q
+    from yolov3_tpu_torch.ops.kernels import exit_conv_q as K
+    x, w_t, epi = exit_case(np.random.RandomState(6), (1, 8, 600, 16), 16,
+                            cuda)
+    kw = dict(ksize=3, stride=2, inv_in=1.0, inv_next=0.0, alpha=0.2,
+              cast_bf16=True)
+    for plan in (_conv_q.Plan(128, 32, 64, 1, 256, 4),   # TW 256
+                 _conv_q.Plan(64, 32, 64, 1, 256, 4),    # and TH*TW != BM
+                 _conv_q.Plan(128, 32, 64, 2, 32, 4)):   # TH*TW != BM
+        with pytest.raises(RuntimeError):
+            _conv_q.launch(K.NAME, x, w_t, epi, plan=plan, **kw)
+    with pytest.raises(RuntimeError):  # the exit emits 1/s_next from row 3
+        _conv_q.launch(K.NAME, x, w_t, epi[:3].contiguous(), **kw)
+    with pytest.raises(TypeError):
+        K.exit_conv_block_q(x.float(), w_t, epi, alpha=0.2, cast_bf16=True)
+
+
+def slab_cases():
+    """(c, k, slab kind, sparse): slabs of `pairwise_iou` (kind "boxes";
+    the test adds a uniform random, asymmetric one on the same valid
+    mask), and asymmetric ones holding NaNs and entries exactly at the
+    threshold (kind "nan_ties")."""
+    for c, k, sparse in ((128, 512, False), (128, 512, True), (5, 37, True),
+                         (3, 1, False), (3, 63, True), (3, 64, False),
+                         (3, 65, False), (2, 129, True), (2, 3000, True)):
+        yield c, k, "boxes", sparse
+    for c, k in ((4, 65), (3, 129), (128, 512), (2, 3000)):
+        yield c, k, "nan_ties", True
+
+
+@pytest.mark.parametrize("c,k,kind,sparse", list(slab_cases()))
+def test_greedy_kernel_bit_equal(cuda, c, k, kind, sparse):
+    """Keep masks bit-equal to the plain version and to the first design
+    (the chain twin); on `pairwise_iou` slabs also to the box kernel, and
+    on an asymmetric slab too (the kernel reads row i for candidate i).
+    One launch counted a call."""
     from yolov3_tpu_torch.ops.nms import pairwise_iou
-    cand, valid = sorted_candidates(np.random.RandomState(c + k + 1), c, k)
+    rng = np.random.RandomState(c + k + 1)
+    cand, valid = sorted_candidates(rng, c, k)
     if not sparse:
         valid[:] = True
     ct, vt = torch.from_numpy(cand).to(cuda), torch.from_numpy(valid).to(cuda)
-    iou = pairwise_iou(ct).contiguous()
+    thr = 0.3
+    if kind == "boxes":
+        iou = pairwise_iou(ct).contiguous()
+    else:
+        slab = rng.rand(c, k, k).astype(np.float32)
+        slab[rng.rand(c, k, k) < 0.1] = np.nan
+        slab[rng.rand(c, k, k) < 0.2] = np.float32(thr)
+        iou = torch.from_numpy(slab).to(cuda)
     before = _build.launch_counts[NMS.GREEDY]
-    got = NMS.greedy_suppress(iou, vt, 0.3)
+    got = NMS.greedy_suppress(iou, vt, thr)
     torch.cuda.synchronize()
     assert _build.launch_counts[NMS.GREEDY] == before + 1
     assert torch.equal(got.cpu(), NMS.greedy_suppress_plain(
-        iou.cpu(), vt.cpu(), 0.3))
-    assert torch.equal(got, NMS.suppress_boxes_t(ct, vt, 0.3))
-    # an asymmetric slab: the kernel reads row i for candidate i
-    rnd = torch.rand(c, k, k, device=cuda, generator=torch.Generator(
-        cuda).manual_seed(c))
-    assert torch.equal(NMS.greedy_suppress(rnd, vt, 0.9).cpu(),
-                       NMS.greedy_suppress_plain(rnd.cpu(), vt.cpu(), 0.9))
+        iou.cpu(), vt.cpu(), thr))
+    before = _build.launch_counts[NMS.GREEDY_CHAIN]
+    assert torch.equal(got, NMS.greedy_suppress_chain(iou, vt, thr))
+    assert _build.launch_counts[NMS.GREEDY_CHAIN] == before + 1
+    if kind == "boxes":
+        assert torch.equal(got, NMS.suppress_boxes_t(ct, vt, thr))
+        # an asymmetric slab: the kernel reads row i for candidate i
+        rnd = torch.rand(c, k, k, device=cuda, generator=torch.Generator(
+            cuda).manual_seed(c))
+        assert torch.equal(NMS.greedy_suppress(rnd, vt, 0.9).cpu(),
+                           NMS.greedy_suppress_plain(rnd.cpu(), vt.cpu(),
+                                                     0.9))
+
+
+def test_greedy_kernel_refuses_k_over_its_limit(cuda):
+    """Both IoU-slab entries take K <= 255 * 64 (the mask grid's words^2
+    blocks): the wrapper raises above it, and so does each C entry."""
+    k = NMS.GREEDY_MAX_K + 1
+    iou = torch.empty((1, k, k), device=cuda)
+    valid = torch.ones((1, k), dtype=torch.bool, device=cuda)
+    for fn in (NMS.greedy_suppress, NMS.greedy_suppress_chain):
+        with pytest.raises(ValueError):
+            fn(iou, valid, 0.3)
+    del iou
+    stream = torch.cuda.current_stream().cuda_stream
+    dummy = valid.data_ptr()
+    assert NMS._kernel_fn(NMS.GREEDY)(dummy, dummy, dummy, dummy, 1, k, 0.3,
+                                      stream) != 0
+    assert NMS._kernel_fn(NMS.GREEDY_CHAIN)(dummy, dummy, dummy, 1, k, 0.3,
+                                            stream) != 0
+    k = NMS.GREEDY_MAX_K
+    assert NMS._kernel_fn(NMS.GREEDY_CHAIN)(dummy, dummy, dummy, 0, k, 0.3,
+                                            stream) == 0
 
 
 def test_region_kernels_raise_on_what_they_do_not_take(cuda):

@@ -402,7 +402,11 @@ def slab_case(seed, c, k, sparse):
     return cand, np.arange(k)[None, :] < counts[:, None]
 
 
-@pytest.mark.parametrize("c,k,sparse", [(6, 64, True), (3, 40, False)])
+@pytest.mark.parametrize("c,k,sparse", [
+    (6, 64, True), (3, 40, False),
+    # the 64-slot mask words' edges
+    (3, 1, False), (3, 63, True), (2, 64, False), (3, 65, False),
+    (2, 129, True)])
 def test_greedy_suppress_matches_jax(c, k, sparse):
     cand, valid = slab_case(c + k, c, k, sparse)
     iou = pairwise_iou(torch.from_numpy(cand))
@@ -419,3 +423,28 @@ def test_greedy_suppress_matches_jax(c, k, sparse):
     want = greedy_suppress_pallas(jnp.asarray(rnd), jnp.asarray(valid), 0.9,
                                   interpret=True)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("k", [1, 63, 64, 65, 129])
+def test_greedy_suppress_nan_and_ties_match_jax(k):
+    """An asymmetric slab holding NaNs and entries exactly at the
+    threshold (float32(0.3)), on sparse valid rows: neither a NaN nor a
+    tie suppresses (`>` is false on both), in the plain version and in
+    JAX's kernel (interpret mode) alike."""
+    rng = np.random.RandomState(k + 7)
+    c, thr = 3, 0.3
+    rnd = rng.rand(c, k, k).astype(np.float32)
+    rnd[rng.rand(c, k, k) < 0.2] = np.nan
+    rnd[rng.rand(c, k, k) < 0.3] = np.float32(thr)
+    valid = rng.rand(c, k) < 0.8
+    got = NMS.greedy_suppress(torch.from_numpy(rnd), torch.from_numpy(valid),
+                              thr)
+    want = greedy_suppress_pallas(jnp.asarray(rnd), jnp.asarray(valid), thr,
+                                  interpret=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # the slab's NaNs and ties change the answer: with them read as
+    # suppressing, fewer slots are kept
+    hot = torch.from_numpy(np.where(np.isnan(rnd) | (rnd == np.float32(thr)),
+                                    np.float32(1.0), rnd))
+    assert int(NMS.greedy_suppress(hot, torch.from_numpy(valid),
+                                   thr).sum()) < int(got.sum()) or k == 1

@@ -1,9 +1,9 @@
-// WMMA core of the port's exit ConvBlock for Hopper (sm_90a):
-// exit_conv_block_q.cu (3x3 stride 2, s8 in). The 1x1, 3x3 and stride-2
-// (float in) kernels run conv_gemm_q_sm90.cuh and keep this core only as
-// their `*_wmma` A/B entries. Each .cu file includes this header and
-// exposes C entry points that check their own contract before they
-// launch.
+// WMMA core of the port's first int8 ConvBlock kernels for Hopper
+// (sm_90a). The 1x1, 3x3, stride-2 (float in) and exit (stride 2, s8 in)
+// kernels all run conv_gemm_q_sm90.cuh now and keep this core only as
+// their `*_wmma` A/B entries, which no serving path calls. Each .cu file
+// includes this header and exposes C entry points that check their own
+// contract before they launch.
 //
 // One implicit GEMM over NHWC tensors, exact in int32:
 //
@@ -288,8 +288,9 @@ inline int launch(const Params& p, int x_kind, cudaStream_t stream) {
 
 }  // namespace convq
 
-// The C entry point every int8 ConvBlock kernel exposes; `check` is the
-// kernel's own contract (a cudaErrorInvalidValue when it is broken).
+// The C entry point every int8 ConvBlock's WMMA twin exposes (the wgmma
+// entry's arguments without the tile plan); `check` is the kernel's own
+// contract (a cudaErrorInvalidValue when it is broken).
 #define CONVQ_ENTRY(NAME, CHECK)                                            \
   extern "C" int NAME(                                                      \
       const void* x, int x_kind, const int8_t* w, const float* epi,         \
@@ -297,12 +298,13 @@ inline int launch(const Params& p, int x_kind, cudaStream_t stream) {
       void* out_f, int out_f_bf16, int n, int h, int wd, int ci, int co,    \
       int oh, int ow, int ksize, int stride, int pad_t, int pad_l,          \
       float inv_in, float inv_next, float res_scale, float alpha,           \
-      int cast_bf16, cudaStream_t stream) {                                 \
+      int cast_bf16, int inv_next_row, cudaStream_t stream) {               \
     if (!(CHECK)) return static_cast<int>(cudaErrorInvalidValue);           \
     const convq::Params p{x,     w,      epi,      res_in,   res_out,       \
                           out_s8, out_f, out_f_bf16, n,      h,             \
                           wd,     ci,    co,       oh,       ow,            \
                           ksize,  stride, pad_t,   pad_l,    inv_in,        \
-                          inv_next, res_scale, alpha, cast_bf16};           \
+                          inv_next, res_scale, alpha, cast_bf16,            \
+                          inv_next_row};                                    \
     return convq::launch(p, x_kind, stream);                                \
   }

@@ -1,7 +1,8 @@
 // Hopper-native core of the port's int8 1x1, 3x3 and 3x3 stride-2
-// ConvBlock kernels and of its bf16 1x1 ConvBlock (sm_90a):
-// pointwise_conv_block_q.cu, conv3x3_block_q.cu and down_conv_block_q.cu
-// include it and expose one C entry point each (CONVQ90_ENTRY),
+// ConvBlock kernels (float or s8 input) and of its bf16 1x1 ConvBlock
+// (sm_90a): pointwise_conv_block_q.cu, conv3x3_block_q.cu,
+// down_conv_block_q.cu and exit_conv_block_q.cu include it and expose one
+// C entry point each (CONVQ90_ENTRY),
 // pointwise_conv_block.cu one more (bf16 operands); each checks its own
 // contract and the tile plan before it launches. The
 // operand type is one template parameter (OP) of one kernel: the ring,
@@ -22,7 +23,7 @@
 //     acc[p, o] = sum_{u,v} sum_c q(x[n, oh*s - pt + u, ow*s - pl + v, c])
 //                                * W[u, v][o, c]
 //
-// (stride s 1, or 2 for the 3x3 on a float x; pt, pl the XLA SAME pads)
+// (stride s 1, or 2 for a 3x3 on any x; pt, pl the XLA SAME pads)
 // with the taps outside the image reading zeros, then the same float32
 // epilogue op by op (see conv_block_q.cuh; -fmad=false, rintf): b/dq,
 // leaky, mul*dq, add, the optional bf16 casts, the s8 residual, the
@@ -35,7 +36,9 @@
 // by the tensor cores, the 128^2 stage by its bytes. The 1x1s do
 // 2*M*Ci*Co over M*(Ci + Co) bytes, 20..340 a byte: all bound by bytes.
 // The stride-2 3x3s (bf16 in) do 2*M*9*C*Co over about 4*M*C*2 + M*Co
-// bytes (M output pixels), 140..2300 a byte. All were held back by
+// bytes (M output pixels), 140..2300 a byte; the stem region's exit (s8
+// in, 256^2 x 64 -> 128) ~380 a byte, bound by its bytes. All were held
+// back by
 // latency, not by either bound: WMMA fragments, and a K loop that waited
 // on device memory at every step. On this core the s8 launches are bound
 // by the L2 -> SM stream of their tiles (each SM draws ~36 GB/s from L2
@@ -54,11 +57,13 @@
 //   overlap this tile's epilogue;
 // - s8 inputs through TMA. The 1x1's A is a 2D map over [M, Ci]. The
 //   3x3's A is a 4D map over [N, H, W, Ci], and a block's pixels are a
-//   TH x TW rectangle of one image (TH*TW = BM): tap (u, v) is then the
-//   same box at (oh0 + u - 1, ow0 + v - 1), and TMA's zero fill of the
-//   elements outside the tensor IS the SAME padding (and the ragged Ci,
-//   Co and pixel edges). Weights: a 3D map over [taps, Co, Ci]. TMA
-//   copies stride-1 boxes only, so the stride-2 3x3 takes a float x;
+//   TH x TW rectangle of one output image (TH*TW = BM): tap (u, v) is
+//   then the same box at (oh0*s - pt + u, ow0*s - pl + v), and TMA's zero
+//   fill of the elements outside the tensor IS the SAME padding (and the
+//   ragged Ci, Co and pixel edges). At stride 2 the map traverses H and W
+//   with element strides of 2 (a 2TH x 2TW traversal box, so TW <= 128)
+//   and lands the same dense TH x TW x BK box. Weights: a 3D map over
+//   [taps, Co, Ci];
 // - bf16 and f32 inputs: the producer warpgroups load 16 channels at a
 //   time, four chunks' loads in flight together, quantizes them to the
 //   codes of conv_block_q.cuh's load_a16 (the 1x1's requantized residual
@@ -73,6 +78,12 @@
 //   channels (4, 8 or 16 bytes) at a time; the tile's epilogue rows are
 //   copied into shared memory once a tile (read from device memory, each
 //   4-channel step would wait for its own loads);
+// - the s8 stride-2 path (RES, the exit's library alone; a ~20% faster
+//   exit on the H100, PERF.md): each consumer warpgroup makes every s8
+//   code of its tile before it stores any (the bf16 cast and the
+//   quantize on the integer and FMA pipes, bf16_round_bits and
+//   quantize_bits, rather than the conversion pipe), stages them in
+//   shared memory and writes whole pixels' channels 16 bytes a thread;
 // - the tile plan (BM 64 or 128 pixels, BN 32/64/128/256 channels, BK 64
 //   or 128 bytes, TH x TW, stages) is chosen per launch in Python
 //   (ops/kernels/_conv_q.py::conv_plan): the largest tiles that keep the
@@ -405,6 +416,17 @@ __device__ __forceinline__ uint32_t quantize_bits(float v, float inv) {
   return __float_as_uint(__fadd_rn(c, 12582912.0f));
 }
 
+// bf16_round on the integer pipe (no conversion instruction): the
+// nearest bf16, ties to even, in the float's bits (PyTorch's own
+// round-to-nearest-even); infinities, and overflow to them, as the
+// conversion gives them, and a NaN stays a NaN (quantize_bits maps every
+// NaN to -127, as quantize does)
+__device__ __forceinline__ float bf16_round_bits(float v) {
+  const uint32_t u = __float_as_uint(v);
+  const uint32_t r = (u + 0x7fffu + ((u >> 16) & 1u)) & 0xffff0000u;
+  return v != v ? v : __uint_as_float(r);
+}
+
 // the low bytes of a, b, c, d as one word (a lowest)
 __device__ __forceinline__ uint32_t pack4(uint32_t a, uint32_t b, uint32_t c,
                                           uint32_t d) {
@@ -546,6 +568,36 @@ __device__ __forceinline__ void epilogue4(const Params& p, const float* e,
   if (p.out_s8 != nullptr) *reinterpret_cast<uint32_t*>(p.out_s8 + o) = q.u;
 }
 
+// The s8 stride-2 path's epilogue of the same four channels (an s8
+// output alone, no residual: the exit's): epilogue4's codes, returned
+// packed (channel lc lowest) for the caller to stage. The bf16 cast and
+// the quantize run on the integer and FMA pipes (bf16_round_bits,
+// quantize_bits; the same codes) rather than the conversion pipe, which
+// the flagship exit's epilogue waited on (PERF.md).
+template <int BN>
+__device__ __forceinline__ uint32_t codes4(const Params& p, const float* e,
+                                           const uint32_t (&acc)[4],
+                                           int lc) {
+  float b[4], m[4], a[4], iv[4];
+  row4(e, lc, b);
+  row4(e + BN, lc, m);
+  row4(e + 2 * BN, lc, a);
+  if (p.epi_inv != nullptr)
+    row4(e + 3 * BN, lc, iv);
+  else
+    iv[0] = iv[1] = iv[2] = iv[3] = p.inv_next;
+  uint32_t q[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float v = __fadd_rn(__int2float_rn(static_cast<int>(acc[i])), b[i]);
+    v = v >= 0.0f ? v : __fmul_rn(p.alpha, v);
+    v = __fadd_rn(__fmul_rn(v, m[i]), a[i]);
+    if (p.cast_bf16) v = bf16_round_bits(v);
+    q[i] = quantize_bits(v, iv[i]);
+  }
+  return pack4(q[0], q[1], q[2], q[3]);
+}
+
 // The bf16 1x1's epilogue of the same four channels from their f32 sums
 // (the bits in acc), conv_block_kernel.py's: leaky(acc + bias) * mul + add
 template <int BN>
@@ -568,8 +620,10 @@ __device__ __forceinline__ void epilogue4_f(const Params& p, const float* e,
 // --- the kernel -------------------------------------------------------------
 
 // BN output channels a tile, x of kind KIND, operands OP (a bf16 x is
-// quantized by the producer for s8 operands, copied by TMA for bf16 ones)
-template <int BN, int KIND, int OP>
+// quantized by the producer for s8 operands, copied by TMA for bf16 ones);
+// RES: the s8 stride-2 path (the exit; launch's rule), the s8 output
+// staged in shared memory
+template <int BN, int KIND, int OP, bool RES>
 __global__ void __launch_bounds__(3 * kWG, 1)
 conv_gemm_q_kernel(const __grid_constant__ Params p,
                    const __grid_constant__ CUtensorMap map_a,
@@ -623,11 +677,13 @@ conv_gemm_q_kernel(const __grid_constant__ Params p,
           const int tap = kit / p.kchunks;
           const int k0 = (kit - tap * p.kchunks) * p.bk;
           mbar_arrive_tx(full, stage_bytes);
+          // the box lands BM x BK bytes at either stride: stage_bytes
           if (p.ksize == 1)
             tma_2d(sa, &map_a, full, k0, tl.m0);
           else
-            tma_4d(sa, &map_a, full, k0, tl.ow0 + tap % 3 - 1,
-                   tl.oh0 + tap / 3 - 1, tl.img);
+            tma_4d(sa, &map_a, full, k0,
+                   tl.ow0 * p.stride - p.pad_l + tap % 3,
+                   tl.oh0 * p.stride - p.pad_t + tap / 3, tl.img);
           tma_3d(sa + a_bytes, &map_b, full, k0, tl.n0, tap);
         }
       }
@@ -737,10 +793,17 @@ conv_gemm_q_kernel(const __grid_constant__ Params p,
     const bool odd = q & 1;
     const int row = g * 64 + warp * 16 + (lane >> 2) + (odd ? 8 : 0);
     // this warpgroup's copy of a tile's epilogue rows, after the ring's
-    // barriers: four rows of BN floats
-    float* const e = reinterpret_cast<float*>(
-                         base_ptr + stages * (stage_bytes + 16)) +
-                     g * 4 * BN;
+    // barriers: four rows of BN floats; then, on the s8 stride-2 path
+    // (RES), its 64 rows of s8 codes (padded to kStageRow bytes),
+    // written out in whole 16-byte pieces once the warpgroup has made
+    // them (stored from the registers, each warp store would write 8
+    // bytes of each of 16 pixels)
+    float* const e_all =
+        reinterpret_cast<float*>(base_ptr + stages * (stage_bytes + 16));
+    float* const e = e_all + g * 4 * BN;
+    constexpr int kStageRow = BN + 16;
+    uint8_t* const staged =
+        reinterpret_cast<uint8_t*>(e_all + nwg * 4 * BN) + g * 64 * kStageRow;
     int it = 0;
     for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
       const Tile tl = tile_of<BN>(p, t);
@@ -785,6 +848,47 @@ conv_gemm_q_kernel(const __grid_constant__ Params p,
       }
       named_barrier(1 + g);
 
+      if constexpr (RES) {
+        // every code of the tile first, then the stores: a store between
+        // them would keep the next channels' epilogue rows from loading
+        // early (the compiler cannot tell them apart)
+        uint32_t codes[BN / 8];
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const uint32_t s0 = odd ? acc[4 * j] : acc[4 * j + 2];
+          const uint32_t s1 = odd ? acc[4 * j + 1] : acc[4 * j + 3];
+          const uint32_t r0 = __shfl_xor_sync(0xffffffffu, s0, 1);
+          const uint32_t r1 = __shfl_xor_sync(0xffffffffu, s1, 1);
+          const uint32_t v[4] = {odd ? r0 : acc[4 * j],
+                                 odd ? r1 : acc[4 * j + 1],
+                                 odd ? acc[4 * j + 2] : r0,
+                                 odd ? acc[4 * j + 3] : r1};
+          codes[j] = codes4<BN>(p, e, v, 8 * j + 4 * (q >> 1));
+        }
+        uint8_t* const mine =
+            staged + (row - g * 64) * kStageRow + 4 * (q >> 1);
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+          *reinterpret_cast<uint32_t*>(mine + 8 * j) = codes[j];
+        // the staged rows out, 16 bytes a thread: a warp writes four
+        // whole pixels' BN channels at a time
+        named_barrier(1 + g);
+        constexpr int kChunks = BN / 16;
+        for (int c = threadIdx.x % kWG; c < 64 * kChunks; c += kWG) {
+          const int lr = c / kChunks;
+          const int col = (c - lr * kChunks) * 16;
+          const int r = g * 64 + lr;
+          const int oh = tl.oh0 + r / p.tw;
+          const int ow = tl.ow0 + r % p.tw;
+          if (oh < p.oh && ow < p.ow && tl.n0 + col < p.co)
+            *reinterpret_cast<uint4*>(
+                p.out_s8 +
+                (static_cast<size_t>(tl.img * p.oh + oh) * p.ow + ow) * p.co +
+                tl.n0 + col) =
+                *reinterpret_cast<const uint4*>(staged + lr * kStageRow + col);
+        }
+        continue;
+      }
       bool row_ok;
       size_t orow;
       if (p.ksize == 1) {
@@ -847,56 +951,67 @@ inline EncodeTiled encode_fn() {
   return fn;
 }
 
+constexpr cuuint32_t kOnes[5] = {1, 1, 1, 1, 1};
+
 // a tiled map over bytes (s8 elements, or each bf16 as two), dims
-// innermost first, byte strides of dims 1.., the box's 128B or 64B
-// swizzle matching its bk-byte rows; what falls outside the tensor reads
-// as zero
+// innermost first, byte strides of dims 1.., the traversal box and its
+// element strides (a stride s reads every s-th element of the box's
+// extent, landing box / s of them), the 128B or 64B swizzle matching its
+// bk-byte rows; what falls outside the tensor reads as zero
 inline bool encode(CUtensorMap* map, const void* ptr, int rank,
                    const cuuint64_t* dims, const cuuint64_t* strides,
-                   const cuuint32_t* box, int bk) {
+                   const cuuint32_t* box, int bk,
+                   const cuuint32_t* estrides = kOnes) {
   const EncodeTiled fn = encode_fn();
-  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
   return fn != nullptr &&
          fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, rank, const_cast<void*>(ptr),
-            dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            dims, strides, box, estrides, CU_TENSOR_MAP_INTERLEAVE_NONE,
             bk == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // alignment slack, the ring and its barriers, and each consumer
-// warpgroup's four epilogue rows of BN floats
-inline int smem_bytes(int bm, int bn, int bk, int stages) {
-  return kAlign + stages * ((bm + bn) * bk + 16) + bm / 64 * 16 * bn;
+// warpgroup's four epilogue rows of BN floats (and, with `staged`, its 64
+// staged rows of BN + 16 bytes)
+inline int smem_bytes(int bm, int bn, int bk, int stages,
+                      bool staged = false) {
+  return kAlign + stages * ((bm + bn) * bk + 16) + bm / 64 * 16 * bn +
+         (staged ? bm * (bn + 16) : 0);
 }
 
-template <int BN, int KIND, int OP>
+template <int BN, int KIND, int OP, bool RES = false>
 int run(const Params& p, const CUtensorMap& a, const CUtensorMap& b,
         dim3 grid, int smem, cudaStream_t stream) {
   static int smem_set = 0;  // this library's kernel's dynamic smem limit
   if (smem > smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        conv_gemm_q_kernel<BN, KIND, OP>,
+        conv_gemm_q_kernel<BN, KIND, OP, RES>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     smem_set = smem;
   }
   constexpr bool tma = OP == kOpBF16 || KIND == kS8;
-  conv_gemm_q_kernel<BN, KIND, OP>
+  conv_gemm_q_kernel<BN, KIND, OP, RES>
       <<<grid, (p.bm / 64 + producer_wgs(tma, p.bm)) * kWG, smem, stream>>>(
           p, a, b);
   return static_cast<int>(cudaGetLastError());
 }
 
-// s8 operands take an s8, bf16 or f32 x; bf16 operands a bf16 x
+// s8 operands take an s8, bf16 or f32 x (`res`: the s8 stride-2 path);
+// bf16 operands a bf16 x
 template <int BN, int OP>
-int run_kind(const Params& p, int x_kind, const CUtensorMap& a,
+int run_kind(const Params& p, int x_kind, bool res, const CUtensorMap& a,
              const CUtensorMap& b, dim3 grid, int smem, cudaStream_t stream) {
   if constexpr (OP == kOpBF16) {
     return run<BN, kBF16, kOpBF16>(p, a, b, grid, smem, stream);
   } else {
     switch (x_kind) {
       case kS8:
+#ifdef CONVQ90_S8_STRIDE2
+        if (res)
+          return run<BN, kS8, kOpS8, true>(p, a, b, grid, smem, stream);
+#endif
         return run<BN, kS8, kOpS8>(p, a, b, grid, smem, stream);
       case kBF16:
         return run<BN, kBF16, kOpS8>(p, a, b, grid, smem, stream);
@@ -910,24 +1025,34 @@ int run_kind(const Params& p, int x_kind, const CUtensorMap& a,
 
 // Check the plan, encode the maps and launch on `stream`; returns a
 // cudaError_t code (0 on success). OP's operands: s8 (a 1x1 or 3x3 on
-// an s8, bf16 or f32 x, or a 3x3 stride 2 on a bf16 or f32 x) or bf16 (a
-// 1x1 on a bf16 x).
+// an s8, bf16 or f32 x, or a 3x3 stride 2 on any of them) or bf16 (a 1x1
+// on a bf16 x).
 template <int OP>
 int launch(Params p, int x_kind, int bn, cudaStream_t stream) {
   const long long m = static_cast<long long>(p.n) * p.oh * p.ow;
   if (m == 0 || p.co == 0) return 0;
-  // stride 2 only through the converting producer (TMA copies stride-1
-  // boxes); the output covers the input at the stride, and the padding
-  // is within the taps' reach
+  // stride 2: a 3x3 with s8 operands, the output covering the input at
+  // the stride; on an s8 x (TMA) the 2TH x 2TW traversal box within
+  // TMA's 256 elements a dimension
   const bool strided =
       p.stride == 1
           ? p.oh == p.h && p.ow == p.w_
-          : p.stride == 2 && p.ksize == 3 && OP == kOpS8 && x_kind != kS8 &&
-                p.oh == (p.h + 1) / 2 && p.ow == (p.w_ + 1) / 2;
+          : p.stride == 2 && p.ksize == 3 && OP == kOpS8 &&
+                p.oh == (p.h + 1) / 2 && p.ow == (p.w_ + 1) / 2 &&
+                (x_kind != kS8 || (2 * p.th <= 256 && 2 * p.tw <= 256));
   const bool pads = p.pad_t >= 0 && p.pad_l >= 0 && p.pad_t < p.ksize &&
                     p.pad_l < p.ksize;
   const int esize = OP == kOpS8 ? 1 : 2;
-  const int smem = smem_bytes(p.bm, bn, p.bk, p.stages);
+  // the s8 stride-2 path (RES; built into the libraries that define
+  // CONVQ90_S8_STRIDE2, the exit's): an s8 x at stride 2 with an s8
+  // output alone, when the staged rows fit beside the ring
+  bool res = false;
+#ifdef CONVQ90_S8_STRIDE2
+  res = OP == kOpS8 && x_kind == kS8 && p.stride == 2 &&
+        p.res_out == nullptr && p.out_f == nullptr && p.out_s8 != nullptr &&
+        smem_bytes(p.bm, bn, p.bk, p.stages, true) <= kMaxSmem;
+#endif
+  const int smem = smem_bytes(p.bm, bn, p.bk, p.stages, res);
   const bool rect = p.ksize == 1 ? (p.th == 1 && p.tw == p.bm)
                                  : (p.th * p.tw == p.bm && p.tw <= 256);
   // s8: channels in 16s (TMA rows and the producer's 16-channel chunks);
@@ -989,10 +1114,13 @@ int launch(Params p, int x_kind, int bn, cudaStream_t stream) {
       const cuuint64_t strides[3] = {
           kb, static_cast<cuuint64_t>(p.w_) * kb,
           static_cast<cuuint64_t>(p.h) * p.w_ * kb};
+      // stride s: every s-th pixel of an s*TH x s*TW box, TH x TW landed
+      const cuuint32_t s = static_cast<cuuint32_t>(p.stride);
       const cuuint32_t box[4] = {static_cast<cuuint32_t>(p.bk),
-                                 static_cast<cuuint32_t>(p.tw),
-                                 static_cast<cuuint32_t>(p.th), 1};
-      ok = encode(&map_a, p.x, 4, dims, strides, box, p.bk);
+                                 s * static_cast<cuuint32_t>(p.tw),
+                                 s * static_cast<cuuint32_t>(p.th), 1};
+      const cuuint32_t estrides[4] = {1, s, s, 1};
+      ok = encode(&map_a, p.x, 4, dims, strides, box, p.bk, estrides);
     }
     if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1000,20 +1128,24 @@ int launch(Params p, int x_kind, int bn, cudaStream_t stream) {
   const dim3 grid(static_cast<unsigned>(tiles < sms ? tiles : sms));
   switch (bn) {
     case 32:
-      return run_kind<32, OP>(p, x_kind, map_a, map_b, grid, smem, stream);
+      return run_kind<32, OP>(p, x_kind, res, map_a, map_b, grid, smem,
+                                  stream);
     case 64:
-      return run_kind<64, OP>(p, x_kind, map_a, map_b, grid, smem, stream);
+      return run_kind<64, OP>(p, x_kind, res, map_a, map_b, grid, smem,
+                                  stream);
     case 128:
-      return run_kind<128, OP>(p, x_kind, map_a, map_b, grid, smem, stream);
+      return run_kind<128, OP>(p, x_kind, res, map_a, map_b, grid, smem,
+                                  stream);
     default:
-      return run_kind<256, OP>(p, x_kind, map_a, map_b, grid, smem, stream);
+      return run_kind<256, OP>(p, x_kind, res, map_a, map_b, grid, smem,
+                                  stream);
   }
 }
 
 }  // namespace
 }  // namespace convq90
 
-// The C entry point of the int8 1x1, 3x3 and stride-2 kernels:
+// The C entry point of the int8 1x1, 3x3, stride-2 and exit kernels:
 // conv_block_q.cuh's CONVQ_ENTRY arguments, then `inv_next_row` and the
 // tile plan (bm, bn, bk, th, tw, stages); `check` is the kernel's own
 // contract (a cudaErrorInvalidValue when it is broken, as for a plan it

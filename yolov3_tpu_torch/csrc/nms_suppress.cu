@@ -23,17 +23,11 @@
 //    slots are never read as suppressors and are written as 0. The
 //    workspace [C, K, ceil(K/64)] u64 is the wrapper's (512 KB at
 //    C = 16, K = 512).
-// 2. Scan (nms_scan_kernel): one warp per problem walks the words of
-//    slots up to its highest valid slot. For word w it ORs, over the
-//    lanes, the words w of the kept rows before it (the slots they
-//    suppress; a warp OR of up to 64w loads in parallel), marks the
-//    invalid slots as removed too, and then decides its 64 slots in
-//    order: slot 64 w + b is kept iff bit b is clear, and a kept slot
-//    ORs in its own row's word w (the later slots of the word it
-//    suppresses). The rows of the word are loaded before the OR, and
-//    broadcast by shuffles that do not wait on the decisions, so a step
-//    of the serial chain is a bit test and an OR in registers. A kept
-//    word is written to shared memory for the later words' ORs.
+// 2. Scan (nms_scan_kernel, nms_scan.cuh, shared with the IoU-slab
+//    kernel greedy_suppress.cu): one warp per problem walks the mask
+//    words up to its highest valid slot, ORs the words of the kept rows
+//    before each word, and decides the word's 64 slots in order with a
+//    bit test and an OR in registers a step.
 // Two launches a call: the serving call has one device op more than with
 // the first design.
 //
@@ -48,13 +42,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "nms_scan.cuh"
+
 namespace {
 
-typedef unsigned long long u64;
-
-constexpr int kWord = 64;            // slots a mask word covers
 constexpr int kChainThreads = 128;
-constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float box_area(float4 q) {
   return __fmul_rn(__fsub_rn(q.z, q.x), __fsub_rn(q.w, q.y));
@@ -107,64 +99,6 @@ nms_mask_kernel(const float* __restrict__ cand,
         bits |= 1ull << b;
   }
   mask[(base + i) * words + w] = bits;
-}
-
-// One warp per problem; kept[w] in shared memory holds word w's kept bits.
-__global__ void __launch_bounds__(32)
-nms_scan_kernel(const uint8_t* __restrict__ valid,
-                const u64* __restrict__ mask, uint8_t* __restrict__ keep,
-                int k, int words) {
-  extern __shared__ u64 kept[];
-  const int lane = threadIdx.x;
-  const size_t base = static_cast<size_t>(blockIdx.x) * k;
-  const uint8_t* v = valid + base;
-  const u64* m = mask + base * words;
-
-  int last = 0;
-  for (int j = lane; j < k; j += 32)
-    if (v[j]) last = j + 1;
-  const int bound = static_cast<int>(
-      __reduce_max_sync(kFull, static_cast<unsigned>(last)));
-  const int nw = (bound + kWord - 1) / kWord;
-
-  for (int w = 0; w < nw; ++w) {
-    const int j0 = w * kWord;
-    const int lo = j0 + lane, hi = j0 + 32 + lane;
-    // the word's own rows (word w of rows j0 .. j0 + 63)
-    const u64 d_lo = lo < k ? m[static_cast<size_t>(lo) * words + w] : 0;
-    const u64 d_hi = hi < k ? m[static_cast<size_t>(hi) * words + w] : 0;
-    // the slots of word w that the kept rows before it suppress
-    u64 acc = 0;
-#pragma unroll 4
-    for (int i = lane; i < j0; i += 32)
-      if ((kept[i / kWord] >> (i % kWord)) & 1)
-        acc |= m[static_cast<size_t>(i) * words + w];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      acc |= __shfl_xor_sync(kFull, acc, off);
-    const unsigned ok_lo = __ballot_sync(kFull, lo < k && v[lo]);
-    const unsigned ok_hi = __ballot_sync(kFull, hi < k && v[hi]);
-    // removed: suppressed, or not a valid slot (it never suppresses)
-    u64 cur = acc | ~((static_cast<u64>(ok_hi) << 32) | ok_lo);
-#pragma unroll
-    for (int b = 0; b < 32; ++b) {
-      const u64 row = __shfl_sync(kFull, d_lo, b);
-      if (!((cur >> b) & 1)) cur |= row;
-    }
-#pragma unroll
-    for (int b = 0; b < 32; ++b) {
-      const u64 row = __shfl_sync(kFull, d_hi, b);
-      if (!((cur >> (32 + b)) & 1)) cur |= row;
-    }
-    if (lane == 0) kept[w] = ~cur;
-    __syncwarp();
-  }
-
-  for (int j = lane; j < k; j += 32)
-    keep[base + j] =
-        j < nw * kWord ? static_cast<uint8_t>((kept[j / kWord] >>
-                                               (j % kWord)) & 1)
-                       : 0;
 }
 
 // The first design, kept for A/B timing (entry nms_suppress_chain): one

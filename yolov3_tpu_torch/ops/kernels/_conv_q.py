@@ -2,18 +2,18 @@
 their arithmetic, the tile plan of the Hopper core, and the ctypes launch
 of their CUDA entry points.
 
-The 1x1, 3x3 and stride-2 kernels (`csrc/pointwise_conv_block_q.cu`,
-`conv3x3_block_q.cu`, `down_conv_block_q.cu`) run one wgmma + TMA
-implicit GEMM (`csrc/conv_gemm_q_sm90.cuh`) under the tile plan
-`conv_plan` picks per launch (the bf16 1x1 of `conv_block.py` runs the
-same core with bf16 operands, planned here too); their `*_wmma` entries
-(the same contracts on the older core, for A/B timing) run the WMMA core
-(`csrc/conv_block_q.cuh`), as does the exit conv. Each has its own
-entry point and contract. The modules `pointwise_q`, `conv3x3_q` and
-`down_conv_q` are their public wrappers. Layouts: activations NHWC;
+The 1x1, 3x3, stride-2 and exit kernels (`csrc/pointwise_conv_block_q.cu`,
+`conv3x3_block_q.cu`, `down_conv_block_q.cu`, `exit_conv_block_q.cu`) run
+one wgmma + TMA implicit GEMM (`csrc/conv_gemm_q_sm90.cuh`) under the
+tile plan `conv_plan` picks per launch (the bf16 1x1 of `conv_block.py`
+runs the same core with bf16 operands, planned here too); their `*_wmma`
+entries (the same contracts on the first design, for A/B timing) run the
+WMMA core (`csrc/conv_block_q.cuh`). Each has its own entry point and
+contract. The modules `pointwise_q`, `conv3x3_q`, `down_conv_q` and
+`exit_conv_q` are their public wrappers. Layouts: activations NHWC;
 weights `w_t` [taps, Co, Ci] s8 (each output channel's K contiguous, the
 kernels' B layout); `epi` [3, Co] f32 rows (b/dq, mul*dq, add), or
-[4, Co] for the wgmma kernels with 1/s_next per channel in row 3.
+[4, Co] with 1/s_next per channel in row 3.
 
 The plain version sums the int8 products in float64, which is exact
 below 2^53 (the largest |acc| here is 9 * 1024 * 127^2 ~ 1.5e8), then runs
@@ -38,10 +38,13 @@ IN_KINDS = {torch.int8: 0, BF16: 1, F32: 2}
 # the kernels on the wgmma core; NAME + "_wmma" is the same contract on the
 # WMMA core, in the same library
 WGMMA_KERNELS = ("pointwise_conv_block_q", "conv3x3_block_q",
-                 "down_conv_block_q")
+                 "down_conv_block_q", "exit_conv_block_q")
 SMS = 132              # H100 SXM streaming multiprocessors
 SMEM_BYTES = 232448    # shared memory a block can use
 MAX_STAGES = 5
+# elements a TMA box may span in one dimension; an s8 input's stride-2
+# box spans twice the TH x TW it lands
+BOX_MAX = 256
 # a float input's ring stops at 4 stages: the shared memory left over
 # serves as L1 for the converting producer's loads (each pixel of a 3x3 is
 # read by nine taps), which beats a fifth stage on the H100 (PERF.md)
@@ -75,12 +78,23 @@ class Plan(NamedTuple):
     stages: int
 
 
-def smem_bytes(plan: Plan) -> int:
+def smem_bytes(plan: Plan, staged: bool = False) -> int:
     """Dynamic shared memory of a launch (csrc/conv_gemm_q_sm90.cuh::
-    smem_bytes): 1 KB of alignment slack, the ring and its barriers, and
-    each consumer warpgroup's copy of the tile's four epilogue rows."""
+    smem_bytes): 1 KB of alignment slack, the ring and its barriers, each
+    consumer warpgroup's copy of the tile's four epilogue rows, and with
+    `staged` (the s8 stride-2 path) the BM staged output rows of BN + 16
+    bytes."""
     return (1024 + plan.stages * ((plan.bm + plan.bn) * plan.bk + 16)
-            + plan.bm // 64 * 16 * plan.bn)
+            + plan.bm // 64 * 16 * plan.bn
+            + (plan.bm * (plan.bn + 16) if staged else 0))
+
+
+def staged(plan: Plan, float_in: bool = False, stride: int = 1) -> bool:
+    """Whether a launch of the exit's s8 stride-2 path stages its s8 output
+    in shared memory (csrc/conv_gemm_q_sm90.cuh::launch's rule): an s8
+    input at stride 2, when the staged rows fit beside the ring."""
+    return (stride == 2 and not float_in
+            and smem_bytes(plan, True) <= SMEM_BYTES)
 
 
 def plan_tiles(plan: Plan, n: int, h: int, w: int, co: int,
@@ -100,7 +114,9 @@ def plan_cost(plan: Plan, n: int, h: int, w: int, ci: int, co: int,
     """The plan's time in the planner's model: the bytes one SM streams
     from L2, K steps of (BM + BN) x BK bytes a tile (a float input's A
     rows FLOAT_A_COST times over, its L2 bytes stride^2 times, over its
-    3 - BM/64 producer warpgroups; `esize` bytes an operand), over
+    3 - BM/64 producer warpgroups; an s8 input's A rows once a tap at
+    either stride, TMA landing only the pixels at the stride; `esize`
+    bytes an operand), over
     ceil(tiles / SMS) tiles of the output. On the H100 every SM's stream
     runs at about the same rate whether or not the others are busy, so
     fewer, larger tiles win until they leave SMs idle."""
@@ -120,22 +136,25 @@ def conv_plan(n: int, h: int, w: int, ci: int, co: int, ksize: int,
     x [n, h, w, ci] with co output channels: s8 operands (`esize` 1) on an
     s8 x, or a bf16 / f32 one with `float_in`; or bf16 operands (`esize`
     2, a 1x1 on a bf16 x through TMA, channels in 8s). `stride` 2: a 3x3
-    with s8 operands on a float x (the converting producer).
+    with s8 operands, on a float x (the converting producer) or an s8 one
+    (TMA at element strides of 2).
 
     BK: 64 or 128 bytes, whichever pads Ci's bytes less (128 on a tie).
     Tile: of TILES with BN at most Co rounded up to 32, the least
     `plan_cost` (ties: the larger BM, or for a float input the smaller,
     whose two producer warpgroups measured faster on the H100 (PERF.md);
     then the larger BN). 3x3 rectangle: TW the
-    power of two >= the output's W, at most BM; TH = BM / TW. Stages: as
-    many as fit in SMEM_BYTES, at most MAX_STAGES (FLOAT_MAX_STAGES for a
-    float input).
+    power of two >= the output's W, at most BM (and BOX_MAX / stride);
+    TH = BM / TW. Stages: as
+    many as fit in SMEM_BYTES (beside the staged output rows of an s8
+    input at stride 2), at most MAX_STAGES (FLOAT_MAX_STAGES for a float
+    input).
     Cached: a serving call plans each of its ~64 launches again, and the
     search (~20 us of Python) would otherwise add to the host's
     dispatch."""
     if ksize not in (1, 3) or esize not in (1, 2) or stride not in (1, 2) or (
             esize == 2 and (ksize != 1 or float_in)) or (
-            stride == 2 and (ksize != 3 or esize != 1 or not float_in)):
+            stride == 2 and (ksize != 3 or esize != 1)):
         raise ValueError(f"conv_plan: no {ksize}x{ksize} stride-{stride} "
                          f"kernel with {esize}-byte operands "
                          f"(float_in={float_in})")
@@ -150,10 +169,12 @@ def conv_plan(n: int, h: int, w: int, ci: int, co: int, ksize: int,
     for bm, bn in TILES:
         if bn > -(-co // 32) * 32:
             continue
-        tw = bm if ksize == 1 else min(bm, 1 << (ow - 1).bit_length())
+        tw = bm if ksize == 1 else min(bm, 1 << (ow - 1).bit_length(),
+                                       BOX_MAX // stride)
+        fixed = 1024 + bm // 64 * 16 * bn + (
+            bm * (bn + 16) if stride == 2 and not float_in else 0)
         stages = min(FLOAT_MAX_STAGES if float_in else MAX_STAGES,
-                     (SMEM_BYTES - 1024 - bm // 64 * 16 * bn)
-                     // ((bm + bn) * bk + 16))
+                     (SMEM_BYTES - fixed) // ((bm + bn) * bk + 16))
         plans.append(Plan(bm, bn, bk, bm // tw, tw, stages))
     return min(plans, key=lambda q: (
         plan_cost(q, n, h, w, ci, co, ksize, float_in, esize, stride),
@@ -248,11 +269,11 @@ def _kernel_fn(lib: str, entry: str, planned: bool):
     if fn is None:
         fn = getattr(_build.load(lib), entry)
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        # the WMMA entries end at cast_bf16; the wgmma ones add
-        # inv_next_row and the plan
+        # the WMMA entries end at inv_next_row; the wgmma ones add the
+        # plan
         fn.argtypes = ([p, i, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i,
-                        i, i, f, f, f, f, i]
-                       + [i] * (7 if planned else 0) + [p])
+                        i, i, f, f, f, f, i, i]
+                       + [i] * (6 if planned else 0) + [p])
         fn.restype = ctypes.c_int
         _fns[entry] = fn
     return fn
@@ -270,9 +291,9 @@ def launch(name: str, x: torch.Tensor, w_t: torch.Tensor, epi: torch.Tensor,
     `conv_block_q_plain`); raises on what the kernel does not take.
 
     A wgmma kernel (WGMMA_KERNELS) runs under `plan`, by default
-    `conv_plan`'s, and takes a [4, Co] epi (1/s_next per channel in row
-    3) as well; `wmma` runs the same contract on the WMMA core instead
-    (entry NAME + "_wmma", counted under that name)."""
+    `conv_plan`'s; `wmma` runs the same contract on the WMMA core instead
+    (entry NAME + "_wmma", counted under that name). A [4, Co] epi gives
+    1/s_next per channel in row 3."""
     if x.dtype not in IN_KINDS:
         raise TypeError(f"{name}: x must be s8, bf16 or f32, got {x.dtype}")
     if w_t.dtype != torch.int8 or epi.dtype != F32:
@@ -284,9 +305,8 @@ def launch(name: str, x: torch.Tensor, w_t: torch.Tensor, epi: torch.Tensor,
     n, h, w, ci = x.shape
     taps, co, wci = w_t.shape
     planned = name in WGMMA_KERNELS and not wmma
-    rows = (3, 4) if planned else (3,)
     if (taps != ksize * ksize or wci != ci or epi.dim() != 2
-            or tuple(epi.shape) not in [(r, co) for r in rows]):
+            or tuple(epi.shape) not in ((3, co), (4, co))):
         raise ValueError(f"{name}: w_t {tuple(w_t.shape)} / epi "
                          f"{tuple(epi.shape)} do not fit x {tuple(x.shape)}")
     if ci % 16 or co % 16:
@@ -317,12 +337,11 @@ def launch(name: str, x: torch.Tensor, w_t: torch.Tensor, epi: torch.Tensor,
         return None if t is None else t.data_ptr()
 
     entry = name + "_wmma" if wmma else name
-    extra = ()
+    extra = (int(epi.shape[0] == 4),)
     if planned:
-        extra = (int(epi.shape[0] == 4),
-                 *(plan or conv_plan(n, h, w, ci, co, ksize,
-                                     x.dtype != torch.int8,
-                                     stride=stride)))
+        extra += tuple(plan or conv_plan(n, h, w, ci, co, ksize,
+                                         x.dtype != torch.int8,
+                                         stride=stride))
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _kernel_fn(name, entry, planned)(
         x.data_ptr(), IN_KINDS[x.dtype], w_t.data_ptr(), epi.data_ptr(),

@@ -11,22 +11,21 @@ s8 input:
     out = clip(round(y * inv_next), +-127)
 
 epi f32 [4, Co] = (b/dq, mul*dq, add, 1/s_next), the JAX contract
-(`ops/quant.py::exit_epi`). The kernel is `csrc/exit_conv_block_q.cu`, an
-entry onto the implicit GEMM of `csrc/conv_block_q.cuh`; a CUDA tensor
-goes through it or the wrapper raises, a CPU tensor goes through
+(`ops/quant.py::exit_epi`). The kernel is `csrc/exit_conv_block_q.cu`, on
+the wgmma core under `_conv_q.conv_plan`'s tile plan, its s8 input
+through TMA at element strides of 2 (`exit_conv_block_q_wmma` in the same
+library is the first design, for A/B timing only); a CUDA tensor goes
+through it or the wrapper raises, a CPU tensor goes through
 `exit_conv_block_q_plain`.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from yolov3_tpu_torch.ops.kernels import _build, _conv_q
+from yolov3_tpu_torch.ops.kernels import _conv_q
 
 NAME = "exit_conv_block_q"
-_fns = {}
 
 
 def _check(x: torch.Tensor, w_t: torch.Tensor, epi: torch.Tensor) -> None:
@@ -55,15 +54,11 @@ def exit_conv_block_q_plain(x: torch.Tensor, w_t: torch.Tensor,
                             cast_bf16=cast_bf16)
 
 
-def _kernel_fn():
-    fn = _fns.get(NAME)
-    if fn is None:
-        fn = getattr(_build.load(NAME), NAME)
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, ctypes.c_float, i, p]
-        fn.restype = ctypes.c_int
-        _fns[NAME] = fn
-    return fn
+def _launch(x, w_t, epi, alpha, cast_bf16, plan=None, wmma=False):
+    _check(x, w_t, epi)
+    return _conv_q.launch(NAME, x, w_t, epi, ksize=3, stride=2, inv_in=1.0,
+                          inv_next=0.0, alpha=alpha, cast_bf16=cast_bf16,
+                          plan=plan, wmma=wmma)
 
 
 def exit_conv_block_q(x: torch.Tensor, w_t: torch.Tensor, epi: torch.Tensor,
@@ -73,24 +68,16 @@ def exit_conv_block_q(x: torch.Tensor, w_t: torch.Tensor, epi: torch.Tensor,
     if x.device.type == "cpu":
         return exit_conv_block_q_plain(x, w_t, epi, alpha=alpha,
                                        cast_bf16=cast_bf16)
-    _check(x, w_t, epi)
-    n, h, w, ci = x.shape
-    co = w_t.shape[1]
-    if ci % 16 or co % 16:
-        raise ValueError(f"{NAME}: Ci = {ci} and Co = {co} must be "
-                         f"multiples of 16")
-    if any(t.device != x.device for t in (w_t, epi)):
-        raise ValueError(f"{NAME}: all operands must be on one device")
-    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
-               for t in (x, w_t, epi)):
-        raise ValueError(f"{NAME}: operands must be contiguous and 16-byte "
-                         f"aligned")
-    out = torch.empty((n, -(-h // 2), -(-w // 2), co), dtype=torch.int8,
-                      device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _kernel_fn()(x.data_ptr(), w_t.data_ptr(), epi.data_ptr(),
-                       out.data_ptr(), n, h, w, ci, co, float(alpha),
-                       int(cast_bf16), stream)
-    _build.check(err, NAME)
-    _build.launch_counts[NAME] += 1
-    return out
+    return _launch(x, w_t, epi, alpha, cast_bf16)
+
+
+def exit_conv_block_q_wmma(x: torch.Tensor, w_t: torch.Tensor,
+                           epi: torch.Tensor, *, alpha: float,
+                           cast_bf16: bool) -> torch.Tensor:
+    """The first design of `exit_conv_block_q`'s kernel (entry
+    exit_conv_block_q_wmma, on the WMMA core, counted under that name), on
+    CUDA tensors only: the A/B twin that chip_smoke.py and the card tests
+    hold the kernel against."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{NAME}_wmma runs on CUDA tensors only")
+    return _launch(x, w_t, epi, alpha, cast_bf16, wmma=True)

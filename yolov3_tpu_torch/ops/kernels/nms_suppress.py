@@ -14,8 +14,12 @@ per problem, one block-wide OR per candidate), the same contract, for
 A/B timing only; no path calls it.
 
 `greedy_suppress` replaces `nms_kernel.py::greedy_suppress_pallas`, the
-same recurrence from a precomputed IoU slab (`csrc/greedy_suppress.cu`).
-No path of the package calls it; it keeps the reference's entry for
+same recurrence from a precomputed IoU slab (`csrc/greedy_suppress.cu`):
+two launches a call as well, a bitmask built from the slab's lower
+triangle, then the same warp scan (`csrc/nms_scan.cuh`).
+`greedy_suppress_chain` runs its first design (one block per problem,
+one block-wide OR per candidate) for A/B timing only. No path of the
+package calls either; the entry keeps the reference's contract for
 callers that already hold the IoU matrices.
 
 A CUDA tensor goes through a kernel, or the wrapper raises; a CPU tensor
@@ -34,19 +38,23 @@ from yolov3_tpu_torch.ops.nms import _greedy_suppress, pairwise_iou
 NAME = "nms_suppress"
 CHAIN = "nms_suppress_chain"
 GREEDY = "greedy_suppress"
+GREEDY_CHAIN = "greedy_suppress_chain"
 WORD = 64  # slots of a mask word
+# the IoU-slab entries' K: the mask grid's words^2 blocks fit gridDim.y
+GREEDY_MAX_K = 255 * WORD
 _fns = {}
 
 
 def _kernel_fn(name: str = NAME):
     """The C entry point `name`: of the library `nms_suppress` (the mask +
     scan entry, with the workspace pointer, and its chain twin) or
-    `greedy_suppress`."""
+    `greedy_suppress` (the same two)."""
     fn = _fns.get(name)
     if fn is None:
-        fn = getattr(_build.load(GREEDY if name == GREEDY else NAME), name)
+        lib = GREEDY if name in (GREEDY, GREEDY_CHAIN) else NAME
+        fn = getattr(_build.load(lib), name)
         p = ctypes.c_void_p
-        fn.argtypes = ([p, p, p] + ([p] if name == NAME else [])
+        fn.argtypes = ([p, p, p] + ([p] if name in (NAME, GREEDY) else [])
                        + [ctypes.c_int, ctypes.c_int, ctypes.c_float, p])
         fn.restype = ctypes.c_int
         _fns[name] = fn
@@ -136,10 +144,7 @@ def greedy_suppress_plain(iou: torch.Tensor, valid: torch.Tensor,
                             valid.to(torch.bool), iou_threshold)
 
 
-def greedy_suppress(iou: torch.Tensor, valid: torch.Tensor,
-                    iou_threshold: float) -> torch.Tensor:
-    """iou [C, K, K] f32, valid [C, K] bool -> keep [C, K] bool (the
-    `greedy_suppress_pallas` contract)."""
+def _check_slab(iou: torch.Tensor, valid: torch.Tensor) -> None:
     if iou.dim() != 3 or iou.shape[1] != iou.shape[2]:
         raise ValueError(f"iou must be [C, K, K], got {tuple(iou.shape)}")
     if tuple(valid.shape) != tuple(iou.shape[:2]):
@@ -147,21 +152,51 @@ def greedy_suppress(iou: torch.Tensor, valid: torch.Tensor,
                          f"{tuple(valid.shape)}")
     if valid.device != iou.device:
         raise ValueError("iou and valid must be on one device")
-    if iou.device.type == "cpu":
-        return greedy_suppress_plain(iou, valid, iou_threshold)
+
+
+def _launch_slab(iou: torch.Tensor, valid: torch.Tensor,
+                 iou_threshold: float, entry: str) -> torch.Tensor:
+    """Launch `entry` (GREEDY, or its chain twin GREEDY_CHAIN) on CUDA
+    tensors."""
     if iou.dtype != torch.float32 or valid.dtype != torch.bool:
         raise TypeError(f"need float32 iou and bool valid, got {iou.dtype} "
                         f"and {valid.dtype}")
     if not (iou.is_contiguous() and valid.is_contiguous()):
         raise ValueError("iou and valid must be contiguous")
     c, k = valid.shape
-    if k > 48 * 1024:
-        raise ValueError(f"K = {k} candidates do not fit in shared memory")
+    if k > GREEDY_MAX_K:
+        raise ValueError(f"K = {k} candidates: the IoU-slab kernels take at "
+                         f"most {GREEDY_MAX_K}")
     keep = torch.empty((c, k), dtype=torch.bool, device=iou.device)
+    ptrs = [iou.data_ptr(), valid.data_ptr(), keep.data_ptr()]
+    if entry == GREEDY:
+        mask = torch.empty((c, k, -(-k // WORD)), dtype=torch.int64,
+                           device=iou.device)
+        ptrs.append(mask.data_ptr())
     stream = torch.cuda.current_stream(iou.device).cuda_stream
-    err = _kernel_fn(GREEDY)(iou.data_ptr(), valid.data_ptr(),
-                             keep.data_ptr(), c, k, float(iou_threshold),
-                             stream)
-    _build.check(err, GREEDY)
-    _build.launch_counts[GREEDY] += 1
+    err = _kernel_fn(entry)(*ptrs, c, k, float(iou_threshold), stream)
+    _build.check(err, entry)
+    _build.launch_counts[entry] += 1
     return keep
+
+
+def greedy_suppress(iou: torch.Tensor, valid: torch.Tensor,
+                    iou_threshold: float) -> torch.Tensor:
+    """iou [C, K, K] f32, valid [C, K] bool -> keep [C, K] bool (the
+    `greedy_suppress_pallas` contract)."""
+    _check_slab(iou, valid)
+    if iou.device.type == "cpu":
+        return greedy_suppress_plain(iou, valid, iou_threshold)
+    return _launch_slab(iou, valid, iou_threshold, GREEDY)
+
+
+def greedy_suppress_chain(iou: torch.Tensor, valid: torch.Tensor,
+                          iou_threshold: float) -> torch.Tensor:
+    """The first design of `greedy_suppress`'s kernel (entry
+    greedy_suppress_chain, counted under that name), on CUDA tensors only:
+    the A/B twin that chip_smoke.py and the card tests hold the kernel
+    against."""
+    _check_slab(iou, valid)
+    if iou.device.type != "cuda":
+        raise ValueError("greedy_suppress_chain runs on CUDA tensors only")
+    return _launch_slab(iou, valid, iou_threshold, GREEDY_CHAIN)
