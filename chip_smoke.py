@@ -106,6 +106,9 @@ INT8_OPS_S = 1979e12
 IOU_OPS = 13
 # f32 operations of quantizing one element: mul, round, 2 clamp
 QUANT_OPS = 4
+# f32 operations of stem1's fast epilogue on one element: add, mul, max,
+# mul, add and the quantize's round and 2 clamps
+STEM1_EPI_OPS = 8
 
 FULL = dict(img_size=(512, 512, 3), number_classes=2,
             anchors=((64, 384), (384, 64)), filter_count=1024, block_count=8,
@@ -126,7 +129,25 @@ EXPECTED_LAUNCHES = {"pointwise_conv_block": 34, "nms_suppress": 1}
 EXPECTED_INT8_LAUNCHES = {"pointwise_conv_block_q": 33,
                           "conv3x3_block_q": 31, "down_conv_block_q": 3,
                           "s2d_region_block_q": 1, "nms_suppress": 1}
-# the other two stem routes: (kernel flags, launches of one serving call)
+# the region kernel's modes: their flag sets, counted per launch under
+# s2d_region_q.variant(affine2, rawimg)
+RAWIMG_SET = {"region_full": True, "region_fast": True,
+              "region_rawimg": True}
+AFFINE2_SET = {"region_full": True, "region_fast": True,
+               "region_affine2": True}
+BOTH_SET = dict(RAWIMG_SET, region_affine2=True)
+REGION_MODES = {"s2d_region_block_q_rawimg": RAWIMG_SET,
+                "s2d_region_block_q_affine2": AFFINE2_SET,
+                "s2d_region_block_q_rawimg_affine2": BOTH_SET}
+
+
+def region_set_launches(variant):
+    return {"pointwise_conv_block_q": 33, "conv3x3_block_q": 31,
+            "down_conv_block_q": 3, variant: 1, "nms_suppress": 1}
+
+
+# the other stem routes and region modes: (kernel flags, launches of one
+# serving call)
 INT8_SETS = (
     ({"region_pallas": True, "exit_pallas": True},
      {"pointwise_conv_block_q": 33, "conv3x3_block_q": 31,
@@ -134,7 +155,11 @@ INT8_SETS = (
     ({"exit_pallas": True},
      {"pointwise_conv_block_q": 34, "conv3x3_block_q": 32,
       "down_conv_block_q": 4, "exit_conv_block_q": 1, "nms_suppress": 1}),
-)
+) + tuple((flags, region_set_launches(v)) for v, flags in REGION_MODES.items())
+# the tiled CLI phase: a seeded image of 2048 x 1536, 512 px tiles with 96
+# px ghost zones (35 tiles: 4 batches of 8 and one of 3)
+TILED_IMAGE = (2048, 1536, 3)
+TILED_BATCH = 8
 # int8 kernel -> (wrapper module, the TPU kernel's pallas_call)
 INT8_KERNELS = {
     "pointwise_conv_block_q": (
@@ -213,12 +238,14 @@ def turns_ms(old, new):
     return (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
 
 
-def bound(nbytes, ops, rate, f32_ops=0.0):
+def bound(nbytes, ops, rate, f32_ops=0.0, bf16_ops=0.0):
     """The least time (ms, and what sets it) for `nbytes` of memory
-    traffic, `ops` operations at `rate` and `f32_ops` more at the f32
-    rate."""
+    traffic, `ops` tensor-core operations at `rate` and `bf16_ops` more
+    at the bf16 rate (the tensor cores take them one after the other),
+    and `f32_ops` on the f32 CUDA-core pipe, which overlaps the tensor
+    cores."""
     t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = (ops / rate + f32_ops / F32_OPS_S) * 1e3
+    t_ops = max(ops / rate + bf16_ops / BF16_OPS_S, f32_ops / F32_OPS_S) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
                                  "operations")
 
@@ -703,9 +730,13 @@ def int8_serving_call(torch, TQ, build, serve, images, expected, label):
     recorded = {n: sum(c[0] == n for c in calls) for n in INT8_KERNELS}
     recorded["nms_suppress"] = len(nms_calls)
     recorded = {n: v for n, v in recorded.items() if v}
-    if recorded != expected:
+    # a region mode's launches are counted under its variant, its calls
+    # under the wrapper
+    want = {("s2d_region_block_q" if n in REGION_MODES else n): v
+            for n, v in expected.items()}
+    if recorded != want:
         raise AssertionError(f"{label}: recorded int8 kernel calls "
-                             f"{recorded} != {expected}")
+                             f"{recorded} != {want}")
 
     build.launch_counts.clear()
     outputs = serve(images)
@@ -719,11 +750,12 @@ def int8_serving_call(torch, TQ, build, serve, images, expected, label):
 
 
 def phase_int8_sets(torch, TQ, build, path, images):
-    """One full-width serving call under each of the other two stem
-    routes' kernel sets, each of its stride-2 launches equal to its plain
-    version and its WMMA twin; returns the tail's and the exit's recorded
-    calls and their launches."""
-    calls, launches = [], {}
+    """One full-width serving call under each of the other stem routes'
+    and region modes' kernel sets, each of its stride-2 launches equal to
+    its plain version and its WMMA twin; returns the tail's, the exit's
+    and the region modes' recorded calls, their launches, and the region
+    modes' serving functions."""
+    calls, launches, serves = [], {}, {}
     for kernels, expected in INT8_SETS:
         serve, _, _ = TQ.make_quantized_serving_fn(path, images,
                                                    device=DEVICE,
@@ -746,8 +778,15 @@ def phase_int8_sets(torch, TQ, build, path, images):
             f"{[tuple(c[1][0].shape) for c in down]} equal to plain and "
             f"WMMA twin")
         calls += [c for c in rec if c[0] in REGION_KERNELS]
-        launches.update({n: v for n, v in got.items() if n in REGION_KERNELS})
-    return calls, launches
+        launches.update({n: v for n, v in got.items()
+                         if n in REGION_KERNELS or n in REGION_MODES})
+        modes = [n for n in got if n in REGION_MODES]
+        if modes:
+            serves[modes[0]] = serve
+            if not (torch.isfinite(scores).all()
+                    and tuple(boxes.shape[:2]) == (BATCH, 2)):
+                raise AssertionError(f"int8 {kernels}: bad serving output")
+    return calls, launches, serves
 
 
 def phase_int8_serving(torch, inf, TQ, build, path, images, card):
@@ -795,9 +834,10 @@ def phase_int8_serving(torch, inf, TQ, build, path, images, card):
     # the exact epilogue table of the served model (the chain of phase 7)
     from yolov3_tpu_torch.utils import checkpoint as ckpt
     params, stats, _ = ckpt.load_model(path)
-    exact_epi = TQ.build_quantized_model(params, stats, cfg, DEVICE,
-                                         scales).q_region_epi
-    return calls, launches, serving, exact_epi
+    exact_epi = TQ.build_quantized_model(
+        params, stats, cfg, DEVICE, scales,
+        kernels={"region_full": True}).q_region_epi
+    return calls, launches, serving, exact_epi, serve
 
 
 def conv_macs(n, h, w, ci, co, k, s):
@@ -965,32 +1005,63 @@ def phase_int8_kernels(torch, calls):
     return summary, rows
 
 
-def region_work(name, args):
-    """(bytes moved, int8 operations, f32 operations) of one stem-region
-    launch: its input, weights and epi read once and its output written
-    once; each stage's products of the taps inside the image; the quantize
-    of a float input."""
+def region_work(name, args, kw=None):
+    """(bytes moved, int8 operations, f32 operations, bf16 operations) of
+    one stem-region launch: its input, weights and epi read once and its
+    output written once; each stage's products of the taps inside the
+    image; the quantize of a float input; with `w_s1` (rawimg) stem1's
+    products and adds of the taps inside the image, bf16 x bf16 products
+    for a bf16 image (tensor-core work) and f32 ones for an f32 image, and
+    its epilogue (STEM1_EPI_OPS an element) on the f32 pipe."""
     x, *weights, epi = args
+    w_s1 = (kw or {}).get("w_s1")
     f32_ops = QUANT_OPS * x.numel() if x.dtype.is_floating_point else 0
+    bf16_ops = 0
     strides = {"s2d_region_block_q": (2, 1, 1, 2),
                "s2d_tail_block_q": (1, 1, 2), "exit_conv_block_q": (2,)}
     n, h, w, ci = x.shape
+    extra = 0
+    if w_s1 is not None:
+        c1 = w_s1.shape[1]
+        stem1_ops = 2 * conv_macs(n, h, w, ci, c1, 3, 1)
+        f32_ops = STEM1_EPI_OPS * n * h * w * c1
+        if x.dtype == w_s1.dtype and x.element_size() == 2:
+            bf16_ops = stem1_ops
+        else:
+            f32_ops += stem1_ops
+        extra = w_s1.numel() * w_s1.element_size()
+        ci = c1
     macs = 0
     for wt, st in zip(weights, strides[name]):
         co = wt.shape[1]
         macs += conv_macs(n, h, w, ci, co, 1 if wt.shape[0] == 1 else 3, st)
         h, w, ci = -(-h // st), -(-w // st), co
     nbytes = (x.numel() * x.element_size() + sum(wt.numel() for wt in weights)
-              + epi.numel() * 4 + n * h * w * ci)
-    return nbytes, 2 * macs, f32_ops
+              + extra + epi.numel() * 4 + n * h * w * ci)
+    return nbytes, 2 * macs, f32_ops, bf16_ops
 
 
 def region_library(torch, name, args, kw):
     """The library yardstick of a stem-region launch: its stages one at a
     time, each as `int8_library` computes a ConvBlock (torch._int_mm sums,
     then the epilogue as PyTorch ops): the plain version with its exact
-    float64 sums replaced by `int8_sums`. Timed here only."""
-    return getattr(int8_module(name), f"{name}_plain")(
+    float64 sums replaced by `int8_sums`; with `w_s1` (rawimg), stem1 first
+    as cuDNN's conv of the image in its type and the epilogue as PyTorch
+    ops. Timed here only."""
+    mod = int8_module(name)
+    kw = dict(kw)
+    w_s1 = kw.pop("w_s1", None)
+    if w_s1 is not None:
+        import torch.nn.functional as F
+        x, *weights, epi = args
+        c1, ci = w_s1.shape[1], w_s1.shape[2]
+        w = w_s1.reshape(3, 3, c1, ci).permute(2, 3, 0, 1)
+        acc = F.conv2d(x.permute(0, 3, 1, 2), w, padding=1).permute(
+            0, 2, 3, 1).float()
+        q1 = mod.stage_plain(acc, epi[17:21], alpha=kw["alpha"],
+                             cast_bf16=kw["cast_bf16"], fast=kw["fast"])
+        args = (q1, *weights, epi[:17])
+    return getattr(mod, f"{name}_plain")(
         *args, **kw, sums=lambda q, w_t, k, st: int8_sums(torch, q, w_t, st))
 
 
@@ -1033,15 +1104,23 @@ def phase_region_kernels(torch, calls, exact_epi):
     twin's, in turns: twin, kernel, kernel, twin) and the library's device
     times, the plain version's event time, beside the bound (and the
     exit's tile plan); for the region also the unfused chain of kernels
-    7, 5, 6 and 7 on the same input."""
+    7, 5, 6 and 7 on the same input. A region launch in a mode (affine2,
+    rawimg) is a row of its own, `s2d_region_q.variant`'s name, equal to
+    its plain version code for code; the first design has no such mode."""
+    from yolov3_tpu_torch.ops.kernels.s2d_region_q import variant
     summary = {}
     for name, args, kw, out in calls:
+        key = name
+        if name == "s2d_region_block_q":
+            key = variant(kw.get("affine2", False),
+                          kw.get("w_s1") is not None)
         mod = int8_module(name)
         kern, plain = getattr(mod, name), getattr(mod, f"{name}_plain")
         want = plain(*args, **kw)
         code, differ, total, _ = int8_compare(torch, out, want)
-        if code > 1 or (name in WGMMA_KERNELS and differ):
-            raise AssertionError(f"{name}: {differ} s8 codes differ from the "
+        if code > 1 or ((name in WGMMA_KERNELS or key in REGION_MODES)
+                        and differ):
+            raise AssertionError(f"{key}: {differ} s8 codes differ from the "
                                  f"plain version, by up to {code}")
         lib_c, lib_differ, _, _ = int8_compare(
             torch, region_library(torch, name, args, kw), want)
@@ -1050,16 +1129,21 @@ def phase_region_kernels(torch, calls, exact_epi):
         # WMMA twin
         twin = (getattr(mod, f"{name}_mma", None)
                 or getattr(mod, f"{name}_wmma", None))
+        if key in REGION_MODES:
+            twin = None
         if name in WGMMA_KERNELS:
             extra["plan"] = list(launch_plan(name, args))
         if twin is not None:
+            # the first design takes the region's arguments but its modes
+            twin_kw = {k: v for k, v in kw.items()
+                       if k not in ("affine2", "w_s1")}
             t_code, t_differ, _, _ = int8_compare(torch, out,
-                                                  twin(*args, **kw))
+                                                  twin(*args, **twin_kw))
             if t_differ:
                 raise AssertionError(f"{name}: {t_differ} codes differ from "
                                      f"the first design (max {t_code})")
             ms, extra["previous_ms"] = turns_ms(
-                lambda: twin(*args, **kw), lambda: kern(*args, **kw))
+                lambda: twin(*args, **twin_kw), lambda: kern(*args, **kw))
         else:
             ms = device_ms(lambda: kern(*args, **kw))
         plan_s = f", plan {tuple(extra['plan'])}" if "plan" in extra else ""
@@ -1067,11 +1151,13 @@ def phase_region_kernels(torch, calls, exact_epi):
         plain_ms = cuda_ms(lambda: plain(*args, **kw), 2, 1)
         lib = device_ms(lambda: region_library(torch, name, args, kw), 5, 2)
         lib_event = cuda_ms(lambda: region_library(torch, name, args, kw), 5)
-        nbytes, ops, f32_ops = region_work(name, args)
-        b_ms, b_by = bound(nbytes, ops, INT8_OPS_S, f32_ops)
+        nbytes, ops, f32_ops, bf16_ops = region_work(name, args, kw)
+        b_ms, b_by = bound(nbytes, ops, INT8_OPS_S, f32_ops, bf16_ops)
         row = dict(shape=f"{tuple(args[0].shape)}->{tuple(out.shape)}",
                    x_dtype=str(args[0].dtype), f32_ops=f32_ops,
-                   fast=kw.get("fast", False), ms=ms, event_ms=event,
+                   bf16_ops=bf16_ops,
+                   fast=kw.get("fast", False), mode=key, ms=ms,
+                   event_ms=event,
                    plain_ms=plain_ms,
                    library_ms=lib, library_event_ms=lib_event, bound_ms=b_ms,
                    bound_by=b_by,
@@ -1080,14 +1166,14 @@ def phase_region_kernels(torch, calls, exact_epi):
                    library_codes_differing=lib_differ / total, **extra)
         old_s = (f", first design {extra['previous_ms']:.4f} ms (0 codes "
                  f"differ)" if "previous_ms" in extra else "")
-        log(f"{name} {row['shape']} fast={row['fast']}: kernel {ms:.4f} ms "
+        log(f"{key} {row['shape']} fast={row['fast']}: kernel {ms:.4f} ms "
             f"(events {event:.4f}){old_s}{plan_s}, "
             f"plain {plain_ms:.4f} ms, library {lib:.4f} ms (events "
             f"{lib_event:.4f}), bound "
             f"{b_ms:.4f} ms ({b_by}), {ops / ms / 1e9:.1f} TOP/s; vs plain "
             f"max code diff {code}, {100 * differ / total:.4f}% of {total} "
             f"codes differ (library {lib_c}, {lib_differ})")
-        if name == "s2d_region_block_q":
+        if key == "s2d_region_block_q":
             chain = region_chain(torch, args, kw, exact_epi)
             exact = kern(*args[:-1], exact_epi, **dict(kw, fast=False))
             c_code, c_differ, _, _ = int8_compare(torch, chain(), exact)
@@ -1118,7 +1204,7 @@ def phase_region_kernels(torch, calls, exact_epi):
             row["quantize_then_s8_ms"] = device_ms(s8_route)
             log(f"  PyTorch's quantize, then the region on the s8 codes: "
                 f"{row['quantize_then_s8_ms']:.4f} ms (equal codes)")
-        summary[name] = row
+        summary[key] = row
     return summary
 
 
@@ -1150,6 +1236,157 @@ def check_csvs(inf, rows, scores, workdir, tag):
                 lines = fh.read().splitlines()
             if lines[0] != header or len(lines) != r.shape[0] + 1:
                 raise AssertionError(f"bad CSV {out}: {lines[:2]}")
+
+
+def phase_int8_ab(torch, serves, images, card, reps=10):
+    """The full-model int8 A/B of the region modes: device ms per b8
+    serving call (profiled, 3 calls) of the default set and of each mode's
+    set, in turns (the sets in order, then in reverse), and host-clock ms
+    per call over `reps` calls, in the same turns."""
+    order = list(serves)
+    dev, wall = {n: [] for n in order}, {n: [] for n in order}
+    for n in order + order[::-1]:
+        dev[n].append(phase_profile(torch, serves[n], images,
+                                    top=0)["device_ms"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            serves[n](images)
+        torch.cuda.synchronize()
+        wall[n].append((time.perf_counter() - t0) / reps * 1e3)
+    out = {}
+    for n in order:
+        out[n] = {"device_ms": dev[n], "wall_ms": wall[n]}
+        log(f"int8 A/B {n}: device {dev[n][0]:.4f} / {dev[n][1]:.4f} ms "
+            f"per b{BATCH} call, wall {wall[n][0]:.3f} / {wall[n][1]:.3f} "
+            f"ms, in turns, on {card}")
+    return out
+
+
+def greedy_nms_stable(boxes, scores, iou_threshold):
+    """The host's greedy NMS (`ops/boxes.py::single_class_nms`) with the
+    device's order among tied scores: descending, the lower index first
+    (a stable sort, as lax.top_k orders). Returns the kept indices."""
+    import numpy as np
+    from yolov3_tpu_torch.ops.boxes import compute_iou
+    areas = (boxes[:, 2] - boxes[:, 0]) * (boxes[:, 3] - boxes[:, 1])
+    order = np.argsort(-scores, kind="stable")
+    keep = []
+    while order.size:
+        i = order[0]
+        keep.append(int(i))
+        order = order[1:]
+        if order.size:
+            iou = compute_iou(boxes[i], boxes[order], areas[i], areas[order])
+            order = order[iou <= iou_threshold]
+    return keep
+
+
+def nms_agreement(torch, tiled, detect, cfg, tiles, icfg):
+    """Device NMS against host NMS on every tile and class of `tiles`, the
+    device's candidates uncapped: (tile-classes, equal to the host's
+    reference NMS, equal once the host takes the device's order among
+    tied scores). The second must be all of them; the first differs
+    only where a tie in score falls to another box first (the device
+    keeps the lower index first, as lax.top_k; the reference's host NMS
+    takes numpy's reversed argsort)."""
+    import numpy as np
+    from yolov3_tpu_torch.ops import boxes as bbox
+    from yolov3_tpu_torch.ops.nms import batched_nms_device, nms_to_host
+    total = equal = 0
+    for start in range(0, len(tiles), TILED_BATCH):
+        chunk = tiles[start:start + TILED_BATCH]
+        dets = detect(tiled.zscore_tiles(chunk, DEVICE))
+        out = [o.cpu().numpy() for o in batched_nms_device(
+            dets, cfg.number_classes, iou_threshold=icfg.iou_threshold,
+            score_threshold=icfg.score_threshold,
+            max_boxes=icfg.max_boxes_per_class,
+            min_box_size=float(icfg.min_box_size))]
+        dets = dets.float().cpu().numpy()
+        for k in range(len(chunk)):
+            det = bbox.filter_small_boxes(dets[k], icfg.min_box_size)
+            host = bbox.per_class_nms(det[:, 0:4], det[:, 4:5], det[:, 5:],
+                                      iou_threshold=icfg.iou_threshold,
+                                      score_threshold=icfg.score_threshold)
+            dev = nms_to_host(out[0][k], out[1][k], out[2][k])
+            scores = np.sqrt(det[:, 5:] * det[:, 4:5])
+            for c in range(cfg.number_classes):
+                total += 1
+                h, d = (np.zeros((0, 4), np.float32) if r[0] is None
+                        else r[0][r[2] == c] for r in (host, dev))
+                sel = np.where(scores[:, c] >= icfg.score_threshold)[0]
+                stable = det[sel][greedy_nms_stable(
+                    det[sel, 0:4], scores[sel, c], icfg.iou_threshold), 0:4]
+                if not (stable.shape == d.shape and np.array_equal(stable,
+                                                                   d)):
+                    raise AssertionError(
+                        f"tile {start + k} class {c}: device NMS keeps "
+                        f"{d.shape[0]} boxes, the host's greedy rule in "
+                        f"the same order {stable.shape[0]}")
+                equal += int(h.shape == d.shape and np.array_equal(h, d))
+    return total, equal
+
+
+def phase_tiled(torch, TQ, inf, path, workdir, card):
+    """The tiled CLI on a seeded 2048 x 1536 image (512 px tiles, 96 px
+    ghost zones, 35 tiles in batches of 8), bf16 and --int8 (calibrated on
+    the first 8 tiles, as the CLI does): tiles/s (host clock, per image,
+    after one warm-up image), the CSV, and host against device NMS."""
+    import numpy as np
+    from yolov3_tpu_torch import inference_tiled as tiled
+    from yolov3_tpu_torch.config import InferenceConfig
+    from yolov3_tpu_torch.ops import boxes as bbox
+    from yolov3_tpu_torch.utils.tiling import convert_image_to_tiles
+    img = np.random.default_rng(6).integers(0, 256, TILED_IMAGE,
+                                            dtype=np.uint8)
+    size = tuple(FULL["img_size"][:2])
+    tiles, _, _ = convert_image_to_tiles(img, size, 96)
+    zone = [t - 2 * 96 for t in size]
+    want = math.ceil(img.shape[0] / zone[0]) * math.ceil(img.shape[1] /
+                                                         zone[1])
+    if len(tiles) != want:
+        raise AssertionError(f"{len(tiles)} tiles, not {want}")
+    detect_b, cfg = inf.make_detector_fn(path, device=DEVICE)
+    detect_q, _ = TQ.make_quantized_detector_fn(
+        path, tiled.zscore_tiles(tiles[:8], DEVICE), device=DEVICE)
+    out = {}
+    for label, detect in (("bf16", detect_b), ("int8", detect_q)):
+        def run():
+            return tiled.inference_image_tiled(
+                detect, cfg.number_classes, img, size, 32,
+                batch_size=TILED_BATCH, edge_range=96, device=DEVICE)
+
+        run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred = run()
+        dt = time.perf_counter() - t0
+        csv = os.path.join(workdir, f"tiled_{label}.csv")
+        bbox.write_boxes_from_ltrbpc(pred, csv)
+        with open(csv) as fh:
+            lines = fh.read().splitlines()
+        ok = (lines[0] == "X,Y,W,H,P,C" and len(lines) == pred.shape[0] + 1
+              and pred.shape[0] > 0 and np.isfinite(pred).all()
+              and (pred[:, 0:4] >= 0).all()
+              and (pred[:, [0, 2]] < TILED_IMAGE[1]).all()
+              and (pred[:, [1, 3]] < TILED_IMAGE[0]).all())
+        if not ok:
+            raise AssertionError(f"tiled {label}: bad CSV {lines[:2]}, "
+                                 f"{pred.shape[0]} rows")
+        icfg = InferenceConfig(min_box_size=32,
+                               max_boxes_per_class=cfg.number_output_boxes)
+        total, equal = nms_agreement(torch, tiled, detect, cfg, tiles,
+                                     icfg)
+        out[label] = dict(tiles=len(tiles), seconds=dt,
+                          tiles_per_s=len(tiles) / dt, rows=pred.shape[0],
+                          nms_classes=total, nms_equal_reference=equal)
+        log(f"tiled CLI {label}: {len(tiles)} tiles of {size} in "
+            f"{dt * 1e3:.1f} ms, {len(tiles) / dt:.2f} tiles/s, "
+            f"{pred.shape[0]} rows, CSV ok; device NMS (uncapped) equal to "
+            f"the host's greedy rule in its tie order on all {total} "
+            f"tile-classes, to the reference's host NMS on {equal} (the "
+            f"rest differ in tied scores' order), on {card}")
+    return out
 
 
 def phase_cli(torch, inf, InferenceConfig, path, workdir):
@@ -1216,10 +1453,14 @@ def main(argv=None) -> int:
                                                         ModelConfig)
         images = torch.from_numpy(np.random.default_rng(2).standard_normal(
             (BATCH, *FULL["img_size"]), dtype=np.float32)).to(DEVICE)
-        q_calls, q_launches, result["int8_serving"], exact_epi = \
+        q_calls, q_launches, result["int8_serving"], exact_epi, serve = \
             phase_int8_serving(torch, inf, TQ, build, path, images, smi)
-        set_calls, set_launches = phase_int8_sets(torch, TQ, build, path,
-                                                  images)
+        set_calls, set_launches, serves = phase_int8_sets(torch, TQ, build,
+                                                          path, images)
+        result["int8_ab"] = phase_int8_ab(
+            torch, dict({"s2d_region_block_q": serve}, **serves), images,
+            smi)
+        del serve, serves
         with torch.inference_mode():
             q_summary, result["int8_calls"] = phase_int8_kernels(torch,
                                                                  q_calls)
@@ -1232,6 +1473,7 @@ def main(argv=None) -> int:
                                        workdir)
         result["cli_int8_rows"] = phase_cli_int8(torch, inf, TQ, path,
                                                  workdir)
+        result["tiled"] = phase_tiled(torch, TQ, inf, path, workdir, smi)
     result["pointwise_calls"] = pw_rows
     result["nms_cases"] = nms_rows
     result["greedy_cases"] = greedy_rows
@@ -1273,6 +1515,18 @@ def main(argv=None) -> int:
              "library_ms": q["library_ms"]})
         if "previous_ms" in q:
             kernels[-1]["previous_ms"] = q["previous_ms"]
+    # the region's modes, each from its set's serving call
+    for name in REGION_MODES:
+        q = r_summary[name]
+        kernels.append(
+            {"name": name, "route": "cuda",
+             "source": "yolov3_tpu_torch/csrc/s2d_region_block_q.cu",
+             "replaces": INT8_KERNELS["s2d_region_block_q"][1],
+             "launches": path_launches[name],
+             "max_abs_err": q["max_abs_err"], "ms": q["ms"],
+             "event_ms": q["event_ms"], "plain_ms": q["plain_ms"],
+             "bound_ms": q["bound_ms"], "bound_by": q["bound_by"],
+             "library_ms": q["library_ms"]})
     greedy = greedy_rows[0]
     kernels.append(
         {"name": "greedy_suppress", "route": "cuda",

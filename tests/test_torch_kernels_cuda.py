@@ -468,6 +468,98 @@ def test_s2d_tail_equals_plain_and_twin(cuda, n, h1, w1, c, cm, co):
     assert_int8_equal(got, K.s2d_tail_block_q_mma(x, *ws[1:], epi, **kw))
 
 
+def region_mode_case(rng, n, h1, w1, c1, c, cm, co, cuda, kind, fast,
+                     affine2, rawimg, ci=3):
+    """The region's operands in a mode: every third channel of stem2, the
+    1x1 and FB0's 3x3 with a negative BatchNorm scale (the affine2
+    packing's sign-flipped channels); affine2's table and flipped weights;
+    with rawimg a random image of `kind` (bf16 or f32, ci channels), stem1's
+    weights of its type and stem1's rows."""
+    from yolov3_tpu_torch.ops import quant
+    stages = [int8_block(rng, k, ci_, cout) for k, ci_, cout in (
+        (3, c1, c), (1, c, cm), (3, cm, c), (3, c, co))]
+    for _, epi3 in stages[:3]:
+        epi3[1, ::3] *= -1
+    rows = [e for _, e in stages] + [0.04, 0.05, 0.06, 0.07]
+    ws = [w for w, _ in stages]
+    if affine2:
+        epi, signs = quant.region_epi_affine2(*rows, alpha=0.2)
+        ws[1:] = [quant.flip_inputs(w, sgn) for w, sgn in zip(ws[1:], signs)]
+    else:
+        epi = quant.region_epi(*rows, fast=fast)
+    extra = {}
+    if rawimg:
+        dtype = torch.bfloat16 if kind == "bf16" else torch.float32
+        ws1 = torch.from_numpy((rng.randn(9, c1, ci) / np.sqrt(9 * ci))
+                               .astype(np.float32))
+        b0, m0, a0 = (torch.from_numpy(v.astype(np.float32)) for v in (
+            0.1 * rng.randn(c1), rng.uniform(0.8, 1.2, c1),
+            0.1 * rng.randn(c1)))
+        epi = quant.with_stem1(epi, (b0, m0, a0), 0.04, fast=fast)
+        x = torch.from_numpy(rng.randn(n, h1, w1, ci).astype(
+            np.float32)).to(cuda, dtype)
+        extra["w_s1"] = ws1.to(cuda, dtype)
+    else:
+        x = int8_input(rng, (n, h1, w1, c1), kind, cuda)
+        if kind != "s8":
+            extra["inv_in"] = 40.0
+    return x, [w.to(cuda) for w in ws], epi.to(cuda), extra
+
+
+@pytest.mark.parametrize("n,h1,w1,c1,c,cm,co,ci", [
+    (2, 16, 16, 16, 32, 16, 64, 3),      # one tile
+    (1, 44, 36, 32, 64, 32, 128, 1),     # ragged tiles, a grey image
+    (3, 20, 28, 16, 16, 32, 48, 4),      # odd out size, narrow stages
+    (2, 68, 100, 32, 64, 32, 128, 3),    # more tiles than SMs, ragged
+    (8, 512, 512, 32, 64, 32, 128, 3)])  # the flagship, b8 at 512 px
+@pytest.mark.parametrize("kind,cast,fast,affine2,rawimg", [
+    ("s8", True, True, True, False), ("bf16", True, True, True, False),
+    ("f32", False, False, True, False),
+    ("bf16", True, False, False, True), ("bf16", True, True, False, True),
+    ("bf16", True, True, True, True), ("bf16", True, False, True, True),
+    ("f32", False, False, False, True), ("f32", False, True, True, True)])
+def test_s2d_region_modes_equal_plain(cuda, n, h1, w1, c1, c, cm, co, ci,
+                                      kind, cast, fast, affine2, rawimg):
+    """The region kernel's affine2 and rawimg modes (rows 10a, 10b), alone
+    and together, equal their plain version code for code: the affine2
+    epilogue rounds each product and add on its own as the plain version
+    does, and stem1 sums its taps in the plain version's order (a bf16
+    image's FMA equals its separately rounded product and add, the
+    product of two bf16 values being exact in f32). Each launch is counted
+    under its mode."""
+    from yolov3_tpu_torch.ops.kernels import s2d_region_q as K
+    x, ws, epi, extra = region_mode_case(
+        np.random.RandomState(h1 + w1 + c + ci), n, h1, w1, c1, c, cm, co,
+        cuda, kind, fast, affine2, rawimg, ci)
+    kw = dict(alpha=0.2, cast_bf16=cast, fast=fast, affine2=affine2,
+              **extra)
+    name = K.variant(affine2, rawimg)
+    before = _build.launch_counts[name]
+    got = K.s2d_region_block_q(x, *ws, epi, **kw)
+    torch.cuda.synchronize()
+    assert _build.launch_counts[name] == before + 1
+    assert got.shape == (n, h1 // 4, w1 // 4, co)
+    assert_int8_equal(got, K.s2d_region_block_q_plain(x, *ws, epi, **kw))
+
+
+def test_s2d_region_modes_refuse_what_they_do_not_take(cuda):
+    from yolov3_tpu_torch.ops.kernels import s2d_region_q as K
+    x, ws, epi, extra = region_mode_case(
+        np.random.RandomState(1), 1, 16, 16, 16, 32, 16, 64, cuda, "bf16",
+        True, False, True)
+    with pytest.raises(ValueError):  # the first design has neither mode
+        K.launch(K.NAME, x, ws, epi, alpha=0.2, cast_bf16=True, twin=True,
+                 **extra)
+    with pytest.raises(ValueError):  # five image channels
+        K.launch(K.NAME, torch.zeros(1, 16, 16, 5, device=cuda), ws, epi,
+                 alpha=0.2, cast_bf16=True,
+                 w_s1=torch.zeros(9, 16, 5, device=cuda))
+    with pytest.raises(TypeError):  # an s8 image
+        K.s2d_region_block_q(x.to(torch.int8), *ws, epi, alpha=0.2,
+                             cast_bf16=True,
+                             w_s1=extra["w_s1"].to(torch.int8))
+
+
 def exit_case(rng, shape, co, cuda):
     """s8 x, w_t and the exit's [4, Co] epi (1/s_next in row 3) of a
     random block."""

@@ -14,6 +14,7 @@ take.
 
 import dataclasses
 import functools
+import inspect
 
 import jax
 import jax.numpy as jnp
@@ -77,9 +78,23 @@ def stem(fc=256, dtype="float32"):
     return model, y, quant.quantize_act(y, down1.q_inv_in), q2, q4
 
 
+@functools.lru_cache(maxsize=None)
+def for_mode(model, fast=False, affine2=False, rawimg=False):
+    """`model`'s weights, scales and quant_skip in a model built for
+    {region_full} and the region mode's flags, so its region tables are
+    that mode's (`prepare()` builds only the mode the flags select)."""
+    m = TQ.QuantizedYoloV3(model.config, quant_skip=tuple(model.quant_skip),
+                           kernels=dict(region_full=True, region_fast=fast,
+                                        region_affine2=affine2,
+                                        region_rawimg=rawimg))
+    m.load_state_dict(model.state_dict())
+    m.set_act_scales(model.act_scales)
+    return m.eval()
+
+
 def region_args(model, fast=False):
     down1, pw, c3, down2 = model._stem_kernels()
-    epi = model.q_region_epi_fast if fast else model.q_region_epi
+    epi = for_mode(model, fast).q_region_epi
     return (down1.q_wt, pw.q_wt, c3.q_wt, down2.q_wt, epi)
 
 
@@ -378,9 +393,13 @@ def test_flags():
     assert TQ.default_serving_kernels(torch.device("cpu")) == {}
     with pytest.raises(KeyError):
         port_model(kernels={"region_fullest": True})
-    for name in TQ.UNPORTED_FLAGS:
-        with pytest.raises(NotImplementedError):
-            port_model(kernels={name: True})
+    # every kernel flag of the reference's _Ctx is accepted
+    ref = {n for n, p in inspect.signature(Q._Ctx).parameters.items()
+           if p.default is False} - {"fused_interpret", "bn_batch_stats"}
+    assert ref == set(TQ.WIRING_FLAGS + TQ.NO_OP_FLAGS)
+    everything = dict.fromkeys(ref, True)
+    assert TQ.check_kernels(everything) == everything
+    port_model(kernels=everything)
     model, x = port_model(kernels=dict(CUDA_SET, region_affine2=False))
     same, _ = port_model(kernels=dict(
         CUDA_SET, **{n: True for n in TQ.NO_OP_FLAGS}))
@@ -391,6 +410,119 @@ def test_flags():
     base, _ = port_model(kernels={})
     for g, w in zip(maps(default, x), maps(base, x)):
         np.testing.assert_array_equal(g, w)
+
+
+# --- the affine2 epilogue ------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def negative_m_setup(fc=256):
+    """setup()'s weights with the BatchNorm scale of every third channel of
+    stem2, FB0's 1x1 and FB0's 3x3 negated (test_s2d_region_kernel.py:
+    128-152): those channels' M < 0 in all three two-affine stages."""
+    cfg, jcfg, params, stats, x, _ = setup(fc)
+    params = jax.tree_util.tree_map(np.copy, params)
+    d = params[D]
+    for blk in (d["ConvBlock_1"], d["FeatureBlock_0"]["ConvBlock_0"],
+                d["FeatureBlock_0"]["ConvBlock_1"]):
+        sc = blk["BatchNorm_0"]["scale"]
+        sc[np.arange(sc.shape[0]) % 3 == 0] *= -1
+    scales = Q.calibrate(params, stats, jcfg, x)
+    return cfg, jcfg, params, stats, x, scales
+
+
+def affine2_case(negative, dtype="float32", fc=256):
+    """(port model built for the affine2 mode, its q1, the JAX setup) for
+    the affine2 tests."""
+    if not negative:
+        return (for_mode(stem(fc, dtype)[0], True, True), stem(fc, dtype)[2],
+                setup(fc, dtype))
+    cfg, jcfg, p, s, x, scales = negative_m_setup(fc)
+    model = TQ.build_quantized_model(p, s, cfg, "cpu", scales, kernels=dict(
+        region_full=True, region_fast=True, region_affine2=True))
+    with torch.no_grad():
+        y = model._conv_block(model.darknet.convs[0], torch.from_numpy(x))
+    q1 = quant.quantize_act(y, model._stem_kernels()[0].q_inv_in)
+    return model, q1, (cfg, jcfg, p, s, x, scales)
+
+
+def port_affine2(model, q1, cast):
+    down1 = model._stem_kernels()[0]
+    with torch.no_grad():
+        return s2d_region_block_q(
+            q1, down1.q_wt, model.q_affine2_w_pw, model.q_affine2_w_fb0,
+            model.q_affine2_w_ex, model.q_region_epi,
+            alpha=model.alpha, cast_bf16=cast, fast=True,
+            affine2=True).numpy()
+
+
+@functools.lru_cache(maxsize=None)
+def jax_affine2(negative, dtype):
+    model, q1, (_, jcfg, p, s, _, scales) = affine2_case(negative, dtype)
+    ctx = Q._Ctx(jcfg, act_scales=scales, region_full=True,
+                 region_fast=True, region_affine2=True, fused_interpret=True)
+    return np.asarray(Q._s2d_region_fused(ctx, p, s, s2d(q1)))
+
+
+@pytest.mark.parametrize("negative", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_affine2_matches_jax(negative, dtype):
+    """The plain affine2 region against JAX's affine2 region (interpret
+    mode) on the same s8 input, with every third channel of the three
+    two-affine stages at M < 0 or none. JAX's own bound is against the
+    exact region (test_s2d_region_kernel.py:125-126, <= 2 codes on <= 25%);
+    against JAX's affine2 region the codes observed are equal, code for
+    code (both round each product and add on its own)."""
+    model, q1, _ = affine2_case(negative, dtype)
+    if negative:  # the packing flipped channels of each stage
+        assert (model.q_affine2_w_pw < 0).sum() != (
+            model._stem_kernels()[1].q_wt < 0).sum()
+    got = port_affine2(model, q1, dtype == "bfloat16")
+    want = jax_affine2(negative, dtype)
+    assert got.shape == want.shape == (2, 16, 16, 32)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("negative", [False, True])
+def test_affine2_close_to_exact(negative):
+    """test_s2d_region_kernel.py:106-152: the affine2 region within 2 codes
+    on 25% of the exact one (f32, filter count 256; with negative M as
+    there)."""
+    model, q1, _ = affine2_case(negative)
+    with torch.no_grad():
+        exact = s2d_region_block_q(q1, *region_args(model), alpha=model.alpha,
+                                   cast_bf16=False)
+    assert_codes(port_affine2(model, q1, False), exact, 2, 0.25)
+
+
+def test_affine2_packing():
+    """`region_epi_affine2`: rows (m1, c1, m2, c2) = sign * (M/s, M/s * b +
+    A/s, alpha M/s, alpha M/s * b + A/s) with the sign of M/s, and max of
+    the two affines equals the exact epilogue before its rounding; the
+    consumers' weights flip where the producing stage's sign is
+    negative."""
+    model, _, (_, _, _, _, _, scales) = affine2_case(True)
+    down1, pw, c3, down2 = model._stem_kernels()
+    t, fast = model.q_region_epi, for_mode(model, True).q_region_epi
+    assert t.shape == fast.shape
+    c = down1.q_wt.shape[1]
+    rng = np.random.RandomState(0)
+    acc = torch.from_numpy(rng.randint(-3000, 3000, (64, c)).astype(
+        np.float32))
+    b, m, a = down1.q_epi
+    s2 = np.float32(scales[f"{D}/FeatureBlock_0/ConvBlock_0"])
+    sgn = torch.where(m / torch.tensor(s2) >= 0, 1.0, -1.0)
+    y = acc + b
+    want = (torch.where(y >= 0, y, model.alpha * y) * m + a) / s2 * sgn
+    got = torch.maximum(acc * t[13, :c] + t[14, :c], acc * t[15, :c]
+                        + t[16, :c])
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3)
+    assert (sgn < 0).any() and (sgn > 0).any()
+    flip = model.q_affine2_w_pw
+    torch.testing.assert_close(flip * sgn[None, None, :].to(torch.int8),
+                               pw.q_wt)
+    # the exit keeps the fast rows
+    torch.testing.assert_close(t[9:12], fast[9:12])
 
 
 def slab_case(seed, c, k, sparse):

@@ -33,6 +33,8 @@ BLOCK_COUNT = 8
 FILTER_COUNT = 1024
 KERNEL_SIZE = 3
 NETWORK_DOWNSAMPLE_FACTOR = 32
+# tiled inference's ghost-zone radius (reference/inference_tiled.py:25-26)
+EDGE_EFFECT_RANGE = 96
 
 DEFAULT_ANCHORS: Tuple[Tuple[int, int], ...] = ((32, 32), (128, 128), (256, 256))
 TRAIN_DEFAULT_ANCHORS: Tuple[Tuple[int, int], ...] = ((64, 384), (384, 64))

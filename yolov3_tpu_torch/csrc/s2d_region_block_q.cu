@@ -25,12 +25,28 @@
 //          fb0: bf16(bf16(q2 * s2) + bf16(z)), then quantized with 1/s4
 //   fast:  y = max(y, alpha*y) with 1/s folded into m and a; q = clip(rint(
 //          y*m + a)); fb0 adds q2 * (s2/s4) before the rounding
+//   affine2 (s2d_region_kernel.py:583-591): stem2, pw: q = clip(rint(max(
+//          acc*m1 + c1, acc*m2 + c2))); fb0 adds q2 * r before the
+//          rounding; the exit runs the fast epilogue. A channel whose m1 is
+//          negative comes out negated, and its consumers' weights take it
+//          negated (ops/quant.py::region_epi_affine2)
 // rintf rounds half to even, as jnp.round does.
+//
+// rawimg (s2d_region_kernel.py:330-363, :604-615): x is the z-scored image
+// [n, 2h2, 2w2, ci] (bf16 or f32) and each tile first computes its x tile,
+// stem1 (3x3, SAME, weights [9, c1, ci]) and its epilogue (bias, LeakyReLU,
+// BatchNorm; exact or fast by `fast`) and the quantize to s1, on CUDA
+// cores from an f32 image patch in shared memory, summed tap by tap in the
+// plain version's order (stem1_tile). Off-image stem1 pixels are code 0:
+// they are stem2's SAME padding, not stem1 on the image's zero padding.
 //
 // What bounds it: at the flagship (b8, stem1 out 8x512x512x32) 30.1 G MACs
 // (60.1 G int8 operations, 0.030 ms at 1979 TOP/s) against 134 MB in
 // (bf16) and 17 MB out (0.045 ms at 3.35 TB/s): neither, by much; the four
-// unfused launches it replaces move 0.42 GB between stages.
+// unfused launches it replaces move 0.42 GB between stages. With rawimg
+// it reads the 12.6 MB bf16 image instead of stem1's 134 MB output, and
+// adds stem1's 1.8 G f32 MACs (3.6 G operations on CUDA cores, 0.054 ms
+// at 67 TFLOP/s), recomputed on the halo of each tile.
 //
 // Where the time went (clock64 stamps per phase of the first design, on
 // the H100 at the flagship, fast epilogue, bf16 input; PERF.md): ~47 us a
@@ -63,7 +79,9 @@
 // the stage). The epilogues are the first design's op for op, from the
 // accumulator registers, with the final rounding on the FMA pipe (the
 // same codes) and each row's tile coordinates derived once an item. T = 8
-// at the flagship: 219 KB of shared memory, one block an SM.
+// at the flagship: 219 KB of shared memory, one block an SM (rawimg: 215
+// KB, its x tile and image patch sharing q3's and q4's buffer; the
+// image patch is loaded at the start of each tile, not ahead).
 //
 // `s2d_region_block_q_mma` / `s2d_tail_block_q_mma` are the first
 // design, kept for A/B timing only: no serving path calls them. One block
@@ -77,6 +95,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kWarps = 16;
@@ -84,7 +104,11 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kPad = 16;  // bytes after each pixel's channels in smem
 constexpr int kSmemMax = 232448;
 
-enum InKind { kS8 = 0, kBF16 = 1, kF32 = 2 };
+// x's kinds: stem1's output (s8, or bf16 / f32 quantized on load), or
+// the z-scored image (bf16 / f32) that the kernel runs stem1 on
+enum InKind { kS8 = 0, kBF16 = 1, kF32 = 2, kImgBF16 = 3, kImgF32 = 4 };
+// the image channels the rawimg kernel takes
+constexpr int kMaxImageChannels = 4;
 
 struct Params {
   const void* x;        // region: [n, 2h2, 2w2, c1]; tail: [n, h2, w2, c]
@@ -100,6 +124,25 @@ struct Params {
   int x_kind;           // InKind of x (the tail takes s8)
   float inv_in;         // 1/s1, the quantize of a float x
 };
+
+// The rawimg kernel's parameters: stem1's weights and the image's
+// channels besides. A kernel parameter of its own, so that the other
+// kernels' parameters (and code) stay as they were.
+struct ImageParams : Params {
+  const void* w_s1;  // stem1's weights [9, c1, ci], of x's type
+  int ci;            // the image's channels
+};
+
+// the parameters of a region kernel on x's kind
+template <int KIND>
+using KernelParams =
+    std::conditional_t<KIND == kImgBF16 || KIND == kImgF32, ImageParams,
+                       Params>;
+
+__device__ __forceinline__ int image_channels(const Params&) { return 0; }
+__device__ __forceinline__ int image_channels(const ImageParams& p) {
+  return p.ci;
+}
 
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -125,11 +168,23 @@ __device__ __forceinline__ int8_t clip_round(float y) {
   }
 }
 
+// max(acc * m1 + c1, acc * m2 + c2), each product and add rounded on its
+// own: the affine2 epilogue's two affines of the sum
+__device__ __forceinline__ float affine2_max(int acc, float m1, float c1,
+                                             float m2, float c2) {
+  const float y = __int2float_rn(acc);
+  return fmaxf(__fadd_rn(__fmul_rn(y, m1), c1),
+               __fadd_rn(__fmul_rn(y, m2), c2));
+}
+
 // a conv stage's epilogue and requantize (stem2, pw, exit); FAST: the
-// fast (1) or exact (0) epilogue, or p.fast's (-1)
+// affine2 (2, rows b, m, a, inv holding m1, c1, m2, c2), fast (1) or
+// exact (0) epilogue, or p.fast's (-1)
 template <int FAST = -1, bool kBits = false>
 __device__ __forceinline__ int8_t stage_q(int acc, float b, float m, float a,
                                           float inv, const Params& p) {
+  if constexpr (FAST == 2) return clip_round<kBits>(affine2_max(acc, b, m, a,
+                                                                inv));
   float y = __fadd_rn(__int2float_rn(acc), b);
   if (FAST < 0 ? p.fast : FAST) {
     y = fmaxf(y, __fmul_rn(p.alpha, y));
@@ -141,11 +196,15 @@ __device__ __forceinline__ int8_t stage_q(int acc, float b, float m, float a,
   return clip_round<kBits>(__fmul_rn(y, inv));
 }
 
-// FB0's 3x3 epilogue with the block's residual (q2's code `res`)
+// FB0's 3x3 epilogue with the block's residual (q2's code `res`); with
+// affine2 the rows b, m, a, r, inv hold m1, c1, m2, c2, r
 template <int FAST = -1, bool kBits = false>
 __device__ __forceinline__ int8_t fb0_q(int acc, float b, float m, float a,
                                         float r, float inv, float res,
                                         const Params& p) {
+  if constexpr (FAST == 2)
+    return clip_round<kBits>(
+        __fadd_rn(affine2_max(acc, b, m, a, r), __fmul_rn(res, inv)));
   float z = __fadd_rn(__int2float_rn(acc), b);
   if (FAST < 0 ? p.fast : FAST) {
     z = fmaxf(z, __fmul_rn(p.alpha, z));
@@ -577,24 +636,39 @@ __host__ __device__ inline size_t wbytes(int taps, int n, int k) {
 // the epi table. The activation tiles hold each pixel's channels without
 // padding, swizzled (act_off); the input tile has a buffer of its own, so
 // the next tile's input is copied in while this tile's later stages run.
+// The rawimg kernel (ci > 0) computes its input tile: stem1's f32 weights
+// follow the others, and the x tile and the f32 image patch it is made
+// from ((4T+9)^2 pixels) share one buffer with q3 and q4, which are
+// written only after stem2 has read x.
 struct Layout90 {
-  size_t ws2, wpw, wfb, wex, q2, x, q3, q4, epi, total;
+  size_t ws2, wpw, wfb, wex, w1, q2, x, img, q3, q4, epi, total;
 };
 
 __host__ __device__ inline Layout90 layout90(bool region, int tile, int c1,
                                              int c, int cm, int co, int rows,
-                                             int e) {
+                                             int e, int ci = 0) {
   const size_t xw = 4 * tile + 7, qw = 2 * tile + 3, q4w = 2 * tile + 1;
   Layout90 l;
   l.ws2 = 0;
   l.wpw = l.ws2 + (region ? wbytes(9, c, c1) : 0);
   l.wfb = l.wpw + wbytes(1, cm, c);
   l.wex = l.wfb + wbytes(9, c, cm);
-  l.q2 = l.wex + wbytes(9, co, c);
+  l.w1 = l.wex + wbytes(9, co, c);
+  l.q2 = l.w1 + static_cast<size_t>(9) * ci * c1 * 4;
   l.x = l.q2 + qw * qw * c;
-  l.q3 = l.x + (region ? xw * xw * c1 : 0);
-  l.q4 = l.q3 + qw * qw * cm;
-  l.epi = l.q4 + q4w * q4w * c;
+  if (ci == 0) {
+    l.img = l.x;
+    l.q3 = l.x + (region ? xw * xw * c1 : 0);
+    l.q4 = l.q3 + qw * qw * cm;
+    l.epi = l.q4 + q4w * q4w * c;
+  } else {
+    l.img = l.x + xw * xw * c1;
+    l.q3 = l.x;
+    l.q4 = l.q3 + qw * qw * cm;
+    const size_t a = xw * xw * c1 + (xw + 2) * (xw + 2) * ci * 4;
+    const size_t b = qw * qw * cm + q4w * q4w * c;
+    l.epi = l.x + ((a > b ? a : b) + 15) / 16 * 16;
+  }
   l.total = l.epi + static_cast<size_t>(rows) * e * 4 + kAlign;
   return l;
 }
@@ -843,6 +917,145 @@ struct FloatIn {
   }
 };
 
+// The rawimg kernel's image patch: side x side pixels of the image
+// (p.ci channels of KIND) at origin (r0, c0), as f32 in shared memory,
+// zeros off the image (stem1's SAME padding). Each thread starts all of
+// its loads before it stores any, so their latencies overlap.
+constexpr int kImageLoads = 16;  // (4T + 9)^2 * ci <= 16 * kThreads
+template <int KIND>
+__device__ __forceinline__ void load_image(float* dst, const ImageParams& p,
+                                           int img, int r0, int c0,
+                                           int side) {
+  const int h1 = 2 * p.h2, w1 = 2 * p.w2, ci = p.ci;
+  const int total = side * side * ci;
+  const size_t base = static_cast<size_t>(img) * h1 * w1 * ci;
+  float v[kImageLoads];
+#pragma unroll
+  for (int k = 0; k < kImageLoads; ++k) {
+    const int idx = threadIdx.x + k * kThreads;
+    const int pix = idx / ci, i = pix / side, j = pix - i * side;
+    const int gr = r0 + i, gc = c0 + j;
+    v[k] = 0.0f;
+    if (idx < total && gr >= 0 && gr < h1 && gc >= 0 && gc < w1) {
+      const size_t off = base + (static_cast<size_t>(gr) * w1 + gc) * ci +
+                         (idx - pix * ci);
+      if constexpr (KIND == kImgBF16)
+        // a bf16 is the top half of the f32 with the same value
+        v[k] = __uint_as_float(static_cast<uint32_t>(__ldg(
+                   static_cast<const unsigned short*>(p.x) + off)) << 16);
+      else
+        v[k] = __ldg(static_cast<const float*>(p.x) + off);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kImageLoads; ++k) {
+    const int idx = threadIdx.x + k * kThreads;
+    if (idx < total) dst[idx] = v[k];
+  }
+}
+
+// stem1's weights [9, c1, ci] of KIND as f32 in shared memory, [9 * ci]
+// rows (tap-major, then the image channel) of c1
+template <int KIND>
+__device__ __forceinline__ void load_stem1_weights(float* dst,
+                                                   const ImageParams& p) {
+  for (int idx = threadIdx.x; idx < 9 * p.ci * p.c1; idx += kThreads) {
+    const int o = idx % p.c1, row = idx / p.c1;
+    const int tap = row / p.ci, cc = row - tap * p.ci;
+    const size_t src = (static_cast<size_t>(tap) * p.c1 + o) * p.ci + cc;
+    if constexpr (KIND == kImgBF16)
+      dst[idx] = __uint_as_float(static_cast<uint32_t>(
+                     static_cast<const unsigned short*>(p.w_s1)[src]) << 16);
+    else
+      dst[idx] = static_cast<const float*>(p.w_s1)[src];
+  }
+}
+
+// stem1's epilogue on its f32 sum: bias, LeakyReLU, BatchNorm and the
+// quantize to ConvBlock_1's scale, a stage's exact or fast epilogue (by
+// p.fast; rows 17-20: b, mul, add, 1/s1, the 1/s folded into mul and add
+// under fast)
+__device__ __forceinline__ int8_t stem1_q(float acc, float b, float m,
+                                          float a, float inv,
+                                          const Params& p) {
+  if (p.cast_bf16) acc = bf16_round(acc);
+  float y = __fadd_rn(acc, b);
+  if (p.fast) {
+    y = fmaxf(y, __fmul_rn(p.alpha, y));
+    return clip_round<true>(__fadd_rn(__fmul_rn(y, m), a));
+  }
+  y = y >= 0.0f ? y : __fmul_rn(p.alpha, y);
+  y = __fadd_rn(__fmul_rn(y, m), a);
+  if (p.cast_bf16) y = bf16_round(y);
+  return clip_round<true>(__fmul_rn(y, inv));
+}
+
+// The rawimg kernel's input tile: stem1 (3x3, SAME) at stem1 pixels
+// 4R0-2 .. 4R0+4T+4 (rows and columns) from the image patch `img` at
+// origin 4R0-3, quantized into the activation tile x; code 0 off the
+// image (stem2's SAME padding). An item is a pixel and 16 channels, the
+// channels outermost so that a warp reads one weight row (broadcast). The
+// sum runs over the taps (u, v, channel) in that order, in f32: for a
+// bf16 image one FMA a tap, since the product of two bf16 values is
+// exact in f32 (the plain version's separately rounded product and add);
+// for an f32 image a product and an add.
+template <int KIND>
+__device__ __forceinline__ void stem1_tile(const Act& x, const float* img,
+                                           const float* w1, const float* E,
+                                           int e, const ImageParams& p,
+                                           int R0,
+                                           int C0, int XW) {
+  const int side = XW + 2, ci = p.ci, pixels = XW * XW;
+  const int h1 = 2 * p.h2, w1d = 2 * p.w2;
+  for (int idx = threadIdx.x; idx < pixels * (p.c1 >> 4); idx += kThreads) {
+    const int vec = idx / pixels, pix = idx - vec * pixels;
+    const int i = pix / XW, j = pix - i * XW;
+    const int gr = 4 * R0 - 2 + i, gc = 4 * C0 - 2 + j;
+    union {
+      uint4 u;
+      int8_t s8[16];
+    } out;
+    out.u = make_uint4(0, 0, 0, 0);
+    if (gr >= 0 && gr < h1 && gc >= 0 && gc < w1d) {
+      float acc[16];
+#pragma unroll
+      for (int k = 0; k < 16; ++k) acc[k] = 0.0f;
+      const float* ip = img + (i * side + j) * ci;
+      const float* wp = w1 + vec * 16;
+#pragma unroll
+      for (int u = 0; u < 3; ++u) {
+#pragma unroll
+        for (int v = 0; v < 3; ++v) {
+          for (int cc = 0; cc < ci; ++cc) {
+            const float xv = ip[(u * side + v) * ci + cc];
+            const float4* w4 = reinterpret_cast<const float4*>(
+                wp + ((u * 3 + v) * ci + cc) * p.c1);
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const float4 wv = w4[q];
+              const float ws[4] = {wv.x, wv.y, wv.z, wv.w};
+#pragma unroll
+              for (int r = 0; r < 4; ++r) {
+                if constexpr (KIND == kImgBF16)
+                  acc[4 * q + r] = __fmaf_rn(xv, ws[r], acc[4 * q + r]);
+                else
+                  acc[4 * q + r] =
+                      __fadd_rn(acc[4 * q + r], __fmul_rn(xv, ws[r]));
+              }
+            }
+          }
+        }
+      }
+      const int o = vec * 16;
+#pragma unroll
+      for (int k = 0; k < 16; ++k)
+        out.s8[k] = stem1_q(acc[k], E[17 * e + o + k], E[18 * e + o + k],
+                            E[19 * e + o + k], E[20 * e + o + k], p);
+    }
+    *reinterpret_cast<uint4*>(x.base + act_off(x, pix, vec * 16)) = out.u;
+  }
+}
+
 // One stage on wgmma, over activation tiles in shared memory (any pixel
 // rows: a tap's shifted or strided window needs no copy) with the weights
 // at `wb` as load_w90 lays them out. Warpgroup g takes items g, g + 4,
@@ -928,11 +1141,15 @@ __device__ __forceinline__ void stage90(const Act& in, int inw, int gh,
 }
 
 // The region (kRegion) or the tail, one persistent block walking tiles
-// blockIdx.x, + gridDim.x, ...; KIND is x's (the tail's is s8), kFast the
-// epilogue's variant.
+// blockIdx.x, + gridDim.x, ...; KIND is x's (the tail's is s8; an image
+// kind runs stem1 on each tile's image patch first), kFast the epilogue's
+// variant (0 exact, 1 fast, 2 affine2, whose exit runs the fast one).
 template <bool kRegion, int KIND, int kFast>
 __global__ void __launch_bounds__(kThreads, 1)
-region_kernel90(const Params p, int tiles_h, int tiles_w, int tiles) {
+region_kernel90(const KernelParams<KIND> p, int tiles_h, int tiles_w,
+                int tiles) {
+  constexpr bool kImg = kRegion && (KIND == kImgBF16 || KIND == kImgF32);
+  constexpr int kExit = kFast == 2 ? 1 : kFast;
   extern __shared__ uint8_t smem_raw90[];
   const uint32_t raw = smem_u32(smem_raw90);
   int8_t* const smem = reinterpret_cast<int8_t*>(
@@ -940,9 +1157,10 @@ region_kernel90(const Params p, int tiles_h, int tiles_w, int tiles) {
                     raw));
   const int T = p.tile;
   const int XW = 4 * T + 7, QW = 2 * T + 3, Q4W = 2 * T + 1;
-  const int rows = kRegion ? 17 : 13;
+  const int rows = kImg ? 21 : kRegion ? 17 : 13;
   const int e = p.e;
-  const Layout90 L = layout90(kRegion, T, p.c1, p.c, p.cm, p.co, rows, e);
+  const Layout90 L = layout90(kRegion, T, p.c1, p.c, p.cm, p.co, rows, e,
+                              image_channels(p));
   const Act x = act(smem + L.x, p.c1), q2 = act(smem + L.q2, p.c);
   const Act q3 = act(smem + L.q3, p.cm), q4 = act(smem + L.q4, p.c);
   float* E = reinterpret_cast<float*>(smem + L.epi);
@@ -956,6 +1174,10 @@ region_kernel90(const Params p, int tiles_h, int tiles_w, int tiles) {
   load_w90(smem + L.wex, p.w_ex, 9, p.co, p.c);
   for (int i = threadIdx.x; i < rows * e / 4; i += kThreads)
     cp_async16(E + 4 * i, p.epi + 4 * i, 16);
+  float* const patch = reinterpret_cast<float*>(smem + L.img);
+  const float* const w1 = reinterpret_cast<const float*>(smem + L.w1);
+  if constexpr (kImg)
+    load_stem1_weights<KIND>(reinterpret_cast<float*>(smem + L.w1), p);
 
   // tile t's input: the region's x tile (stem1 rows/cols 4R0-2 ..
   // 4R0+4T+4 feed q2 rows 2R0-1 .. 2R0+2T+1), or the tail's q2 tile
@@ -979,7 +1201,7 @@ region_kernel90(const Params p, int tiles_h, int tiles_w, int tiles) {
                        static_cast<size_t>(img) * p.h2 * p.w2 * p.c,
                    p.h2, p.w2, p.c, QW, 2 * R0 - 1, 2 * C0 - 1);
   };
-  constexpr bool kFloat = kRegion && KIND != kS8;
+  constexpr bool kFloat = kRegion && (KIND == kBF16 || KIND == kF32);
   FloatIn<kFloat ? KIND : kBF16> next;
   // a float input's first three groups of chunks are prefetched during the
   // previous tile's pw, fb0 and exit; the rest, and the first tile, here
@@ -992,6 +1214,14 @@ region_kernel90(const Params p, int tiles_h, int tiles_w, int tiles) {
     const int rem = t - img * tiles_h * tiles_w;
     const int R0 = (rem / tiles_w) * T, C0 = (rem % tiles_w) * T;
     const int tn = t + gridDim.x;  // the block's next tile
+    if constexpr (kImg) {
+      // stem1 rows/cols 4R0-2 .. 4R0+4T+4 read image rows/cols 4R0-3 ..
+      // 4R0+4T+5
+      load_image<KIND>(patch, p, img, 4 * R0 - 3, 4 * C0 - 3, XW + 2);
+      cp_async_wait_all();  // the weights and the epi table, first tile
+      __syncthreads();
+      stem1_tile<KIND>(x, patch, w1, E, e, p, R0, C0, XW);
+    }
     if (kFloat) next.rest(x, input(t), landed, p.inv_in);
     cp_async_wait_all();
     __syncthreads();
@@ -1006,7 +1236,7 @@ region_kernel90(const Params p, int tiles_h, int tiles_w, int tiles) {
       if (tn < tiles) {
         if (kFloat)
           next.issue(input(tn), 0);
-        else
+        else if (!kImg)
           copy_tile_s8(x, input(tn));
       }
     }
@@ -1058,7 +1288,7 @@ region_kernel90(const Params p, int tiles_h, int tiles_w, int tiles) {
                       *reinterpret_cast<char2*>(
                           p.out + ((static_cast<size_t>(img) * p.h3 + gr) *
                                        p.w3 + gc) * p.co + o) =
-                          stage_q2<kFast, true>(a0, a1, c, p);
+                          stage_q2<kExit, true>(a0, a1, c, p);
                   });
     if (kFloat && tn < tiles) next.land(x, input(tn), 2, p.inv_in);
     landed = 3;
@@ -1066,12 +1296,11 @@ region_kernel90(const Params p, int tiles_h, int tiles_w, int tiles) {
   }
 }
 
-template <bool kRegion>
-int launch90(const Params& p, int n, cudaStream_t stream) {
-  const size_t smem = layout90(kRegion, p.tile, p.c1, p.c, p.cm, p.co,
-                               kRegion ? 17 : 13, p.e).total;
-  if (smem > static_cast<size_t>(kSmemMax))
-    return static_cast<int>(cudaErrorInvalidValue);
+// Launch `kernel` on min(tiles, SMs) persistent blocks with `smem` bytes
+// of shared memory.
+template <class P>
+int launch_blocks(void (*kernel)(const P, int, int, int), const P& p,
+                  size_t smem, int n, cudaStream_t stream) {
   if (n == 0 || p.h3 == 0 || p.w3 == 0) return 0;
   const int tiles_h = (p.h3 + p.tile - 1) / p.tile;
   const int tiles_w = (p.w3 + p.tile - 1) / p.tile;
@@ -1081,16 +1310,6 @@ int launch90(const Params& p, int n, cudaStream_t stream) {
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  // the kernel of x's kind and the epilogue's variant (the tail: s8, exact)
-  using Kernel = void (*)(const Params, int, int, int);
-  Kernel kernel = region_kernel90<false, kS8, 0>;
-  if constexpr (kRegion) {
-    const Kernel table[3][2] = {
-        {region_kernel90<true, kS8, 0>, region_kernel90<true, kS8, 1>},
-        {region_kernel90<true, kBF16, 0>, region_kernel90<true, kBF16, 1>},
-        {region_kernel90<true, kF32, 0>, region_kernel90<true, kF32, 1>}};
-    kernel = table[p.x_kind][p.fast ? 1 : 0];
-  }
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1102,6 +1321,41 @@ int launch90(const Params& p, int n, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// The kernel of x's kind and the epilogue's variant (the tail: s8,
+// exact); an image kind's with stem1's weights w_s1 and the image's ci
+// channels.
+template <bool kRegion>
+int launch90(const Params& p, int n, int affine2, const void* w_s1, int ci,
+             cudaStream_t stream) {
+  const bool image = p.x_kind == kImgBF16 || p.x_kind == kImgF32;
+  const size_t smem = layout90(kRegion, p.tile, p.c1, p.c, p.cm, p.co,
+                               image ? 21 : kRegion ? 17 : 13, p.e,
+                               image ? ci : 0).total;
+  if (smem > static_cast<size_t>(kSmemMax))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (!kRegion) {
+    return launch_blocks(region_kernel90<false, kS8, 0>, p, smem, n, stream);
+  } else {
+#define REGION_MODES(K) \
+  {region_kernel90<true, K, 0>, region_kernel90<true, K, 1>, \
+   region_kernel90<true, K, 2>}
+    const int mode = affine2 ? 2 : p.fast ? 1 : 0;
+    if (image) {
+      using Kernel = void (*)(const ImageParams, int, int, int);
+      const Kernel table[2][3] = {REGION_MODES(kImgBF16),
+                                  REGION_MODES(kImgF32)};
+      const ImageParams ip{p, w_s1, ci};
+      return launch_blocks(table[p.x_kind - kImgBF16][mode], ip, smem, n,
+                           stream);
+    }
+    using Kernel = void (*)(const Params, int, int, int);
+    const Kernel table[3][3] = {REGION_MODES(kS8), REGION_MODES(kBF16),
+                                REGION_MODES(kF32)};
+#undef REGION_MODES
+    return launch_blocks(table[p.x_kind][mode], p, smem, n, stream);
+  }
+}
+
 bool channels_ok(int c1, int c, int cm, int co) {
   return c1 > 0 && c > 0 && cm > 0 && co > 0 && c1 % 16 == 0 &&
          c % 16 == 0 && cm % 16 == 0 && co % 16 == 0;
@@ -1110,23 +1364,33 @@ bool channels_ok(int c1, int c, int cm, int co) {
 
 // x [n, h1, w1, c1] (h1, w1 multiples of 4) of kind x_kind (0 s8, 1 bf16,
 // 2 f32: quantized with inv_in) -> out s8 [n, h1/4, w1/4, co]. epi f32
-// [17, e], e >= max(c, cm, co). `twin` runs the first design. Returns a
-// cudaError_t code.
+// [17, e], e >= max(c, cm, co). x_kind 3 or 4: x is the bf16 or f32 image
+// [n, h1, w1, ci] (ci <= kMaxImageChannels), w_s1 stem1's weights [9, c1,
+// ci] of its type, epi [21, e] with stem1's rows, e >= c1 too. `affine2`:
+// the affine2 epilogue. `twin` runs the first design (neither mode).
+// Returns a cudaError_t code.
 int region_entry(const void* x, int x_kind, float inv_in, const int8_t* w_s2,
                  const int8_t* w_pw, const int8_t* w_fb0, const int8_t* w_ex,
                  const float* epi, int epi_rows, int e, int8_t* out, int n,
                  int h1, int w1, int c1, int c, int cm, int co, int tile,
-                 float alpha, int cast_bf16, int fast, bool twin,
-                 cudaStream_t stream) {
-  if (h1 % 4 || w1 % 4 || !channels_ok(c1, c, cm, co) || epi_rows != 17 ||
-      e < c || e < cm || e < co || e % 4 || tile < 1 || n > 65535 ||
-      x_kind < kS8 || x_kind > kF32)
+                 float alpha, int cast_bf16, int fast, const void* w_s1,
+                 int ci, int affine2, bool twin, cudaStream_t stream) {
+  const bool image = x_kind == kImgBF16 || x_kind == kImgF32;
+  if (h1 % 4 || w1 % 4 || !channels_ok(c1, c, cm, co) ||
+      epi_rows != (image ? 21 : 17) || e < c || e < cm || e < co ||
+      (image && e < c1) || e % 4 || tile < 1 || n > 65535 ||
+      x_kind < kS8 || x_kind > kImgF32 ||
+      (image && (w_s1 == nullptr || ci < 1 || ci > kMaxImageChannels ||
+                 (4 * tile + 9) * (4 * tile + 9) * ci >
+                     kImageLoads * kThreads)) ||
+      (twin && (image || affine2)))
     return static_cast<int>(cudaErrorInvalidValue);
   const Params p{x,      w_s2,   w_pw,   w_fb0,  w_ex,  epi,   out,
                  h1 / 2, w1 / 2, h1 / 4, w1 / 4, c1,    c,     cm,
                  co,     e,      tile,   alpha,  cast_bf16, fast, x_kind,
                  inv_in};
-  return twin ? launch_mma<true>(p, n, stream) : launch90<true>(p, n, stream);
+  return twin ? launch_mma<true>(p, n, stream)
+              : launch90<true>(p, n, affine2, w_s1, ci, stream);
 }
 
 // x s8 [n, h2, w2, c] (stem2's output; h2, w2 even) -> out s8
@@ -1143,7 +1407,7 @@ int tail_entry(const int8_t* x, const int8_t* w_pw, const int8_t* w_fb0,
                  h2, w2,      h2 / 2, w2 / 2, 0,    c,     cm,
                  co, e,       tile,   alpha,  cast_bf16, 0, kS8, 1.0f};
   return twin ? launch_mma<false>(p, n, stream)
-              : launch90<false>(p, n, stream);
+              : launch90<false>(p, n, 0, nullptr, 0, stream);
 }
 
 }  // namespace
@@ -1153,10 +1417,11 @@ int tail_entry(const int8_t* x, const int8_t* w_pw, const int8_t* w_fb0,
       const int8_t *w_pw, const int8_t *w_fb0, const int8_t *w_ex,          \
       const float *epi, int epi_rows, int e, int8_t *out, int n, int h1,    \
       int w1, int c1, int c, int cm, int co, int tile, float alpha,         \
-      int cast_bf16, int fast, cudaStream_t stream
+      int cast_bf16, int fast, const void *w_s1, int ci, int affine2,       \
+      cudaStream_t stream
 #define REGION_PASS                                                         \
   x, x_kind, inv_in, w_s2, w_pw, w_fb0, w_ex, epi, epi_rows, e, out, n, h1, \
-      w1, c1, c, cm, co, tile, alpha, cast_bf16, fast
+      w1, c1, c, cm, co, tile, alpha, cast_bf16, fast, w_s1, ci, affine2
 #define TAIL_ARGS                                                           \
   const int8_t *x, const int8_t *w_pw, const int8_t *w_fb0,                 \
       const int8_t *w_ex, const float *epi, int epi_rows, int e,            \

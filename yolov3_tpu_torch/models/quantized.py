@@ -39,10 +39,17 @@ convs are the plain ones). `kernels` is the reference's flag dict, None
 meaning `default_serving_kernels(device)`: the reference's set on a CUDA
 device, `{}` on the CPU, as JAX gates its set to the TPU. The flags that
 change the wiring:
-- `region_full` (+ `region_fast`): the whole region is one launch
-  (`s2d_region_q`) on stem1's output, which the kernel quantizes with
-  ConvBlock_1's scale as it loads it; the fast epilogue with
-  `region_fast`;
+- `region_full` + `region_rawimg`: the region kernel (`s2d_region_q`)
+  takes the z-scored image and runs stem1 itself, so stem1's output never
+  reaches device memory (stem1 must stay bf16, as `DEFAULT_QUANT_SKIP`
+  keeps it);
+- otherwise `region_full`: the whole region is one launch on stem1's
+  output, which the kernel quantizes with ConvBlock_1's scale as it loads
+  it (the reference's `region_rawin`, which is therefore the same route);
+- with either, `region_fast` gives the fast epilogue and
+  `region_affine2` the two-affine one (`ops/quant.py::region_epi_affine2`,
+  with the consumers' weights sign-flipped); `prepare()` builds the
+  region's table for this one mode (and its stem1 rows for `rawimg`);
 - otherwise stem2 emits FeatureBlock_0's s8 input, and `region_pallas`
   runs the rest as one launch (`s2d_tail_q`);
 - otherwise FeatureBlock_0 runs on the 1x1 and 3x3 kernels, and with
@@ -50,13 +57,16 @@ change the wiring:
   (`exit_conv_q`); otherwise ConvBlock_2 is a stride-2 block.
 Each step needs its blocks int8 and the kernel's limits (H and W multiples
 of 4 or 2, channels multiples of 16, its shared-memory plan) on every
-device, so the CPU takes the route the card takes. `region_pipe`,
-`region_pipe2`, `rep_requant` and `rep_requant_final` are TPU scheduling
-or storage folds the reference calls bit-identical, and
+device, so the CPU takes the route the card takes; where a step does not
+fit, the next one runs. `head_matmul` runs each detection head as one
+`torch.matmul` on [B*gh*gw, Ci] (the reference computes it with XLA, not
+in a kernel). `region_pipe`, `region_pipe2`, `rep_requant` and
+`rep_requant_final` are TPU scheduling or storage folds the reference
+calls bit-identical; `head_pad` pads the heads' channels for the TPU's
+lanes and decode slices the padding away again, the same numbers;
+`region_rawin` is the port's `region_full` route; and
 `pointwise_pallas`, `conv3_pallas` and `down_pallas` are always on here:
-all seven are accepted and change nothing. `region_affine2`,
-`region_rawin`, `region_rawimg`, `head_matmul` and `head_pad` are not
-ported (NotImplementedError); any other name is a KeyError.
+all nine are accepted and change nothing. Any other name is a KeyError.
 
 Activation scales are keyed by the JAX block paths
 (`Darknet53_0/FeatureBlock_1/ConvBlock_0`, `YoloBlock_2/ConvBlock_3`,
@@ -98,18 +108,18 @@ DEFAULT_QUANT_SKIP: Tuple[str, ...] = ("Darknet53_0/ConvBlock_0",)
 SKIPPABLE = tuple(f"Darknet53_0/ConvBlock_{i}" for i in range(6))
 
 _D = "Darknet53_0"
-STEM2 = f"{_D}/ConvBlock_1"
+STEM1, STEM2 = f"{_D}/ConvBlock_0", f"{_D}/ConvBlock_1"
 FB0_PW, FB0_C3 = (f"{_D}/FeatureBlock_0/ConvBlock_0",
                   f"{_D}/FeatureBlock_0/ConvBlock_1")
 EXIT, FB1_IN = f"{_D}/ConvBlock_2", f"{_D}/FeatureBlock_1/ConvBlock_0"
 
 # the reference's kernel flags (yolov3_tpu/models/quantized.py::_Ctx)
-WIRING_FLAGS = ("region_full", "region_fast", "region_pallas", "exit_pallas")
+WIRING_FLAGS = ("region_full", "region_fast", "region_affine2",
+                "region_rawimg", "region_pallas", "exit_pallas",
+                "head_matmul")
 NO_OP_FLAGS = ("region_pipe", "region_pipe2", "rep_requant",
                "rep_requant_final", "pointwise_pallas", "conv3_pallas",
-               "down_pallas")
-UNPORTED_FLAGS = ("region_affine2", "region_rawin", "region_rawimg",
-                  "head_matmul", "head_pad")
+               "down_pallas", "region_rawin", "head_pad")
 
 
 def default_serving_kernels(device) -> Dict[str, bool]:
@@ -125,14 +135,10 @@ def default_serving_kernels(device) -> Dict[str, bool]:
 
 def check_kernels(kernels: Dict[str, bool]) -> Dict[str, bool]:
     """The flag dict, validated: KeyError for a name the reference does not
-    have, NotImplementedError for a set flag the port does not have."""
+    have."""
     out = {}
     for name, on in kernels.items():
-        if name in UNPORTED_FLAGS:
-            if on:
-                raise NotImplementedError(
-                    f"kernel flag {name} is not ported (ROADMAP Queue B)")
-        elif name not in WIRING_FLAGS + NO_OP_FLAGS:
+        if name not in WIRING_FLAGS + NO_OP_FLAGS:
             raise KeyError(f"unknown kernel flag {name}")
         out[name] = bool(on)
     return out
@@ -213,7 +219,7 @@ class QuantizedYoloV3(YoloV3):
                 raise KeyError(f"no activation scale calibrated for {name}")
             return float(np.float32(scales[name]))
 
-        folded = {}
+        folded, stem1 = {}, None
         for name, blk in self.conv_blocks():
             dev = blk.conv.weight.device
             cpu = {k: v.detach().to("cpu", F32) for k, v in (
@@ -226,6 +232,8 @@ class QuantizedYoloV3(YoloV3):
             blk.constant("q_mul", mul.to(dev))
             blk.constant("q_add", add.to(dev))
             blk.q_int8 = scales is not None and name not in self.quant_skip
+            if name == STEM1 and not blk.q_int8:
+                stem1 = (cpu["w"], (cpu["b"], mul, add))
             if not blk.q_int8:
                 continue
             sx = f32(name)
@@ -240,27 +248,53 @@ class QuantizedYoloV3(YoloV3):
             blk.q_res_scale = 0.0
             if "/FeatureBlock_" in name and int(name.rsplit("_", 1)[1]) % 2:
                 blk.q_res_scale = f32(name.rsplit("/", 1)[0] + "/ConvBlock_0")
-        self._prepare_region(folded, f32)
+        self._prepare_region(folded, f32, stem1)
 
-    def _prepare_region(self, folded: dict, f32) -> None:
+    def _prepare_region(self, folded: dict, f32, stem1) -> None:
         """The stem region kernels' epi tables (ops/quant.py), where their
-        blocks run int8; None where they do not."""
+        blocks run int8: the tail's, the exit's and, under `region_full`,
+        the region's in the one epilogue mode that the model's flags (None:
+        the card's default set) select, `region_mode` = (fast, affine2);
+        with `region_affine2` the sign-flipped consumer weights; with
+        `region_rawimg`, where stem1 stays bf16, the table with stem1's
+        rows and stem1's weights [9, c1, ci] in the compute dtype. None
+        where they do not apply."""
         dev = self.darknet.convs[2].conv.weight.device
-        tables = dict.fromkeys(("q_region_epi", "q_region_epi_fast",
-                                "q_tail_epi", "q_exit_epi"))
+        flags = (self.kernels if self.kernels is not None
+                 else default_serving_kernels("cuda"))
+        fast, affine2 = (flags.get("region_fast", False),
+                         flags.get("region_affine2", False))
+        self.region_mode = (fast, affine2)
+        tables = dict.fromkeys((
+            "q_region_epi", "q_region_epi_img", "q_tail_epi", "q_exit_epi",
+            "q_w_s1", "q_affine2_w_pw", "q_affine2_w_fb0", "q_affine2_w_ex"))
         if EXIT in folded:
             tables["q_exit_epi"] = quant.exit_epi(folded[EXIT], f32(FB1_IN))
             tail = (folded[FB0_PW], folded[FB0_C3], folded[EXIT],
                     *(f32(n) for n in (FB0_PW, FB0_C3, EXIT, FB1_IN)))
             tables["q_tail_epi"] = quant.tail_epi(*tail)
-            if STEM2 in folded:
-                for key, fast in (("q_region_epi", False),
-                                  ("q_region_epi_fast", True)):
-                    tables[key] = quant.region_epi(folded[STEM2], *tail,
-                                                   fast=fast)
+        if EXIT in folded and STEM2 in folded and flags.get("region_full"):
+            if affine2:
+                epi, signs = quant.region_epi_affine2(
+                    folded[STEM2], *tail, alpha=self.alpha)
+                _, pw, c3, down2 = self._stem_kernels()
+                for key, blk, sgn in (("q_affine2_w_pw", pw, signs[0]),
+                                      ("q_affine2_w_fb0", c3, signs[1]),
+                                      ("q_affine2_w_ex", down2, signs[2])):
+                    tables[key] = quant.flip_inputs(blk.q_wt.cpu(), sgn)
+            else:
+                epi = quant.region_epi(folded[STEM2], *tail, fast=fast)
+            tables["q_region_epi"] = epi
+            if flags.get("region_rawimg") and stem1 is not None:
+                w, rows = stem1  # w OIHW f32
+                tables["q_w_s1"] = w.permute(2, 3, 0, 1).reshape(
+                    9, w.shape[0], w.shape[1]).to(self.config.dtype)
+                tables["q_region_epi_img"] = quant.with_stem1(
+                    epi, rows, f32(STEM2), fast=fast)
         for key, t in tables.items():
-            self.register_buffer(key, None if t is None else t.to(dev),
-                                 persistent=False)
+            self.register_buffer(
+                key, None if t is None else t.contiguous().to(dev),
+                persistent=False)
 
     # --- one conv block, any mode ------------------------------------------
 
@@ -377,17 +411,23 @@ class QuantizedYoloV3(YoloV3):
         return (d.convs[1], *d.blocks[0].convs, d.convs[2])
 
     def region_route(self, h: int, w: int, kernels: Dict[str, bool]) -> str:
-        """Which stem-region route the int8 forward takes for a stem1
-        output of h x w: "region", "tail", "exit" or "blocks"."""
+        """Which stem-region route the int8 forward takes for an image (and
+        so a stem1 output) of h x w: "rawimg", "region", "tail", "exit" or
+        "blocks"."""
         if not (self.int8 and self.config.stem_space_to_depth):
             return "blocks"
         down1, pw, c3, down2 = self._stem_kernels()
         c1, c = down1.conv.weight.shape[1], down1.conv.weight.shape[0]
         cm, co = pw.conv.weight.shape[0], down2.conv.weight.shape[0]
-        if (kernels.get("region_full") and self.q_region_epi is not None
-                and h % 4 == 0 and w % 4 == 0
-                and plan_tile(c1, c, cm, co, region=True)):
-            return "region"
+        if kernels.get("region_full") and h % 4 == 0 and w % 4 == 0:
+            ci = self.darknet.convs[0].conv.weight.shape[1]
+            if (kernels.get("region_rawimg")
+                    and self.q_region_epi_img is not None
+                    and plan_tile(c1, c, cm, co, ci=ci)):
+                return "rawimg"
+            if (self.q_region_epi is not None
+                    and plan_tile(c1, c, cm, co, region=True)):
+                return "region"
         h2, w2 = -(-h // 2), -(-w // 2)
         if (kernels.get("region_pallas") and self.q_tail_epi is not None
                 and h2 % 2 == 0 and w2 % 2 == 0
@@ -398,21 +438,24 @@ class QuantizedYoloV3(YoloV3):
             return "exit"
         return "blocks"
 
-    def _stem_region(self, y: torch.Tensor) -> torch.Tensor:
-        """stem1's output -> FeatureBlock_1's input, the reference's
-        `_s2d_region` in int8 mode."""
-        kernels = (self.kernels if self.kernels is not None
-                   else default_serving_kernels(y.device))
-        route = self.region_route(y.shape[1], y.shape[2], kernels)
+    def _stem_region(self, y: torch.Tensor, route: str) -> torch.Tensor:
+        """stem1's output (the image itself on the "rawimg" route) ->
+        FeatureBlock_1's input, the reference's `_s2d_region` in int8
+        mode."""
         down1, pw, c3, down2 = self._stem_kernels()
         cast = self.config.dtype == BF16
-        if route == "region":
-            fast = kernels.get("region_fast", False)
+        if route in ("rawimg", "region"):
+            fast, affine2 = self.region_mode
+            rawimg = route == "rawimg"
+            tail = ((self.q_affine2_w_pw, self.q_affine2_w_fb0,
+                     self.q_affine2_w_ex) if affine2
+                    else (pw.q_wt, c3.q_wt, down2.q_wt))
             return s2d_region_block_q(
-                y, down1.q_wt, pw.q_wt, c3.q_wt, down2.q_wt,
-                self.q_region_epi_fast if fast else self.q_region_epi,
-                alpha=self.alpha, cast_bf16=cast, fast=fast,
-                inv_in=down1.q_inv_in)
+                y, down1.q_wt, *tail,
+                self.q_region_epi_img if rawimg else self.q_region_epi,
+                alpha=self.alpha, cast_bf16=cast, fast=fast, affine2=affine2,
+                inv_in=None if rawimg else down1.q_inv_in,
+                w_s1=self.q_w_s1 if rawimg else None)
         q2 = self._down_block(down1, y)
         if q2.dtype != torch.int8:  # stem2 stayed bf16
             q2 = quant.quantize_act(q2, pw.q_inv_in)
@@ -437,13 +480,20 @@ class QuantizedYoloV3(YoloV3):
         stride 32 first."""
         cfg = self.config
         d = self.darknet
-        y = self._conv_block(d.convs[0], x.to(cfg.dtype))
+        y = x.to(cfg.dtype)
         stages = list(zip(d.convs[1:], d.blocks))
         routes = []
         if self.int8 and cfg.stem_space_to_depth:
-            y = self._stem_region(y)
+            kernels = (self.kernels if self.kernels is not None
+                       else default_serving_kernels(y.device))
+            route = self.region_route(y.shape[1], y.shape[2], kernels)
+            if route != "rawimg":  # otherwise stem1 runs in the region
+                y = self._conv_block(d.convs[0], y)
+            y = self._stem_region(y, route)
             routes.append(None)  # FeatureBlock_0's output stays inside
             stages[:2] = [(None, d.blocks[1])]
+        else:
+            y = self._conv_block(d.convs[0], y)
         for down, block in stages:
             if down is not None:
                 y = self._down_block(down, y)
@@ -462,7 +512,21 @@ class QuantizedYoloV3(YoloV3):
         return [yb1, yb2, yb3]
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
-        return [head(h) for head, h in zip(self.heads, self.neck_outputs(x))]
+        matmul = bool(self.kernels and self.kernels.get("head_matmul"))
+        return [self._head(head, h, matmul)
+                for head, h in zip(self.heads, self.neck_outputs(x))]
+
+    @staticmethod
+    def _head(head, h: torch.Tensor, matmul: bool) -> torch.Tensor:
+        """A detection head (1x1 conv + bias in the compute dtype); with
+        `matmul` (the reference's `head_matmul`) as one matmul on the
+        flattened pixels [B*gh*gw, Ci] @ [Ci, Co]."""
+        if not matmul:
+            return head(h)
+        n, gh, gw, ci = h.shape
+        w = head.w.reshape(head.w.shape[0], ci)
+        y = torch.matmul(h.to(head.dtype).reshape(n * gh * gw, ci), w.t())
+        return (y + head.b).reshape(n, gh, gw, -1)
 
     def forward_detections(self, x: torch.Tensor) -> torch.Tensor:
         """Feature maps -> decoded detections [B, num_boxes, 4+1+C]."""

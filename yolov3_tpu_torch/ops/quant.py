@@ -175,6 +175,67 @@ def region_epi(stem2: torch.Tensor, pw: torch.Tensor, fb0: torch.Tensor,
     return _rows(rows, max(r.shape[0] for r in rows))
 
 
+def _quad(b: torch.Tensor, m: torch.Tensor, a: torch.Tensor, s: float,
+          alpha: float):
+    """A stage's (b/dq, mul*dq, add) as the two affines whose max is
+    leaky(acc + b) * m / s + a / s for m >= 0 (quantized.py:895-901):
+    m1 = m/s, c1 = m1*b + a/s, m2 = alpha*m1, c2 = m2*b + a/s, each times
+    the channel's sign of m1 (a channel with m1 < 0 then emits -q).
+    Returns ([m1, c1, m2, c2], sign)."""
+    s_ = _f32(s)
+    g1 = m / s_
+    g2 = _f32(alpha) * g1
+    sgn = torch.where(g1 >= 0, _f32(1.0), _f32(-1.0))
+    rows = [g1, g1 * b + a / s_, g2, g2 * b + a / s_]
+    return [r * sgn for r in rows], sgn
+
+
+def region_epi_affine2(stem2: torch.Tensor, pw: torch.Tensor,
+                       fb0: torch.Tensor, exit_: torch.Tensor, s2: float,
+                       s3: float, s4: float, s5: float, alpha: float):
+    """The region kernel's f32 [17, max_c] table for the `affine2`
+    epilogue (quantized.py:867-917), and the signs (sgn2, sgn3, sgn4) of
+    stem2's, the 1x1's and FB0's output channels:
+      0-3   pw:    m1, c1, m2, c2
+      4-8   fb0:   m1, c1, m2, c2, r = s2/s4 * sgn2 * sgn4
+      9-12  exit:  b/dq, mul*dq/s5, add/s5, 0 (the fast rows)
+      13-16 stem2: m1, c1, m2, c2
+    A stage whose channel has a negative sign emits that channel negated;
+    its consumers' weights take the channel negated (`flip_inputs` with the
+    sign), so every product and the residual are as before."""
+    (b3, m3, a3) = exit_
+    rows2, sgn2 = _quad(*stem2, s2, alpha)
+    rows3, sgn3 = _quad(*pw, s3, alpha)
+    rows4, sgn4 = _quad(*fb0, s4, alpha)
+    res = (_f32(s2) / _f32(s4)).expand(sgn2.shape[0]) * sgn2 * sgn4
+    s5_ = _f32(s5)
+    rows = rows3 + rows4 + [res, b3, m3 / s5_, a3 / s5_,
+                            torch.zeros_like(b3)] + rows2
+    return _rows(rows, max(r.shape[0] for r in rows)), (sgn2, sgn3, sgn4)
+
+
+def flip_inputs(w_t: torch.Tensor, sgn: torch.Tensor) -> torch.Tensor:
+    """s8 weights [taps, Co, Ci] with the input channels of negative sign
+    negated (lossless: the codes are within +-127)."""
+    return torch.where(sgn[None, None, :] < 0, -w_t, w_t)
+
+
+def with_stem1(epi: torch.Tensor, stem1, s1: float,
+               fast: bool = False) -> torch.Tensor:
+    """A region table with stem1's rows for the kernel that runs stem1
+    itself (`rawimg`, quantized.py:929-945):
+      17-20 stem1: b, mul, add, 1/s1
+    stem1's f32 bias and BatchNorm (mul, add) (`bn_affine`), unquantized,
+    and 1/s1 with s1 ConvBlock_1's scale (`fast`: mul and add divided by
+    s1)."""
+    b, m, a = stem1
+    s1_ = _f32(s1)
+    if fast:
+        m, a = m / s1_, a / s1_
+    rows = list(epi) + [b, m, a, (_f32(1.0) / s1_).expand(b.shape[0])]
+    return _rows(rows, max(epi.shape[1], b.shape[0]))
+
+
 def tail_epi(pw: torch.Tensor, fb0: torch.Tensor, exit_: torch.Tensor,
              s2: float, s3: float, s4: float, s5: float) -> torch.Tensor:
     """The tail kernel's f32 [13, max_c] table (exact epilogue)."""
