@@ -66,8 +66,20 @@ Phases, in order; any failure exits non-zero:
      the same input, and PyTorch's quantize of its bf16 input followed by
      the kernel on the s8 codes (equal codes).
   8. The CLI's per-batch functions on 4 uint8 images, bf16 and --int8;
-     CSVs in both layouts.
-  9. One JSON line of kernel results, then the last line
+     CSVs in both layouts; the tiled CLI on a 2048 x 1536 image.
+  9. Training at full width (512 px, 1024 filters, 8 blocks, bf16, batch
+     16, `TrainConfig` defaults), on a seeded store of planted rectangles
+     written by the port's `RecordWriter` (96 train, 32 test images):
+     ms/step on a resident batch (CUDA events over 10 steps after 3),
+     peak memory, one profiled step by kernel, `train_mfu`; 30 steps on
+     one batch whose loss must fall; `train.train_model` end to end (two
+     epochs of 9 steps, augmentation, 3 reader workers): steps/s with the
+     feed, the share of the loop spent waiting for batches,
+     `test_loss.csv`, checkpoint and export; the export served in bf16
+     (1x1 kernel) and int8 (the default set) with the serving phases'
+     launch counts; one f32 step's gradients on the card against the
+     CPU's at 64 px. One JSON line each.
+ 10. One JSON line of kernel results, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 A kernel's `ms` is device time: `device_ms` captures 20 calls in a CUDA
@@ -156,6 +168,17 @@ INT8_SETS = (
      {"pointwise_conv_block_q": 34, "conv3x3_block_q": 32,
       "down_conv_block_q": 4, "exit_conv_block_q": 1, "nms_suppress": 1}),
 ) + tuple((flags, region_set_launches(v)) for v, flags in REGION_MODES.items())
+# the training phase: batch 16 at FULL; a store of 96 train and 32 test
+# images of planted rectangles (1-4 per image, 48-200 px a side)
+TRAIN_BATCH = 16
+TRAIN_STORE = {"train": 96, "test": 32}
+TRAIN_RECT = (48, 200)
+# the trainer's epochs: 8 steps between tests, two epochs (the warm-up and
+# one more), each size + 1 steps
+TRAIN_EVERY, TRAIN_EPOCHS = 8, 2
+# the CPU parity tests' bound on a gradient leaf against JAX, relative to
+# the leaf's largest |g| (tests/test_torch_train_step.py)
+GRAD_BOUND = 2e-3
 # the tiled CLI phase: a seeded image of 2048 x 1536, 512 px tiles with 96
 # px ghost zones (35 tiles: 4 batches of 8 and one of 3)
 TILED_IMAGE = (2048, 1536, 3)
@@ -353,7 +376,8 @@ def phase_serving(torch, ckpt, inf, build, ModelConfig, InferenceConfig,
     return path, calls, launches, serving
 
 
-def phase_profile(torch, serve, images, reps=3, top=15):
+def phase_profile(torch, serve, images, reps=3, top=15,
+                  what="serving calls"):
     """Device time by kernel over `reps` serving calls (torch.profiler),
     and the device's busy share of the window's wall time."""
     from torch.profiler import ProfilerActivity, profile
@@ -370,7 +394,7 @@ def phase_profile(torch, serve, images, reps=3, top=15):
               if e.device_type == torch.autograd.DeviceType.CUDA]
     total = sum(e.self_device_time_total for e in events) / 1e3
     ops = sum(e.count for e in events) / reps
-    log(f"profile {reps} serving calls: wall {wall_ms:.3f} ms, device busy "
+    log(f"profile {reps} {what}: wall {wall_ms:.3f} ms, device busy "
         f"{total:.3f} ms ({100 * total / wall_ms:.1f}%), {ops:.0f} device "
         f"ops per call")
     rows = []
@@ -1403,6 +1427,257 @@ def phase_cli(torch, inf, InferenceConfig, path, workdir):
     return n
 
 
+def plant_store(path, n, seed):
+    """`n` seeded 512 x 512 x 3 uint8 images of dark noise, each with 1-4
+    rectangles of the two classes (red, green), 48-200 px a side, and
+    their boxes, written with the port's `RecordWriter`."""
+    import numpy as np
+    from yolov3_tpu_torch.data import records
+    from yolov3_tpu_torch.data.store import RecordWriter
+    rng = np.random.default_rng(seed)
+    h, w, _ = FULL["img_size"]
+    with RecordWriter(path) as writer:
+        for i in range(n):
+            img = rng.integers(0, 96, (h, w, 3), dtype=np.uint8)
+            boxes = []
+            for _ in range(rng.integers(1, 5)):
+                bw, bh = rng.integers(TRAIN_RECT[0], TRAIN_RECT[1] + 1, 2)
+                x, y = rng.integers(0, w - bw + 1), rng.integers(0, h - bh + 1)
+                c = int(rng.integers(0, 2))
+                img[y:y + bh, x:x + bw] = (220, 40, 40) if c == 0 else (
+                    40, 220, 40)
+                boxes.append([x, y, bw, bh, c])
+            boxes = np.asarray(boxes, np.int32)
+            writer.put(records.make_record_key(i, f"img{i}", boxes),
+                       records.encode_record(img, boxes))
+
+
+def store_examples(path, n, anchors):
+    """The first `n` records of a store: their uint8 images, and the
+    train step's batch (z-scored images, three label grids), in numpy."""
+    import numpy as np
+    from yolov3_tpu_torch.data import records
+    from yolov3_tpu_torch.data.encoder import encode_boxes
+    from yolov3_tpu_torch.data.imaging import zscore_normalize
+    from yolov3_tpu_torch.data.store import RecordReader
+    with RecordReader(path) as reader:
+        pairs = [records.decode_record(reader.get(k))
+                 for k in reader.keys()[:n]]
+    raw = np.stack([img for img, _ in pairs])
+    grids = [encode_boxes(b, raw.shape[1:], anchors, 2) for _, b in pairs]
+    batch = [np.stack([zscore_normalize(img) for img, _ in pairs])] + [
+        np.stack([g[i] for g in grids]) for i in range(3)]
+    return raw, batch
+
+
+def train_flops(torch, cfg):
+    """Conv FLOPs of one image's forward (2 per multiply-add of the taps
+    inside the image), from the shapes `conv2d_same` receives in the
+    train-mode forward (every conv goes through it there)."""
+    from yolov3_tpu_torch.models import yolo
+    calls = []
+    orig = record(yolo, "conv2d_same", calls)
+    try:
+        model = yolo.YoloV3(cfg).to(DEVICE).train()
+        with torch.no_grad():
+            model(torch.zeros((1, *cfg.img_size), device=DEVICE))
+    finally:
+        yolo.conv2d_same = orig
+    macs = 0
+    for (x, w, _, stride), _ in calls:
+        macs += conv_macs(1, x.shape[1], x.shape[2], w.shape[1], w.shape[0],
+                          w.shape[-1], stride)
+    return 2 * macs
+
+
+def phase_train_step(torch, ModelConfig, batch, card):
+    """ms/step of the train step on a resident batch, peak memory, the
+    profile of one step, train_mfu; then 30 steps on one batch at lr
+    1e-4, whose loss must fall."""
+    from yolov3_tpu_torch.config import TrainConfig
+    from yolov3_tpu_torch.parallel.train_step import (create_train_state,
+                                                      make_train_step)
+    cfg = ModelConfig(**FULL)
+    tcfg = TrainConfig(batch_size=TRAIN_BATCH)
+    torch.cuda.reset_peak_memory_stats()
+    state = create_train_state(cfg, tcfg, SEED, DEVICE)
+    step = make_train_step(cfg, tcfg, TRAIN_BATCH)
+    lr = tcfg.learning_rate
+    for _ in range(3):
+        step(state, batch, lr)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    timed = 10
+    start.record()
+    for _ in range(timed):
+        step(state, batch, lr)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / timed
+    peak = torch.cuda.max_memory_allocated()
+    profile = phase_profile(torch, lambda _: step(state, batch, lr), None,
+                            reps=1, what="train steps")
+    flops = train_flops(torch, cfg)
+    mfu = 3 * flops * TRAIN_BATCH / (ms * 1e-3 * BF16_OPS_S)
+    out = {"card": card, "batch": TRAIN_BATCH, "ms_per_step": ms,
+           "images_per_s": TRAIN_BATCH / (ms * 1e-3),
+           "max_memory_allocated": peak, "forward_flops_per_image": flops,
+           "train_mfu": mfu, "profile": profile}
+    log(f"train step b{TRAIN_BATCH} 512px bf16: {ms:.3f} ms/step, "
+        f"{out['images_per_s']:.2f} images/s, peak {peak / 2**30:.2f} GiB, "
+        f"train_mfu {mfu:.4f} ({flops / 1e9:.2f} GFLOP forward per image), "
+        f"on {card}")
+    del state
+
+    state = create_train_state(cfg, tcfg, SEED, DEVICE)
+    losses = []
+    for _ in range(30):
+        _, metrics = step(state, batch, 1e-4)
+        losses.append(float(metrics["loss"]))
+    del state
+    learn = {"card": card, "lr": 1e-4,
+             "loss_at": {i: losses[i] for i in (0, 10, 20, 29)}}
+    log(f"train 30 steps on one batch: loss {learn['loss_at']}")
+    if not (all(math.isfinite(v) for v in losses)
+            and losses[29] < losses[0]):
+        raise AssertionError(f"the loss did not fall: {losses}")
+    return out, learn
+
+
+def phase_trainer(torch, workdir, card):
+    """`train.train_model` on the planted store, end to end."""
+    from yolov3_tpu_torch import train
+    from yolov3_tpu_torch.utils import checkpoint as ckpt
+    out_dir = os.path.join(workdir, "train_out")
+    report = {}
+    t0 = time.perf_counter()
+    export = train.train_model(
+        TRAIN_BATCH, TRAIN_EVERY, os.path.join(workdir, "train.ydb"),
+        os.path.join(workdir, "test.ydb"), out_dir, early_stopping_count=10,
+        learning_rate=1e-4, use_augmentation=True, anchors=FULL["anchors"],
+        seed=SEED, max_epochs=TRAIN_EPOCHS, compute_dtype="bfloat16",
+        model_overrides={"use_pallas_pointwise": True}, device=DEVICE,
+        report=report)
+    wall = time.perf_counter() - t0
+    with open(os.path.join(out_dir, "test_loss.csv")) as fh:
+        test_loss = [float(v) for v in fh if v.strip()]
+    out = {"card": card, "wall_s": wall, "train_steps": report["train_steps"],
+           "steps_per_s_with_feed": report["train_steps"] / report["train_s"],
+           "feed_wait_share": report["feed_wait_s"] / report["train_s"],
+           "test_loss": test_loss,
+           "checkpoint": ckpt.has_checkpoint(out_dir),
+           "export": export is not None and os.path.exists(
+               os.path.join(export, ckpt.WEIGHTS_FILE))}
+    log(f"trainer: {out['train_steps']} steps in {report['train_s']:.2f} s "
+        f"of train loops ({out['steps_per_s_with_feed']:.3f} steps/s with "
+        f"the feed, {100 * out['feed_wait_share']:.1f}% waiting for "
+        f"batches), test_loss.csv {test_loss}, wall {wall:.1f} s")
+    if not (len(test_loss) == TRAIN_EPOCHS
+            and all(math.isfinite(v) for v in test_loss)
+            and out["checkpoint"] and out["export"]
+            and out["train_steps"] == TRAIN_EPOCHS * (TRAIN_EVERY + 1)):
+        raise AssertionError(f"trainer run incomplete: {out}")
+    return export, out
+
+
+def phase_train_served(torch, inf, TQ, build, export, workdir, card):
+    """The trainer's export served in bf16 (the 1x1 kernel) and int8 (the
+    default kernel set) on 8 test images, with the serving phases'
+    launch counts; the int8 fidelity against bf16."""
+    from yolov3_tpu_torch.data.device_pipeline import zscore_images
+    raw, _ = store_examples(os.path.join(workdir, "test.ydb"), BATCH,
+                            FULL["anchors"])
+    images = zscore_images(torch.from_numpy(raw).to(DEVICE))
+    serve, _ = inf.make_serving_fn(export, device=DEVICE)
+    serve_q, _, _ = TQ.make_quantized_serving_fn(export, images,
+                                                 device=DEVICE)
+    out = {"card": card}
+    for label, fn, expected in (("bf16", serve, EXPECTED_LAUNCHES),
+                                ("int8", serve_q, EXPECTED_INT8_LAUNCHES)):
+        build.launch_counts.clear()
+        boxes, scores, keep = fn(images)
+        torch.cuda.synchronize()
+        launches = dict(build.launch_counts)
+        if launches != expected:
+            raise AssertionError(f"trained export {label}: launches "
+                                 f"{launches} != {expected}")
+        if not (torch.isfinite(boxes).all() and torch.isfinite(scores).all()):
+            raise AssertionError(f"trained export {label}: output not finite")
+        out[label] = {"launches": launches, "kept": int(keep.sum())}
+    detect_f, _ = inf.make_detector_fn(export, device=DEVICE)
+    detect_q, _ = TQ.make_quantized_detector_fn(export, images,
+                                                device=DEVICE)
+    out["int8_fidelity"] = TQ.decode_iou_fidelity(
+        detect_f(images).float().cpu().numpy(),
+        detect_q(images).float().cpu().numpy(), top_k=20)
+    log(f"trained export served on {BATCH} test images: bf16 "
+        f"{out['bf16']}, int8 {out['int8']}, int8 vs bf16 fidelity "
+        f"{out['int8_fidelity']:.6f}")
+    return out
+
+
+def phase_train_reference(torch, ModelConfig, card):
+    """One f32 train-step's gradients at 64 px on the card against the
+    CPU's, the same seeded weights and batch, TF32 off."""
+    import numpy as np
+    from yolov3_tpu_torch.config import TrainConfig
+    from yolov3_tpu_torch.data.encoder import encode_boxes
+    from yolov3_tpu_torch.parallel import train_step as T
+    cfg = ModelConfig(**dict(FULL, img_size=(64, 64, 3), block_count=1,
+                             filter_count=32, compute_dtype="float32",
+                             anchors=((16, 16), (32, 32)),
+                             use_pallas_pointwise=False))
+    rng = np.random.default_rng(SEED)
+    images = rng.standard_normal((2, 64, 64, 3), dtype=np.float32)
+    grids = [encode_boxes(np.array([[8 + 20 * b, 8, 20, 24, b],
+                                    [30, 30, 28, 16, 1]]), cfg.img_size,
+                          cfg.anchors, 2) for b in range(2)]
+    batch = [images] + [np.stack([g[i] for g in grids]) for i in range(3)]
+    grads, losses = [], []
+    for device in ("cpu", DEVICE):
+        state = T.create_train_state(cfg, TrainConfig(), SEED, device)
+        b = [torch.from_numpy(a).to(device) for a in batch]
+        loss, _ = T._loss(state.model, cfg, TrainConfig(), 2, b[0], b[1:])
+        loss.backward()
+        losses.append(float(loss.detach()))
+        grads.append({n: p.grad.detach().cpu()
+                      for n, p in state.model.named_parameters()})
+    worst = max(float((grads[1][n] - g).abs().max() / g.abs().max())
+                for n, g in grads[0].items())
+    out = {"card": card, "loss_cpu": losses[0], "loss_card": losses[1],
+           "worst_grad_err_rel_leaf_max": worst, "bound": GRAD_BOUND}
+    log(f"f32 train step 64px card vs CPU: loss {losses[1]} vs {losses[0]}, "
+        f"worst gradient leaf error {worst:.3e} of its largest |g| (bound "
+        f"{GRAD_BOUND})")
+    if not (worst <= GRAD_BOUND
+            and abs(losses[1] - losses[0]) <= 1e-5 * abs(losses[0])):
+        raise AssertionError(f"card gradients disagree with the CPU: {out}")
+    return out
+
+
+def phase_training(torch, inf, TQ, build, ModelConfig, workdir, card):
+    """Phase 9: the training slice at full width; one JSON line each."""
+    t0 = time.perf_counter()
+    for name, n in TRAIN_STORE.items():
+        plant_store(os.path.join(workdir, f"{name}.ydb"), n,
+                    SEED + (name == "test"))
+    log(f"planted stores written in {time.perf_counter() - t0:.1f} s")
+    _, batch = store_examples(os.path.join(workdir, "train.ydb"),
+                              TRAIN_BATCH, FULL["anchors"])
+    batch = [torch.from_numpy(a).to(DEVICE) for a in batch]
+    step, learn = phase_train_step(torch, ModelConfig, batch, card)
+    del batch
+    torch.cuda.empty_cache()
+    export, trainer = phase_trainer(torch, workdir, card)
+    served = phase_train_served(torch, inf, TQ, build, export, workdir, card)
+    reference = phase_train_reference(torch, ModelConfig, card)
+    lines = {"train_step": step, "train_learns": learn, "trainer": trainer,
+             "train_export_served": served, "train_card_vs_cpu": reference}
+    log(f"training phase took {time.perf_counter() - t0:.1f} s")
+    return lines
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", default=None,
@@ -1474,6 +1749,10 @@ def main(argv=None) -> int:
         result["cli_int8_rows"] = phase_cli_int8(torch, inf, TQ, path,
                                                  workdir)
         result["tiled"] = phase_tiled(torch, TQ, inf, path, workdir, smi)
+        torch.cuda.empty_cache()
+        training = phase_training(torch, inf, TQ, build, ModelConfig,
+                                  workdir, smi)
+        result.update(training)
     result["pointwise_calls"] = pw_rows
     result["nms_cases"] = nms_rows
     result["greedy_cases"] = greedy_rows
@@ -1547,6 +1826,8 @@ def main(argv=None) -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:
             json.dump(result, fh, indent=1)
+    for key, value in training.items():
+        print(json.dumps({key: value}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,10 +17,17 @@ names = [m.name for m in pkgutil.walk_packages(yolov3_tpu_torch.__path__,
 for name in names:
     __import__(name)
 import chip_smoke
-banned = {"jax", "jaxlib", "flax", "orbax", "yolov3_tpu"}
-bad = sorted(m for m in sys.modules if m.split(".")[0] in banned)
-print(len(names), bad)
-sys.exit(1 if bad or len(names) < 15 else 0)
+banned = {"jax", "jaxlib", "flax", "optax", "orbax", "yolov3_tpu"}
+bad = sorted(m for m in sys.modules if m.split(".")[0] in banned
+             or m == "google.protobuf" or m.startswith("google.protobuf."))
+# the training slice's modules, among those imported above
+training = ["data.isg_ai", "data.records", "data.store", "data.encoder",
+            "data.augment", "data.reader", "ops.loss",
+            "parallel.train_step", "utils.metrics", "utils.prefetch",
+            "train"]
+missing = [m for m in training if "yolov3_tpu_torch." + m not in names]
+print(len(names), bad, missing)
+sys.exit(1 if bad or missing or len(names) < 15 else 0)
 """
 
 

@@ -16,8 +16,15 @@ gradients. int8 post-training-quantized serving is ported
 the reference, `stem_space_to_depth` is where its stem-region kernels
 apply (computed in the plain layout);
 `int8_train` and `int8_train_static` (quantization-aware training) and
-`remat_blocks` select the training forward, which waits for the QAT and
-training ports.
+`remat_blocks` select training forwards that wait for later slices
+(`train.py` raises on the first two).
+
+`TrainConfig` and `AugmentConfig` are copies of the JAX package's, with
+its defaults. The TPU-only `packed_loss` (the lane-domain loss) and
+`shard_optimizer` (ZeRO-1) are accepted at their defaults only.
+
+torch is imported lazily (`ModelConfig.dtype`): the reader's worker
+processes import this module and need no torch.
 """
 
 from __future__ import annotations
@@ -26,18 +33,22 @@ import dataclasses
 import json
 from typing import Any, List, Tuple
 
-import torch
-
 # Network constants (reference/model.py:22-26)
 BLOCK_COUNT = 8
 FILTER_COUNT = 1024
 KERNEL_SIZE = 3
 NETWORK_DOWNSAMPLE_FACTOR = 32
+WEIGHT_DECAY = 5e-4
 # tiled inference's ghost-zone radius (reference/inference_tiled.py:25-26)
 EDGE_EFFECT_RANGE = 96
 
 DEFAULT_ANCHORS: Tuple[Tuple[int, int], ...] = ((32, 32), (128, 128), (256, 256))
 TRAIN_DEFAULT_ANCHORS: Tuple[Tuple[int, int], ...] = ((64, 384), (384, 64))
+
+# readers per device (reference/train.py:16)
+READER_COUNT_PER_DEVICE = 3
+# early-stopping convergence tolerance (reference/train.py:185)
+CONVERGENCE_TOLERANCE = 1e-4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,7 +91,8 @@ class ModelConfig:
         return len(self.anchors)
 
     @property
-    def dtype(self) -> torch.dtype:
+    def dtype(self):
+        import torch
         return getattr(torch, self.compute_dtype)
 
     @property
@@ -106,6 +118,48 @@ class ModelConfig:
         d["img_size"] = tuple(d["img_size"])
         d["anchors"] = tuple(tuple(a) for a in d["anchors"])
         return ModelConfig(**d)
+
+
+@dataclasses.dataclass(frozen=True)
+class AugmentConfig:
+    """Augmentation severities (reference/imagereader.py:370-378)."""
+
+    rotation_flag: bool = False
+    reflection_flag: bool = True
+    noise_augmentation_severity: float = 0.03
+    scale_augmentation_severity: float = 0.1
+    blur_augmentation_max_sigma: float = 2.0
+    box_size_augmentation_severity: float = 0.03
+    box_location_jitter_severity: float = 0.03
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training loop configuration (reference/train.py:229-242), field for
+    field as the JAX config."""
+
+    batch_size: int = 8  # per device
+    learning_rate: float = 1e-4
+    test_every_n_steps: int = 1000
+    early_stopping_count: int = 10
+    use_augmentation: bool = True
+    balance_classes: bool = True
+    reader_count_per_device: int = READER_COUNT_PER_DEVICE
+    # epoch 0 runs min(warmup_steps, epoch size) steps at lr / divisor
+    warmup_steps: int = 1000
+    warmup_lr_divisor: float = 10.0
+    convergence_tolerance: float = CONVERGENCE_TOLERANCE
+    # the reference defines L2 kernel regularizers but never adds them to
+    # its loss (reference/model.py:37,117,485-492): off by default
+    apply_weight_decay: bool = False
+    weight_decay: float = WEIGHT_DECAY
+    # Keras's Adam defaults (reference/model.py:451)
+    adam_b1: float = 0.9
+    adam_b2: float = 0.999
+    adam_eps: float = 1e-7
+    # TPU-only formulations; the port accepts them at False only
+    packed_loss: bool = False
+    shard_optimizer: bool = False
 
 
 @dataclasses.dataclass(frozen=True)

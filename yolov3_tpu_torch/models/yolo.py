@@ -1,8 +1,10 @@
-"""YOLOv3 inference model in PyTorch: Darknet-53 backbone + 3-scale FPN heads.
+"""YOLOv3 in PyTorch: Darknet-53 backbone + 3-scale FPN heads.
 
-Port of `yolov3_tpu/models/yolo.py` for inference. Public functions take
-and return NHWC tensors as the JAX package does; only the convolutions
-permute to NCHW around `F.conv2d`. BatchNorm uses the running statistics.
+Port of `yolov3_tpu/models/yolo.py`. Public functions take and return
+NHWC tensors as the JAX package does; only the convolutions permute to
+NCHW around `F.conv2d`. In eval mode BatchNorm uses the running
+statistics; in train mode (`module.training`, Flax's `train=True`) the
+batch's, and moves the running ones (see `BatchNorm`).
 
 Reference quirks kept for output parity (reference/model.py:19-464):
 - the block order is Conv -> LeakyReLU(0.2) -> BatchNorm(eps 1e-3);
@@ -22,7 +24,12 @@ dtype, the 1x1 kernel's [Ci, Co] bf16 layout, the folded BatchNorm) is
 derived once, as non-persistent buffers, by each module's `prepare()`:
 at construction and after every `load_state_dict`. The forward only
 launches work on the activations. Call `prepare()` again after assigning
-parameters directly.
+parameters directly, or `prepare_all` after an optimizer step.
+
+The train-mode forward reads the parameters themselves, cast to the
+compute dtype inside the graph, so autograd reaches the f32 parameters;
+it never reads the derived constants, and never takes the fused 1x1
+kernel (as yolo.py:89-90 takes it only when `not train`).
 """
 
 from __future__ import annotations
@@ -62,10 +69,13 @@ def conv2d_same(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 class Prepared(nn.Module):
     """A module whose forward reads constants derived from its parameters;
     `prepare()` derives them, at construction and after every
-    `load_state_dict`."""
+    `load_state_dict`. Its inference forward is the default: it starts in
+    eval mode, unlike `nn.Module`, so a model built without a mode
+    serves; `.train()` selects the train-mode forward."""
 
     def __init__(self):
         super().__init__()
+        self.train(False)
         self.register_load_state_dict_post_hook(lambda m, _: m.prepare())
 
     def constant(self, name: str, value: torch.Tensor) -> None:
@@ -75,6 +85,14 @@ class Prepared(nn.Module):
 
     def prepare(self) -> None:
         raise NotImplementedError
+
+
+def prepare_all(model: nn.Module) -> None:
+    """Derive every module's constants again from its current parameters
+    and statistics (after an optimizer step or a direct assignment)."""
+    for m in model.modules():
+        if isinstance(m, Prepared):
+            m.prepare()
 
 
 class Conv(nn.Module):
@@ -88,12 +106,19 @@ class Conv(nn.Module):
 
 
 class BatchNorm(Prepared):
-    """Inference BatchNorm over the channel (last) axis, computed in f32
-    and cast back, in Flax's op order."""
+    """BatchNorm over the channel (last) axis, computed in f32 and cast
+    back, in Flax's op order.
 
-    def __init__(self, features: int, eps: float):
+    Train mode is Flax's arithmetic (flax/linen/normalization.py:60-145,
+    395-404), which `F.batch_norm` is not: the statistics in f32 as
+    E[x^2] - E[x]^2 clamped at 0, the running variance moved by the
+    biased batch variance, running = momentum * running + (1 - momentum)
+    * batch, and (x - mean) * (scale * rsqrt(var + eps)) + bias.
+    Gradients flow through the batch statistics."""
+
+    def __init__(self, features: int, eps: float, momentum: float = 0.99):
         super().__init__()
-        self.eps = eps
+        self.eps, self.momentum = eps, momentum
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -106,8 +131,24 @@ class BatchNorm(Prepared):
                       * self.weight)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            return self.forward_train(x)
         y = (x.to(torch.float32) - self.running_mean) * self.mul + self.bias
         return y.to(x.dtype)
+
+    def forward_train(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(torch.float32)
+        dims = tuple(range(xf.dim() - 1))
+        mean = xf.mean(dims)
+        # torch.maximum splits the gradient at a tie, as jnp.maximum does
+        var = torch.maximum((xf * xf).mean(dims) - mean * mean,
+                            xf.new_tensor(0.0))
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight)
+        return (y + self.bias).to(x.dtype)
 
 
 class ConvBlock(Prepared):
@@ -121,13 +162,14 @@ class ConvBlock(Prepared):
     def __init__(self, in_features: int, features: int, kernel: int,
                  stride: int = 1, alpha: float = 0.2, bn_epsilon: float = 1e-3,
                  dtype: torch.dtype = torch.bfloat16,
-                 use_pallas_pointwise: bool = False):
+                 use_pallas_pointwise: bool = False,
+                 bn_momentum: float = 0.99):
         super().__init__()
         self.stride, self.alpha = stride, alpha
         self.bn_epsilon, self.dtype = bn_epsilon, dtype
         self.fused = use_pallas_pointwise and kernel == 1 and stride == 1
         self.conv = Conv(in_features, features, kernel)
-        self.bn = BatchNorm(features, bn_epsilon)
+        self.bn = BatchNorm(features, bn_epsilon, bn_momentum)
         self.prepare()
 
     @torch.no_grad()
@@ -151,6 +193,11 @@ class ConvBlock(Prepared):
             bn.prepare()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            conv = self.conv
+            y = conv2d_same(x.to(self.dtype), conv.weight.to(self.dtype),
+                            conv.bias.to(self.dtype), self.stride)
+            return self.bn(F.leaky_relu(y, self.alpha))
         if self.fused:
             n, h, w, ci = x.shape
             y = conv_block.pointwise_conv_block(
@@ -226,6 +273,10 @@ class DetectionHead(Prepared):
         self.constant("b", self.conv.bias.to(self.dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            conv = self.conv
+            return conv2d_same(x.to(self.dtype), conv.weight.to(self.dtype),
+                               conv.bias.to(self.dtype), 1)
         return conv2d_same(x.to(self.dtype), self.w, self.b, 1)
 
 
@@ -257,13 +308,14 @@ class Darknet53(nn.Module):
 
 class YoloV3(nn.Module):
     """Feature-map model: NHWC image -> (fm @ stride 32, 16, 8), each NHWC
-    with A*(5+C) channels, in the compute dtype."""
+    with A*(5+C) channels, in the compute dtype. Also the training model:
+    `.train()` selects the train-mode forward of every block."""
 
     def __init__(self, config: ModelConfig):
         super().__init__()
         cfg = self.config = config
         ck = dict(alpha=cfg.leaky_relu_alpha, bn_epsilon=cfg.bn_epsilon,
-                  dtype=cfg.dtype,
+                  bn_momentum=cfg.bn_momentum, dtype=cfg.dtype,
                   use_pallas_pointwise=cfg.use_pallas_pointwise)
         k, fc = cfg.kernel_size, cfg.filter_count
         self.darknet = Darknet53(cfg.img_size[2], ck, cfg.block_count, fc, k)

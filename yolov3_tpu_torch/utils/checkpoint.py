@@ -14,7 +14,14 @@ The port's artifact is `<folder>/saved_model/` with the same
 path (`params/Darknet53_0/ConvBlock_0/Conv_0/kernel`), written without
 pickle. Converting a JAX (Orbax) export needs JAX, so it is done outside
 this package: load it with the JAX package, turn the leaves into numpy,
-and pass them to `export_model`.
+and pass them to `export_model`. `params_to_jax` is the inverse of
+`params_from_jax`: the trainer exports its model through it.
+
+The training checkpoint (`save_checkpoint` / `restore_checkpoint`) is the
+whole train state (parameters, BatchNorm statistics, Adam moments, step)
+in one `torch.save` file under `<output>/checkpoint/`, the JAX package's
+directory name, overwritten in place: the reference's best-only policy
+(reference/train.py:178-182).
 """
 
 from __future__ import annotations
@@ -29,6 +36,8 @@ import torch
 
 from yolov3_tpu_torch.config import ModelConfig
 
+CHECKPOINT_DIR = "checkpoint"
+STATE_FILE = "state.pt"
 EXPORT_DIR = "saved_model"
 CONFIG_FILE = "model_config.json"
 WEIGHTS_FILE = "weights.npz"
@@ -135,6 +144,46 @@ def params_from_jax(params: dict, batch_stats: dict,
     return state
 
 
+def params_to_jax(state: Dict[str, torch.Tensor]) -> Tuple[dict, dict]:
+    """The port's `YoloV3` state_dict -> Flax-shaped (params, batch_stats)
+    trees of f32 numpy arrays; kernels go from OIHW back to HWIO."""
+    flat = {}
+    for key, value in state.items():
+        value = value.detach().to("cpu", torch.float32).numpy()
+        if value.ndim == 4:
+            value = value.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+        flat[flax_path(key)] = np.ascontiguousarray(value)
+    tree = _unflatten(flat)
+    return tree["params"], tree["batch_stats"]
+
+
+def init_train_params(cfg: ModelConfig, seed: int) -> Tuple[dict, dict]:
+    """Fresh training weights in the Flax layout, made from `seed` with
+    numpy, with the distributions of the JAX model's `init`: kernels
+    lecun_normal (a normal truncated at 2 sigma, std sqrt(1 / fan_in) /
+    0.8796), conv and BatchNorm biases 0, scales 1, means 0, variances
+    1. The draws themselves differ from JAX's PRNG."""
+    rng = np.random.default_rng(seed)
+    flat = {}
+    for key, meta in _template(cfg).items():
+        shape = _flax_shape(meta)
+        leaf = key.rsplit(".", 1)[-1]
+        if len(shape) == 4:
+            v = rng.standard_normal(shape)
+            out = np.abs(v) > 2.0
+            while out.any():
+                v[out] = rng.standard_normal(int(out.sum()))
+                out = np.abs(v) > 2.0
+            v *= np.sqrt(1.0 / np.prod(shape[:-1])) / .87962566103423978
+        elif leaf in ("weight", "running_var"):
+            v = np.ones(shape)
+        else:
+            v = np.zeros(shape)
+        flat[flax_path(key)] = v.astype(np.float32)
+    tree = _unflatten(flat)
+    return tree["params"], tree["batch_stats"]
+
+
 def init_params(cfg: ModelConfig, seed: int) -> Tuple[dict, dict]:
     """Random Flax-shaped (params, batch_stats) trees for `cfg`, made from
     `seed` with numpy: kernels N(0, 1/fan_in), conv and BN biases and BN
@@ -157,6 +206,50 @@ def init_params(cfg: ModelConfig, seed: int) -> Tuple[dict, dict]:
         flat[flax_path(key)] = v.astype(np.float32)
     tree = _unflatten(flat)
     return tree["params"], tree["batch_stats"]
+
+
+def _checkpoint_file(output_folder: str) -> str:
+    return os.path.abspath(os.path.join(output_folder, CHECKPOINT_DIR,
+                                        STATE_FILE))
+
+
+def save_checkpoint(output_folder: str, state) -> str:
+    """Overwrite `<output>/checkpoint` with the train state (`state.model`,
+    `state.optimizer`, `state.step`); the caller decides when."""
+    path = os.path.dirname(_checkpoint_file(output_folder))
+    if os.path.exists(path):
+        shutil.rmtree(path)
+    os.makedirs(path)
+    torch.save({"step": int(state.step), "model": state.model.state_dict(),
+                "optimizer": state.optimizer.state_dict()},
+               _checkpoint_file(output_folder))
+    return path
+
+
+def _load_checkpoint(output_folder: str, device) -> dict:
+    return torch.load(_checkpoint_file(output_folder), map_location=device,
+                      weights_only=True)
+
+
+def has_checkpoint(output_folder: str) -> bool:
+    return os.path.exists(_checkpoint_file(output_folder))
+
+
+def restore_checkpoint(output_folder: str, state):
+    """Load a checkpoint written by `save_checkpoint` into `state` (a
+    fresh state of the same configuration) and return it."""
+    device = next(state.model.parameters()).device
+    saved = _load_checkpoint(output_folder, device)
+    state.model.load_state_dict(saved["model"])
+    state.optimizer.load_state_dict(saved["optimizer"])
+    state.step = saved["step"]
+    return state
+
+
+def checkpoint_params(output_folder: str) -> Tuple[dict, dict]:
+    """The checkpoint's model as Flax-shaped (params, batch_stats), read
+    on the CPU."""
+    return params_to_jax(_load_checkpoint(output_folder, "cpu")["model"])
 
 
 def export_model(output_folder: str, params: dict, batch_stats: dict,
