@@ -79,7 +79,21 @@ Phases, in order; any failure exits non-zero:
      (1x1 kernel) and int8 (the default set) with the serving phases'
      launch counts; one f32 step's gradients on the card against the
      CPU's at 64 px. One JSON line each.
- 10. One JSON line of kernel results, then the last line
+ 10. The training feed's device half at full width, on phase 9's stores:
+     `preprocess_batch` at b16, 512 px, augmentation on: ms per batch
+     (CUDA events over 10 batches after 2) and device ops per batch
+     (profile); one batch's draws, made on the card, through the port on
+     the card and on the CPU (boxes, valid and grids identical, pixels
+     within 8 float32 ulps of 256); the native and pure-Python store
+     readers' get_batch records/s; /dev/shm's free bytes beside the
+     ring's; `train.train_model` with `--device_augment 1` and with
+     `--device_augment 1 --shm_feed 1` (two epochs of 9 steps each, the
+     native reader asserted, the eval steps' 1x1 launches counted: 34 a
+     step), beside phase 9's host-feed figures; the device-feed export
+     served in bf16 and int8 with the serving launch counts;
+     `find_anchors` (k 2-4) on the planted boxes, and `evaluate_folders`
+     of the served rows against them. One JSON line.
+ 11. One JSON line of kernel results, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 A kernel's `ms` is device time: `device_ms` captures 20 calls in a CUDA
@@ -176,6 +190,11 @@ TRAIN_RECT = (48, 200)
 # the trainer's epochs: 8 steps between tests, two epochs (the warm-up and
 # one more), each size + 1 steps
 TRAIN_EVERY, TRAIN_EPOCHS = 8, 2
+# the device feed's phase: preprocess_batch timed over this many batches
+# after two, and the card-vs-CPU bound on raw augmented pixels (8 float32
+# ulps of a pixel in [256, 512), as tests/test_torch_device_pipeline.py)
+FEED_REPS = 10
+FEED_RAW_ATOL = 8 * 2.0 ** -15
 # the CPU parity tests' bound on a gradient leaf against JAX, relative to
 # the leaf's largest |g| (tests/test_torch_train_step.py)
 GRAD_BOUND = 2e-3
@@ -1678,6 +1697,255 @@ def phase_training(torch, inf, TQ, build, ModelConfig, workdir, card):
     return lines
 
 
+def raw_batch(path, n):
+    """The first `n` records of a store as the raw feed carries them:
+    uint8 images, boxes padded to MAX_BOXES, and their mask."""
+    import numpy as np
+    from yolov3_tpu_torch.data import records
+    from yolov3_tpu_torch.data.encoder import pad_boxes
+    from yolov3_tpu_torch.data.store import RecordReader
+    with RecordReader(path) as reader:
+        pairs = [records.decode_record(reader.get(k))
+                 for k in reader.keys()[:n]]
+    padded = [pad_boxes(b.astype(np.float32)) for _, b in pairs]
+    return (np.stack([img for img, _ in pairs]),
+            np.stack([p[0] for p in padded]), np.stack([p[1] for p in padded]))
+
+
+def phase_preprocess(torch, workdir, card):
+    """`preprocess_batch` at b16, 512 px, augmentation on: device ms per
+    batch (CUDA events over FEED_REPS batches after two), device ops per
+    batch; then one batch's draws, made on the card, through the port on
+    the card and on the CPU: boxes, valid and grids identical, raw pixels
+    within FEED_RAW_ATOL, z-scored ones within that over each image's
+    std, plus 1e-6."""
+    from yolov3_tpu_torch import train
+    from yolov3_tpu_torch.config import AugmentConfig
+    from yolov3_tpu_torch.data import device_pipeline as DP
+    raw = raw_batch(os.path.join(workdir, "train.ydb"), TRAIN_BATCH)
+    dev = [torch.from_numpy(a).to(DEVICE) for a in raw]
+    acfg, size, anchors = AugmentConfig(), FULL["img_size"], FULL["anchors"]
+    gens = [train.batch_generator(SEED, i, DEVICE)
+            for i in range(1, FEED_REPS + 4)]
+
+    def run(gen):
+        return DP.preprocess_batch(*dev, gen, acfg, size, anchors, 2)
+
+    for gen in gens[:2]:
+        run(gen)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for gen in gens[2:2 + FEED_REPS]:
+        run(gen)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / FEED_REPS
+    profile = phase_profile(torch, lambda _: run(gens[-1]), None, reps=1,
+                            what="preprocess batches")
+    log(f"preprocess_batch b{TRAIN_BATCH} 512px augmented: {ms:.3f} ms per "
+        f"batch (events), {profile['device_ms']:.3f} ms device time and "
+        f"{profile['device_ops_per_call']:.0f} device ops per batch "
+        f"(profile), on {card}")
+
+    draws = DP.draw_augment(train.batch_generator(SEED, 0, DEVICE),
+                            TRAIN_BATCH, size, raw[1].shape[1], acfg)
+    card_img, card_box, card_valid = (t.cpu() for t in DP.augment_batch(
+        dev[0].float(), dev[1], dev[2], draws, acfg))
+    card_z, *card_grids = (t.cpu() for t in DP.preprocess_batch(
+        *dev, None, acfg, size, anchors, 2, draws=draws))
+    # the CPU runs preprocess_batch's chain once, on the same draws
+    cpu_img, cpu_box, cpu_valid = DP.augment_batch(
+        torch.from_numpy(raw[0]).float(), torch.from_numpy(raw[1]),
+        torch.from_numpy(raw[2]), draws.to("cpu"), acfg)
+    cpu_z = DP.zscore_images(cpu_img)
+    cpu_grids = DP.encode_labels_device(cpu_box, cpu_valid, size, anchors, 2)
+    raw_err = float((card_img - cpu_img).abs().max())
+    z_err = (card_z - cpu_z).abs().amax(dim=(1, 2, 3))
+    z_bound = FEED_RAW_ATOL / cpu_img.std(dim=(1, 2, 3), correction=0) + 1e-6
+    same = (torch.equal(card_box, cpu_box)
+            and torch.equal(card_valid, cpu_valid)
+            and all(torch.equal(a, b) for a, b in zip(card_grids, cpu_grids)))
+    out = {"card": card, "batch": TRAIN_BATCH, "ms_per_batch": ms,
+           "profile": profile, "boxes_valid_grids_identical": same,
+           "valid_boxes": int(card_valid.sum()),
+           "objects_s8": int(card_grids[2][..., 4].sum()),
+           "raw_max_abs_err": raw_err, "raw_bound": FEED_RAW_ATOL,
+           "z_max_abs_err": float(z_err.max()),
+           "z_bound_min": float(z_bound.min())}
+    log(f"preprocess card vs CPU on the same draws: boxes, valid, grids "
+        f"identical {same} ({out['valid_boxes']} valid boxes, "
+        f"{out['objects_s8']} s8 objects), raw pixels max |err| "
+        f"{raw_err:.3e} (bound {FEED_RAW_ATOL:.3e}), z-scored "
+        f"{out['z_max_abs_err']:.3e} (bound >= {out['z_bound_min']:.3e})")
+    if not (same and raw_err <= FEED_RAW_ATOL and bool((z_err <= z_bound)
+                                                       .all())):
+        raise AssertionError(f"device preprocessing: card and CPU "
+                             f"disagree: {out}")
+    return out
+
+
+def store_rates(workdir, card, reps=50):
+    """get_batch records/s of the native and the pure-Python store
+    readers (lookups and views, no decode) on the train store, host
+    time; the ring's bytes at the trainer's shape beside /dev/shm's
+    free bytes."""
+    from yolov3_tpu_torch.data import shm_ring, store, store_native
+    from yolov3_tpu_torch.data.encoder import MAX_BOXES
+    path = os.path.join(workdir, "train.ydb")
+    rates = {}
+    for name, reader in (("native", store_native.NativeRecordReader(path)),
+                         ("python", store.RecordReader(path))):
+        keys = reader.keys()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            recs = reader.get_batch(keys)
+        rates[name] = reps * len(keys) / (time.perf_counter() - t0)
+        del recs
+        reader.close()
+    base = shm_ring.ring_dir()
+    free = shm_ring.free_bytes(base)
+    slots = 3 + 2  # reader_count_per_device workers + 2, as ShmBatchReader
+    ring = shm_ring.BatchRing(TRAIN_BATCH, FULL["img_size"], "uint8",
+                              MAX_BOXES, slots)
+    ring_bytes = ring.total_bytes
+    ring.close(unlink=True)
+    out = {"card": card, "get_batch_records_per_s": rates,
+           "shm_dir": base, "shm_free_bytes": free, "ring_bytes": ring_bytes,
+           "ring_slots": slots}
+    log(f"store get_batch on the host: native {rates['native']:.0f} "
+        f"records/s, pure-Python {rates['python']:.0f}; {base} has {free} "
+        f"bytes free, the b{TRAIN_BATCH} ring takes {ring_bytes} ({slots} "
+        f"slots)")
+    return out
+
+
+def phase_feed_trainer(torch, build, workdir, card, shm):
+    """`train.train_model` with --device_augment 1 (and --shm_feed 1 when
+    `shm`) on phase 9's stores; the eval steps' 1x1 launches counted
+    over the run."""
+    from yolov3_tpu_torch import train
+    out_dir = os.path.join(workdir, "feed_shm" if shm else "feed_device")
+    report = {}
+    build.launch_counts.clear()
+    t0 = time.perf_counter()
+    export = train.train_model(
+        TRAIN_BATCH, TRAIN_EVERY, os.path.join(workdir, "train.ydb"),
+        os.path.join(workdir, "test.ydb"), out_dir, early_stopping_count=10,
+        learning_rate=1e-4, use_augmentation=True, anchors=FULL["anchors"],
+        seed=SEED, max_epochs=TRAIN_EPOCHS, compute_dtype="bfloat16",
+        model_overrides={"use_pallas_pointwise": True}, device=DEVICE,
+        device_augment=True, shm_feed=shm, report=report)
+    torch.cuda.synchronize()
+    launches = dict(build.launch_counts)
+    wall = time.perf_counter() - t0
+    expected = {"pointwise_conv_block":
+                EXPECTED_LAUNCHES["pointwise_conv_block"]
+                * report["eval_steps"]}
+    with open(os.path.join(out_dir, "test_loss.csv")) as fh:
+        test_loss = [float(v) for v in fh if v.strip()]
+    out = {"card": card, "feed": report["feed"],
+           "store_reader": report["store_kind"], "wall_s": wall,
+           "train_steps": report["train_steps"],
+           "steps_per_s_with_feed": report["train_steps"] / report["train_s"],
+           "feed_wait_share": report["feed_wait_s"] / report["train_s"],
+           "eval_steps": report["eval_steps"], "eval_launches": launches,
+           "test_loss": test_loss}
+    log(f"trainer, {report['feed']}: {out['train_steps']} steps in "
+        f"{report['train_s']:.2f} s of train loops "
+        f"({out['steps_per_s_with_feed']:.3f} steps/s with the feed, "
+        f"{100 * out['feed_wait_share']:.1f}% waiting for batches), "
+        f"{report['eval_steps']} eval steps launching {launches}, "
+        f"{report['store_kind']} store reader, test_loss.csv {test_loss}, "
+        f"wall {wall:.1f} s, on {card}")
+    if not (report["store_kind"] == "native" and launches == expected
+            and len(test_loss) == TRAIN_EPOCHS
+            and all(math.isfinite(v) for v in test_loss)
+            and export is not None
+            and out["train_steps"] == TRAIN_EPOCHS * (TRAIN_EVERY + 1)):
+        raise AssertionError(f"device-feed trainer run incomplete: {out}, "
+                             f"launches expected {expected}")
+    return export, out
+
+
+def phase_tools(torch, inf, export, workdir, card):
+    """find_anchors (k 2-4, no plot) on the planted train boxes, and
+    evaluate_folders of the served export's CSVs on 8 test images against
+    their planted boxes (the mAP of a two-epoch model: informational)."""
+    import numpy as np
+    from yolov3_tpu_torch.data import records
+    from yolov3_tpu_torch.data.device_pipeline import zscore_images
+    from yolov3_tpu_torch.data.store import RecordReader
+    from yolov3_tpu_torch.find_anchors import find_anchors
+    from yolov3_tpu_torch.ops import boxes as bbox
+    from yolov3_tpu_torch.utils.evaluation import evaluate_folders
+    dirs = {n: os.path.join(workdir, n) for n in ("anchor_csv", "gt", "pred")}
+    for d in dirs.values():
+        os.makedirs(d)
+    for name, n, d in (("train", None, dirs["anchor_csv"]),
+                       ("test", BATCH, dirs["gt"])):
+        with RecordReader(os.path.join(workdir, f"{name}.ydb")) as reader:
+            for i, key in enumerate(reader.keys()[:n]):
+                _, boxes = records.decode_record(reader.get(key))
+                bbox.write_boxes_from_xywhc(boxes, os.path.join(
+                    d, f"im{i}.csv"))
+    anchors = find_anchors(dirs["anchor_csv"], k_range=(2, 4),
+                           plot_path=None)
+    raw, _ = store_examples(os.path.join(workdir, "test.ydb"), BATCH,
+                            FULL["anchors"])
+    serve, _ = inf.make_serving_fn(export, device=DEVICE)
+    rows, scores = inf.serve_batch(
+        serve, zscore_images(torch.from_numpy(raw).to(DEVICE)), BATCH)
+    for i, (r, sc) in enumerate(zip(rows, scores)):
+        inf.write_detections_csv(r, sc, os.path.join(dirs["pred"],
+                                                     f"im{i}.csv"), True)
+    ev = evaluate_folders(dirs["pred"], dirs["gt"])
+    out = {"card": card,
+           "anchors": {k: {"score": s, "centers": np.round(c, 3).tolist()}
+                       for k, (s, c) in anchors.items()},
+           "served_rows": [int(r.shape[0]) for r in rows],
+           "mAP@0.5": ev["mAP"],
+           "per_class_ap": {str(k): v for k, v in
+                            ev["per_class_ap"].items()}}
+    log(f"tools: find_anchors k=2..4 scores "
+        f"{[round(anchors[k][0], 1) for k in anchors]}; the device-feed "
+        f"export served on {BATCH} test images, rows {out['served_rows']}, "
+        f"mAP@0.5 {ev['mAP']:.4f} against the planted boxes")
+    if not all(np.isfinite(c).all() and len(c) == k
+               for k, (_, c) in anchors.items()):
+        raise AssertionError(f"find_anchors: {anchors}")
+    return out
+
+
+def phase_device_feed(torch, inf, TQ, build, workdir, card, host):
+    """Phase 10: the training feed's device half at full width; one JSON
+    line."""
+    t0 = time.perf_counter()
+    out = {"preprocess": phase_preprocess(torch, workdir, card),
+           "store": store_rates(workdir, card)}
+    torch.cuda.empty_cache()
+    export, out["trainer_device_augment"] = phase_feed_trainer(
+        torch, build, workdir, card, shm=False)
+    _, out["trainer_shm_feed"] = phase_feed_trainer(torch, build, workdir,
+                                                    card, shm=True)
+    out["trainer_host_feed"] = {
+        k: host[k] for k in ("steps_per_s_with_feed", "feed_wait_share")}
+    log(f"trainer steps/s with the feed (wait share): host "
+        f"{host['steps_per_s_with_feed']:.3f} "
+        f"({100 * host['feed_wait_share']:.1f}%), device augment "
+        f"{out['trainer_device_augment']['steps_per_s_with_feed']:.3f} "
+        f"({100 * out['trainer_device_augment']['feed_wait_share']:.1f}%), "
+        f"+ shm ring {out['trainer_shm_feed']['steps_per_s_with_feed']:.3f} "
+        f"({100 * out['trainer_shm_feed']['feed_wait_share']:.1f}%), "
+        f"on {card}")
+    out["export_served"] = phase_train_served(torch, inf, TQ, build, export,
+                                              workdir, card)
+    out["tools"] = phase_tools(torch, inf, export, workdir, card)
+    log(f"device feed phase took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", default=None,
@@ -1753,6 +2021,10 @@ def main(argv=None) -> int:
         training = phase_training(torch, inf, TQ, build, ModelConfig,
                                   workdir, smi)
         result.update(training)
+        torch.cuda.empty_cache()
+        training["device_feed"] = phase_device_feed(
+            torch, inf, TQ, build, workdir, smi, training["trainer"])
+        result["device_feed"] = training["device_feed"]
     result["pointwise_calls"] = pw_rows
     result["nms_cases"] = nms_rows
     result["greedy_cases"] = greedy_rows

@@ -1,4 +1,5 @@
-"""The PyTorch port and chip_smoke.py stand alone: no JAX, no JAX package."""
+"""The PyTorch port and chip_smoke.py stand alone: no JAX, no JAX package,
+no scikit-learn and no OpenCV (the card's host has neither)."""
 
 import os
 import shutil
@@ -17,14 +18,18 @@ names = [m.name for m in pkgutil.walk_packages(yolov3_tpu_torch.__path__,
 for name in names:
     __import__(name)
 import chip_smoke
-banned = {"jax", "jaxlib", "flax", "optax", "orbax", "yolov3_tpu"}
+banned = {"jax", "jaxlib", "flax", "optax", "orbax", "yolov3_tpu", "sklearn",
+          "cv2"}
 bad = sorted(m for m in sys.modules if m.split(".")[0] in banned
              or m == "google.protobuf" or m.startswith("google.protobuf."))
-# the training slice's modules, among those imported above
+# the training slice's modules and the device feed's and the tools',
+# among those imported above
 training = ["data.isg_ai", "data.records", "data.store", "data.encoder",
             "data.augment", "data.reader", "ops.loss",
             "parallel.train_step", "utils.metrics", "utils.prefetch",
-            "train"]
+            "train", "data.device_pipeline", "data.shm_ring",
+            "data.store_native", "data.builder", "find_anchors",
+            "utils.evaluation", "utils.tf_import"]
 missing = [m for m in training if "yolov3_tpu_torch." + m not in names]
 print(len(names), bad, missing)
 sys.exit(1 if bad or missing or len(names) < 15 else 0)

@@ -81,8 +81,8 @@ def encode_boxes(boxes: np.ndarray, image_size: Sequence[int],
     return labels
 
 
-# Fixed per-image box capacity for static shapes on the device (the
-# device-side augmentation of a later slice consumes these).
+# Fixed per-image box capacity for static shapes on the device (the raw
+# feed's padded boxes, which data/device_pipeline.py consumes).
 MAX_BOXES = 64
 
 

@@ -24,11 +24,14 @@ Semantics preserved:
 
 Differences from the reference: examples are NHWC float32, not CHW, and
 `batches()` yields stacked numpy batches, which `utils/prefetch.py`
-stages onto the card. The JAX reader's `raw_mode` (its device-side
-augmentation), `ShmBatchReader` and multi-host `shard` belong to later
-slices. Worker-reachable modules (this one, `config`, `augment`,
-`records`, `encoder`, `imaging`, `store`) import no torch and make no
-CUDA call.
+stages onto the card. In raw mode (`--device_augment`) the workers only
+decode and pad the boxes; `data/device_pipeline.py` does the rest on the
+card. `ShmBatchReader` (`--shm_feed`) moves raw batches through a
+shared-memory ring instead of per-example pickles. The JAX reader's
+multi-host `shard` belongs to a later slice. Worker-reachable modules
+(this one, `config`, `augment`, `records`, `encoder`, `imaging`,
+`store`, `store_native`, `shm_ring`) import no torch and make no CUDA
+call.
 """
 
 from __future__ import annotations
@@ -45,8 +48,10 @@ import numpy as np
 from yolov3_tpu_torch.config import AugmentConfig
 from yolov3_tpu_torch.data import augment as aug
 from yolov3_tpu_torch.data import records
-from yolov3_tpu_torch.data.encoder import encode_boxes, grid_shapes
+from yolov3_tpu_torch.data.encoder import (MAX_BOXES, encode_boxes,
+                                           grid_shapes, pad_boxes)
 from yolov3_tpu_torch.data.imaging import zscore_normalize
+from yolov3_tpu_torch.data.shm_ring import BatchRing
 from yolov3_tpu_torch.data.store import open_reader
 
 Example = Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]
@@ -80,7 +85,8 @@ class DatasetReader:
                  balance_classes: bool = False,
                  shuffle: bool = True,
                  num_workers: int = 1,
-                 augment_config: Optional[AugmentConfig] = None):
+                 augment_config: Optional[AugmentConfig] = None,
+                 raw_mode: bool = False):
         if not os.path.exists(img_db):
             raise FileNotFoundError(f"Missing database: {img_db}")
         self.image_db = img_db
@@ -90,6 +96,11 @@ class DatasetReader:
         self.shuffle = shuffle
         self.nb_workers = num_workers
         self.augment_config = augment_config or AugmentConfig()
+        # raw mode: workers only decode records and emit (image HWC in its
+        # source dtype, boxes [MAX_BOXES, 5] f32, valid [MAX_BOXES]);
+        # augmentation, z-score and label encoding then run on the card
+        # (data/device_pipeline.py)
+        self.raw_mode = raw_mode
         self.queue_starvation = False
 
         self._scan_database()
@@ -110,8 +121,11 @@ class DatasetReader:
     # -- database scan -------------------------------------------------------
 
     def _scan_database(self) -> None:
-        """Two-pass key scan: class census, then per-class key buckets."""
+        """Two-pass key scan: class census, then per-class key buckets.
+        Opening the store here, in the parent, also builds the native
+        reader's library before any worker needs it."""
         reader = open_reader(self.image_db)
+        self.store_kind = reader.kind
         try:
             all_keys = reader.keys()
             if not all_keys:
@@ -227,6 +241,12 @@ class DatasetReader:
                 f"Unexpected image shape from database. Expected "
                 f"{self.image_size}. Found {list(img.shape)}.")
 
+        if self.raw_mode:
+            padded, valid = pad_boxes(boxes.astype(np.float32))
+            # the source dtype: uint8 pixels cost 4x less through the
+            # worker queue and the host-to-device copy
+            return (img, padded, valid)
+
         crop_to = [self.image_size[0], self.image_size[1]]
         if self.use_augmentation:
             ac = self.augment_config
@@ -321,8 +341,11 @@ class DatasetReader:
             yield example
 
     def batches(self, batch_size: int) -> Iterator[Tuple[np.ndarray, ...]]:
-        """Yield stacked batches (images NHWC, label_s32, label_s16,
-        label_s8)."""
+        """Yield stacked batches.
+
+        Full mode: (images NHWC, label_s32, label_s16, label_s8).
+        Raw mode: (images NHWC, boxes [B,M,5], valid [B,M]).
+        """
         gen = self.generator()
         while True:
             parts: List[Example] = []
@@ -340,3 +363,126 @@ class DatasetReader:
 
     def __exit__(self, *exc):
         self.shutdown()
+
+
+class ShmBatchReader(DatasetReader):
+    """Raw-mode reader whose workers assemble whole batches into a
+    shared-memory ring (`data/shm_ring.py::BatchRing`).
+
+    Only slot indices travel through queues. Workers claim a free slot,
+    fill its (images [B,H,W,C] source dtype, boxes [B,M,5] f32, valid
+    [B,M] bool) arrays in place, and post the index; `batches()` yields
+    zero-copy views.
+
+    Contract: the yielded arrays alias the ring and are valid only until
+    the NEXT `next()` on the iterator, which recycles the slot.
+    `utils/prefetch.py::DevicePrefetcher` meets it: its thread copies
+    each batch (into pinned memory on the card's host) before it pulls
+    the next one. A reader is single-shot: `shutdown()` unlinks the
+    ring.
+
+    Sampling, the class census, starvation telemetry and the shutdown
+    protocol are the base reader's.
+    """
+
+    def __init__(self, img_db: str,
+                 anchors: Sequence[Tuple[float, float]],
+                 batch_size: int,
+                 num_slots: Optional[int] = None,
+                 **kw):
+        kw["raw_mode"] = True
+        super().__init__(img_db, anchors, **kw)
+        self.batch_size = int(batch_size)
+        self.num_slots = int(num_slots or (self.nb_workers + 2))
+        self._ring = BatchRing(batch=self.batch_size,
+                               image_shape=tuple(self.image_size),
+                               image_dtype=self.image_dtype,
+                               max_boxes=MAX_BOXES,
+                               num_slots=self.num_slots)
+        self._ring_spec = self._ring.spec()
+        self._free_q = _MP.Queue(maxsize=self.num_slots)
+        for s in range(self.num_slots):
+            self._free_q.put(s)
+        # starvation telemetry counts ready slots, not queued examples
+        self.max_out_qsize = self.num_slots
+
+    def __getstate__(self):
+        state = super().__getstate__()
+        state["_ring"] = None  # workers attach by path via _ring_spec
+        return state
+
+    def _worker_main(self) -> None:
+        worker_id = self._id_q.get()
+        self._key_idx = worker_id % len(self.keys_flat)
+        seed = (os.getpid() * 7919 + worker_id) & 0x7FFFFFFF
+        rng = random.Random(seed)
+        ring = None
+        try:
+            ring = BatchRing.attach(self._ring_spec)
+            reader = open_reader(self.image_db)
+            terminated = False
+            while not terminated:
+                slot = None
+                while slot is None:
+                    try:
+                        if self._terminate_q.get_nowait() is None:
+                            terminated = True
+                            break
+                    except queue.Empty:
+                        pass
+                    try:
+                        slot = self._free_q.get(timeout=0.25)
+                    except queue.Empty:
+                        continue
+                if terminated:
+                    break
+                imgs, boxes, valid = ring.views(slot)
+                keys = [self._next_key(rng) for _ in range(self.batch_size)]
+                recs = reader.get_batch(keys)
+                for i, (key, rec) in enumerate(zip(keys, recs)):
+                    if rec is None:
+                        raise KeyError(
+                            f"record missing from database: {key!r}")
+                    img, bx = records.decode_record(rec)
+                    if list(img.shape) != list(self.image_size):
+                        raise RuntimeError(
+                            f"Unexpected image shape from database. "
+                            f"Expected {self.image_size}. "
+                            f"Found {list(img.shape)}.")
+                    imgs[i] = img
+                    boxes[i], valid[i] = pad_boxes(bx.astype(np.float32))
+                del imgs, boxes, valid
+                self._out_q.put(slot)
+        except Exception as e:
+            print("***************** Reader Error *****************")
+            print(e)
+            traceback.print_exc()
+            print("***************** Reader Error *****************")
+        finally:
+            if ring is not None:
+                ring.close()
+            self._out_q.put(None)
+
+    def batches(self, batch_size: Optional[int] = None
+                ) -> Iterator[Tuple[np.ndarray, ...]]:
+        """Yield zero-copy (images, boxes, valid) views from the ring."""
+        if batch_size not in (None, self.batch_size):
+            raise ValueError(
+                f"ShmBatchReader was sized for batch {self.batch_size}, "
+                f"got {batch_size}")
+        while True:
+            slot = self.get_example()
+            if slot is None:
+                return
+            try:
+                yield self._ring.views(slot)
+            finally:
+                self._free_q.put(slot)
+
+    def generator(self):
+        raise NotImplementedError(
+            "ShmBatchReader transports whole batches; use batches()")
+
+    def shutdown(self) -> None:
+        super().shutdown()
+        self._ring.close(unlink=True)

@@ -16,8 +16,10 @@ Design (TPU-host-native, not an LMDB clone):
 - key iteration order == insertion order, which the class-balancing reader
   relies on (reference/imagereader.py:113-144 iterates the LMDB cursor).
 
-The JAX package's native reader (`native/yolodb.cpp`) is not ported yet;
-`open_reader` returns the pure-Python reader.
+`open_reader` prefers the native reader (`store_native.py`, over the
+repo's `native/yolodb.cpp`), as the JAX package's does, and falls back
+to the pure-Python reader only where the native library cannot be
+built; each reader's `kind` says which it is.
 """
 
 from __future__ import annotations
@@ -95,6 +97,8 @@ class RecordWriter:
 
 class RecordReader:
     """Zero-copy mmap reader. Safe to open independently in many processes."""
+
+    kind = "python"
 
     def __init__(self, db_path: str):
         if not os.path.isdir(db_path):
@@ -190,6 +194,15 @@ class RecordReader:
         self.close()
 
 
-def open_reader(db_path: str) -> RecordReader:
-    """Open a read handle."""
-    return RecordReader(db_path)
+def open_reader(db_path: str):
+    """Open a read handle: the native reader, built at first use, else
+    (no C++ compiler, or its build failed) the pure-Python one, with the
+    reason printed. Both serve the same bytes; `.kind` names it."""
+    from yolov3_tpu_torch.data import store_native
+    try:
+        store_native.load()
+    except (OSError, RuntimeError) as e:
+        print(f"native store reader unavailable, reading {db_path} with "
+              f"the pure-Python reader: {e}")
+        return RecordReader(db_path)
+    return store_native.NativeRecordReader(db_path)

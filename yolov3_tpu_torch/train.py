@@ -26,10 +26,16 @@ Loop semantics are the JAX trainer's (train.py:63-371):
   which `inference.py` serves.
 
 Batches are made by reader worker processes (`data/reader.py`) and staged
-onto the card by `utils/prefetch.py`. Runs on "cuda" unless asked for
-"cpu". The flags of later slices (`--num_devices` > 1,
-`--device_augment 1`, `--shm_feed 1`, `--shard_optimizer 1`,
-`--int8_train 1`, `--int8_static 1`) raise NotImplementedError.
+onto the card by `utils/prefetch.py`. With `--device_augment 1` the
+workers only decode records, and the augmentation, z-score and label
+encoding run on the card (`data/device_pipeline.py`), in the prefetch
+thread's stream; each batch draws from its own generator, seeded from
+(seed + 1, the batch's number in its feed), so a run repeats whatever
+the thread's timing. `--shm_feed 1` (with `--device_augment 1` only, as
+in the JAX trainer) moves the raw batches through a shared-memory ring.
+Runs on "cuda" unless asked for "cpu". The flags of later slices
+(`--num_devices` > 1, `--shard_optimizer 1`, `--int8_train 1`,
+`--int8_static 1`) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import datetime
+import itertools
 import os
 import time
 from typing import Optional, Sequence, Tuple
@@ -46,7 +53,8 @@ import torch
 
 from yolov3_tpu_torch.config import (TRAIN_DEFAULT_ANCHORS, AugmentConfig,
                                      ModelConfig, TrainConfig)
-from yolov3_tpu_torch.data.reader import DatasetReader
+from yolov3_tpu_torch.data.device_pipeline import preprocess_batch
+from yolov3_tpu_torch.data.reader import DatasetReader, ShmBatchReader
 from yolov3_tpu_torch.parallel.train_step import (create_train_state,
                                                   make_eval_step,
                                                   make_train_step)
@@ -62,20 +70,43 @@ def _not_ported(what: str) -> NotImplementedError:
         f"Queue A)")
 
 
-def _check_ported(num_devices, device_augment, shm_feed, shard_optimizer,
-                  model_overrides) -> None:
+def _check_ported(num_devices, shard_optimizer, model_overrides) -> None:
     if num_devices not in (None, 1):
         raise _not_ported("--num_devices > 1 (multi-device training)")
-    for flag, on in (("--device_augment", device_augment),
-                     ("--shm_feed", shm_feed),
-                     ("--shard_optimizer", shard_optimizer)):
-        if on:
-            raise _not_ported(flag)
+    if shard_optimizer:
+        raise _not_ported("--shard_optimizer")
     overrides = model_overrides or {}
     for name, flag in (("int8_train", "--int8_train"),
                        ("int8_train_static", "--int8_static")):
         if overrides.get(name):
             raise _not_ported(f"{flag} (quantization-aware training)")
+
+
+def batch_generator(seed: int, counter: int, device) -> torch.Generator:
+    """The generator of a feed's `counter`-th batch, on `device`: seeded
+    from (seed + 1, counter), as the JAX trainer folds the counter into
+    PRNGKey(seed + 1)."""
+    gen = torch.Generator(device=device)
+    state = np.random.SeedSequence([seed + 1, counter]).generate_state(
+        1, np.uint64)[0]
+    gen.manual_seed(int(state))
+    return gen
+
+
+def _device_feed(seed: int, device, acfg: AugmentConfig, img_size,
+                 anchors, number_classes: int, augment: bool):
+    """The prefetcher's transform for raw batches: the device
+    preprocessing, one generator per batch."""
+    counter = itertools.count(1)
+
+    def transform(raw):
+        images, boxes, valid = raw
+        gen = batch_generator(seed, next(counter), device) if augment \
+            else None
+        return preprocess_batch(images, boxes, valid, gen, acfg,
+                                tuple(img_size), anchors, number_classes,
+                                use_augmentation=augment)
+    return transform
 
 
 def _profiler(device: str):
@@ -106,9 +137,9 @@ def train_model(batch_size: int, test_every_n_steps: int,
                 report: Optional[dict] = None) -> Optional[str]:
     """Run the training loop; returns the export path (or None). With
     `report` given, fills it with the train loop's step count, its wall
-    seconds and the seconds it waited for batches."""
-    _check_ported(num_devices, device_augment, shm_feed, shard_optimizer,
-                  model_overrides)
+    seconds, the seconds it waited for batches, the eval steps run and
+    the store reader's kind."""
+    _check_ported(num_devices, shard_optimizer, model_overrides)
     os.makedirs(output_folder, exist_ok=True)
     global_batch_size = batch_size  # one device
     reader_count = (tcfg or TrainConfig()).reader_count_per_device
@@ -119,22 +150,41 @@ def train_model(batch_size: int, test_every_n_steps: int,
                                use_augmentation=bool(use_augmentation))
     print(f"Devices: 1 ({device}), global batch {global_batch_size}, "
           f"readers {reader_count}")
+    # the ring carries raw batches, so it needs the device augmentation
+    use_shm = bool(device_augment and shm_feed)
+    if shm_feed and not device_augment:
+        print("--shm_feed takes effect with --device_augment 1 only")
+    feed = ("device augmentation, shared-memory ring" if use_shm else
+            "device augmentation" if device_augment else "host augmentation")
+    print(f"Feed: {feed}")
+
+    def reader(db, **kw):
+        if use_shm:
+            return ShmBatchReader(db, anchors, batch_size=global_batch_size,
+                                  num_workers=reader_count, **kw)
+        return DatasetReader(db, anchors, num_workers=reader_count,
+                             raw_mode=bool(device_augment), **kw)
 
     print("Setting up test image reader")
-    test_reader = DatasetReader(test_database_filepath, anchors,
-                                use_augmentation=False, shuffle=False,
-                                num_workers=reader_count)
-    print(f"Test Reader has {test_reader.get_image_count()} images")
+    test_reader = reader(test_database_filepath, use_augmentation=False,
+                         shuffle=False)
+    print(f"Test Reader has {test_reader.get_image_count()} images "
+          f"({test_reader.store_kind} store reader)")
     print("Setting up training image reader")
-    train_reader = DatasetReader(train_database_filepath, anchors,
-                                 use_augmentation=bool(use_augmentation),
-                                 shuffle=True, balance_classes=True,
-                                 num_workers=reader_count,
-                                 augment_config=augment_config)
-    print(f"Train Reader has {train_reader.get_image_count()} images")
+    try:
+        train_reader = reader(train_database_filepath,
+                              use_augmentation=bool(use_augmentation),
+                              shuffle=True, balance_classes=True,
+                              augment_config=augment_config)
+    except BaseException:
+        test_reader.shutdown()  # unlinks the test reader's ring, if any
+        raise
+    print(f"Train Reader has {train_reader.get_image_count()} images "
+          f"({train_reader.store_kind} store reader)")
 
     report = {} if report is None else report
-    report.update(train_steps=0, train_s=0.0, feed_wait_s=0.0)
+    report.update(train_steps=0, train_s=0.0, feed_wait_s=0.0, eval_steps=0,
+                  store_kind=train_reader.store_kind, feed=feed)
     export_path = None
     best_checkpoint_saved = False
     train_batches = test_batches = None
@@ -170,10 +220,18 @@ def train_model(batch_size: int, test_every_n_steps: int,
 
         train_step = make_train_step(cfg, tcfg, global_batch_size)
         eval_step = make_eval_step(cfg, tcfg, global_batch_size)
+        train_transform = test_transform = None
+        if device_augment:
+            feed_args = (seed, device, augment_config or AugmentConfig(),
+                         img_size, cfg.anchors, number_classes)
+            train_transform = _device_feed(*feed_args, bool(use_augmentation))
+            test_transform = _device_feed(*feed_args, False)
         train_batches = DevicePrefetcher(
-            train_reader.batches(global_batch_size), device)
+            train_reader.batches(global_batch_size), device,
+            transform=train_transform)
         test_batches = DevicePrefetcher(
-            test_reader.batches(global_batch_size), device)
+            test_reader.batches(global_batch_size), device,
+            transform=test_transform)
 
         train_epoch_size = test_every_n_steps
         test_epoch_size = test_reader.get_image_count() / batch_size
@@ -238,6 +296,7 @@ def train_model(batch_size: int, test_every_n_steps: int,
                     raise RuntimeError("Test Loss went to NaN")
                 epoch_test_loss.append(loss_sum)
                 test_metrics.update(metrics)
+            report["eval_steps"] += int(test_epoch_size) + 1
             test_loss.append(float(np.mean(epoch_test_loss)))
 
             print(f"Test Epoch: {epoch}: Loss = "
@@ -324,9 +383,11 @@ def main(argv=None) -> None:
     parser.add_argument("--profile_dir", type=str, default=None,
                         help="write a torch.profiler trace of epoch 1 here")
     parser.add_argument("--device_augment", type=int, default=0,
-                        help="augment on the device (not ported yet)")
+                        help="augment, z-score and encode labels on the "
+                             "device; reader workers only decode")
     parser.add_argument("--shm_feed", type=int, default=0,
-                        help="shared-memory batch ring (not ported yet)")
+                        help="with --device_augment 1: move raw batches "
+                             "through a shared-memory ring")
     parser.add_argument("--resume", action="store_true",
                         help="resume from an existing checkpoint in "
                              "--output_dir")

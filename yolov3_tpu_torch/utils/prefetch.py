@@ -4,11 +4,16 @@ reference/train.py:61,65).
 
 A daemon thread pulls numpy batches from the reader, copies each array
 into pinned host memory and from there onto the card with `non_blocking`
-copies on a side CUDA stream, and records an event there. `next()` makes
-the consuming stream wait on that event before the step reads the batch,
-and hands the batch's memory over to that stream. On the CPU the arrays
-become tensors and nothing else happens. At most `depth` batches wait
-staged.
+copies on a side CUDA stream, runs the optional `transform` (the device
+preprocessing of `--device_augment`) on that stream, and records an
+event there. So the preprocessing of batch k+1 overlaps step k, as the
+JAX trainer's `DevicePrefetcher(feed(...), lambda b: b)` does. `next()`
+makes the consuming stream wait on that event before the step reads the
+batch, and hands the batch's memory over to that stream. On the CPU the
+arrays are copied into tensors and transformed. Every array is copied
+before the source is advanced, so a source may hand out views that its
+next item recycles (`data/reader.py::ShmBatchReader`). At most `depth`
+batches wait staged.
 """
 
 from __future__ import annotations
@@ -16,7 +21,7 @@ from __future__ import annotations
 import queue
 import threading
 import time
-from typing import Iterator, Optional, Sequence
+from typing import Callable, Iterator, Optional, Sequence
 
 import numpy as np
 import torch
@@ -28,11 +33,14 @@ class DevicePrefetcher:
     """Iterate `source` (tuples of numpy arrays) as tuples of tensors on
     `device`, staged `depth` ahead in a background thread. An exception
     in the thread re-raises at the consuming `next()`. `wait_s` sums the
-    time `next()` waited for a batch."""
+    time `next()` waited for a batch. `transform`, when given, maps the
+    staged tuple of tensors to the tuple the consumer receives."""
 
     def __init__(self, source: Iterator[Sequence[np.ndarray]], device,
-                 depth: int = 2):
+                 depth: int = 2,
+                 transform: Optional[Callable[[tuple], tuple]] = None):
         self._source = source
+        self._transform = transform
         self._device = torch.device(device)
         self._cuda = self._device.type == "cuda"
         self._stream = (torch.cuda.Stream(self._device) if self._cuda
@@ -46,10 +54,17 @@ class DevicePrefetcher:
 
     def _stage(self, batch):
         if not self._cuda:
-            return tuple(torch.from_numpy(np.asarray(a)) for a in batch), None
+            out = tuple(torch.from_numpy(np.array(a)) for a in batch)
+            if self._transform:
+                out = tuple(self._transform(out))
+            return out, None
         with torch.cuda.stream(self._stream):
+            # pin_memory() copies synchronously: the card's copy reads the
+            # pinned copy, never the source's (possibly recycled) memory
             out = tuple(torch.from_numpy(np.asarray(a)).pin_memory().to(
                 self._device, non_blocking=True) for a in batch)
+            if self._transform:
+                out = tuple(self._transform(out))
             ready = torch.cuda.Event()
             ready.record(self._stream)
         return out, ready
