@@ -93,7 +93,32 @@ Phases, in order; any failure exits non-zero:
      served in bf16 and int8 with the serving launch counts;
      `find_anchors` (k 2-4) on the planted boxes, and `evaluate_folders`
      of the served rows against them. One JSON line.
- 11. One JSON line of kernel results, then the last line
+ 11. Quantization-aware training at full width on phase 9's stores and
+     batch: the step at b16 in three modes (plain, `int8_train`, with
+     `int8_train_static`), timed in turns (CUDA events over 10 steps,
+     plain, dynamic, static, static, dynamic, plain), each mode's peak
+     memory, one profiled step each with the device time of
+     `torch._int_mm` and of the whole `ops/quant.py::int8_conv_sums`; on
+     one QAT forward of one image every STE conv's int32 sums on the
+     card equal the CPU's float64 sums of the same codes; 30 steps on one
+     batch whose loss must fall, in both QAT modes; `train.train_model`
+     with `--int8_train 1` and with `--int8_train 1 --int8_static 1` (two
+     epochs of 9 steps: one recalibration an epoch, every checkpointed
+     scale finite and > 0 under `calibrate`'s keys, the export's flags
+     cleared), each export served bf16 and int8 with the serving phases'
+     launch counts; one f32 QAT step's gradients on the card within 2e-3
+     of the CPU's at 64 px. One JSON line.
+ 12. The quality gates, tests/test_quality_e2e.py's closed loop on the
+     card (`GATE`): 8 planted squares at 64 px, 1 block, 512 filters (the
+     card's int8 kernels take channel counts in multiples of 16), 1000
+     steps at peak lr 5e-3 under scripts/quality_gate_512.py's warm-up
+     and decay, f32, in each of `bf16_train`, `int8_ste_train` and
+     `int8_static_train` (its scales recalibrated every 250 steps), one
+     process each, side by side; the
+     loss under 0.5, then the export served through
+     `inference.inference` in bf16 and with `--int8` and scored by
+     `evaluate_folders`: mAP@0.5 >= 0.9 on both. One JSON line.
+ 13. One JSON line of kernel results, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 A kernel's `ms` is device time: `device_ms` captures 20 calls in a CUDA
@@ -198,6 +223,23 @@ FEED_RAW_ATOL = 8 * 2.0 ** -15
 # the CPU parity tests' bound on a gradient leaf against JAX, relative to
 # the leaf's largest |g| (tests/test_torch_train_step.py)
 GRAD_BOUND = 2e-3
+# phase 11: the train step's modes, timed in turns at FULL, b16
+QAT_MODES = {"plain": {}, "dynamic": {"int8_train": True},
+             "static": {"int8_train": True, "int8_train_static": True}}
+# phase 12: tests/test_quality_e2e.py's recipe (8 planted 24 px squares in
+# 64 px images, 1 block, one batch, 1000 steps at lr 5e-3, f32, the static
+# scales recalibrated every 250 steps, mAP@0.5 >= 0.9 served bf16 and
+# int8) at 512 filters: the card's int8 kernels take channel counts in
+# multiples of 16 (the stem's fc / 32). There the reference's constant lr
+# leaves the QAT modes' loss at 0.45-0.63, so the lr follows
+# scripts/quality_gate_512.py's warm-up and decay (`schedule`: its
+# 8000-step warmup 300, decay 2500-6000, scaled to 1000 steps)
+GATE = dict(size=64, box=24, images=8, steps=1000, lr=5e-3,
+            schedule=(38, 312, 750), recalibrate=250, filter_count=512,
+            min_box_size=8, min_map=0.9, max_loss=0.5)
+GATE_MODES = {"bf16_train": {}, "int8_ste_train": {"int8_train": True},
+              "int8_static_train": {"int8_train": True,
+                                    "int8_train_static": True}}
 # the tiled CLI phase: a seeded image of 2048 x 1536, 512 px tiles with 96
 # px ghost zones (35 tiles: 4 batches of 8 and one of 3)
 TILED_IMAGE = (2048, 1536, 3)
@@ -396,9 +438,11 @@ def phase_serving(torch, ckpt, inf, build, ModelConfig, InferenceConfig,
 
 
 def phase_profile(torch, serve, images, reps=3, top=15,
-                  what="serving calls"):
+                  what="serving calls", ops=()):
     """Device time by kernel over `reps` serving calls (torch.profiler),
-    and the device's busy share of the window's wall time."""
+    and the device's busy share of the window's wall time; with `ops`,
+    also the device time of the kernels each named host op (or
+    `record_function` span) launched, per call."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     # acc_events: keep every call's events (the profiler may otherwise
@@ -409,20 +453,36 @@ def phase_profile(torch, serve, images, reps=3, top=15,
             serve(images)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+    # a `record_function` span also appears as a CUDA-typed annotation
+    # whose time covers its kernels and the gaps between them: not a
+    # device op, and left out of the sums
+    cuda, cpu = (torch.autograd.DeviceType.CUDA,
+                 torch.autograd.DeviceType.CPU)
+    events = [e for e in prof.key_averages() if e.device_type == cuda
+              and not getattr(e, "is_user_annotation", False)
+              and e.key not in ops]
     total = sum(e.self_device_time_total for e in events) / 1e3
-    ops = sum(e.count for e in events) / reps
+    n_ops = sum(e.count for e in events) / reps
     log(f"profile {reps} {what}: wall {wall_ms:.3f} ms, device busy "
-        f"{total:.3f} ms ({100 * total / wall_ms:.1f}%), {ops:.0f} device "
+        f"{total:.3f} ms ({100 * total / wall_ms:.1f}%), {n_ops:.0f} device "
         f"ops per call")
     rows = []
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
         ms = e.self_device_time_total / 1e3 / reps
         rows.append({"name": e.key, "ms_per_call": ms, "count": e.count / reps})
         log(f"profile  {ms:9.4f} ms/call  x{e.count / reps:6.1f}  {e.key[:90]}")
-    return {"wall_ms": wall_ms / reps, "device_ms": total / reps,
-            "device_ops_per_call": ops, "top": rows}
+    out = {"wall_ms": wall_ms / reps, "device_ms": total / reps,
+           "device_ops_per_call": n_ops, "top": rows}
+    if ops:
+        # the host op's (or span's) own entry: the kernels launched under
+        # it, its children's included
+        spans = {e.key: e for e in prof.key_averages()
+                 if e.key in ops and e.device_type == cpu}
+        out["op_device_ms"] = {
+            name: getattr(spans[name], "device_time_total", 0.0) / 1e3 / reps
+            if name in spans else 0.0 for name in ops}
+        log(f"profile  op device ms per call: {out['op_device_ms']}")
+    return out
 
 
 def phase_pointwise(torch, calls):
@@ -1564,11 +1624,12 @@ def phase_train_step(torch, ModelConfig, batch, card):
     return out, learn
 
 
-def phase_trainer(torch, workdir, card):
-    """`train.train_model` on the planted store, end to end."""
+def phase_trainer(torch, workdir, card, overrides=None, name="train_out"):
+    """`train.train_model` on the planted store, end to end, with the 1x1
+    kernel and the model `overrides` (QAT's flags)."""
     from yolov3_tpu_torch import train
     from yolov3_tpu_torch.utils import checkpoint as ckpt
-    out_dir = os.path.join(workdir, "train_out")
+    out_dir = os.path.join(workdir, name)
     report = {}
     t0 = time.perf_counter()
     export = train.train_model(
@@ -1576,15 +1637,15 @@ def phase_trainer(torch, workdir, card):
         os.path.join(workdir, "test.ydb"), out_dir, early_stopping_count=10,
         learning_rate=1e-4, use_augmentation=True, anchors=FULL["anchors"],
         seed=SEED, max_epochs=TRAIN_EPOCHS, compute_dtype="bfloat16",
-        model_overrides={"use_pallas_pointwise": True}, device=DEVICE,
-        report=report)
+        model_overrides=dict(overrides or {}, use_pallas_pointwise=True),
+        device=DEVICE, report=report)
     wall = time.perf_counter() - t0
     with open(os.path.join(out_dir, "test_loss.csv")) as fh:
         test_loss = [float(v) for v in fh if v.strip()]
     out = {"card": card, "wall_s": wall, "train_steps": report["train_steps"],
            "steps_per_s_with_feed": report["train_steps"] / report["train_s"],
            "feed_wait_share": report["feed_wait_s"] / report["train_s"],
-           "test_loss": test_loss,
+           "test_loss": test_loss, "recalibrations": report["recalibrations"],
            "checkpoint": ckpt.has_checkpoint(out_dir),
            "export": export is not None and os.path.exists(
                os.path.join(export, ckpt.WEIGHTS_FILE))}
@@ -1636,9 +1697,10 @@ def phase_train_served(torch, inf, TQ, build, export, workdir, card):
     return out
 
 
-def phase_train_reference(torch, ModelConfig, card):
+def phase_train_reference(torch, ModelConfig, card, **overrides):
     """One f32 train-step's gradients at 64 px on the card against the
-    CPU's, the same seeded weights and batch, TF32 off."""
+    CPU's, the same seeded weights and batch, TF32 off; `overrides` (QAT's
+    flags) on the model config."""
     import numpy as np
     from yolov3_tpu_torch.config import TrainConfig
     from yolov3_tpu_torch.data.encoder import encode_boxes
@@ -1646,7 +1708,7 @@ def phase_train_reference(torch, ModelConfig, card):
     cfg = ModelConfig(**dict(FULL, img_size=(64, 64, 3), block_count=1,
                              filter_count=32, compute_dtype="float32",
                              anchors=((16, 16), (32, 32)),
-                             use_pallas_pointwise=False))
+                             use_pallas_pointwise=False, **overrides))
     rng = np.random.default_rng(SEED)
     images = rng.standard_normal((2, 64, 64, 3), dtype=np.float32)
     grids = [encode_boxes(np.array([[8 + 20 * b, 8, 20, 24, b],
@@ -1665,12 +1727,17 @@ def phase_train_reference(torch, ModelConfig, card):
     worst = max(float((grads[1][n] - g).abs().max() / g.abs().max())
                 for n, g in grads[0].items())
     out = {"card": card, "loss_cpu": losses[0], "loss_card": losses[1],
-           "worst_grad_err_rel_leaf_max": worst, "bound": GRAD_BOUND}
-    log(f"f32 train step 64px card vs CPU: loss {losses[1]} vs {losses[0]}, "
+           "worst_grad_err_rel_leaf_max": worst, "bound": GRAD_BOUND,
+           "overrides": overrides}
+    log(f"f32 train step 64px {overrides} card vs CPU: loss {losses[1]} vs "
+        f"{losses[0]}, "
         f"worst gradient leaf error {worst:.3e} of its largest |g| (bound "
         f"{GRAD_BOUND})")
+    # QAT's loss: the CPU tests' 1e-4 (a code on a .5 boundary may round
+    # either way)
+    loss_rtol = 1e-4 if overrides else 1e-5
     if not (worst <= GRAD_BOUND
-            and abs(losses[1] - losses[0]) <= 1e-5 * abs(losses[0])):
+            and abs(losses[1] - losses[0]) <= loss_rtol * abs(losses[0])):
         raise AssertionError(f"card gradients disagree with the CPU: {out}")
     return out
 
@@ -1696,6 +1763,260 @@ def phase_training(torch, inf, TQ, build, ModelConfig, workdir, card):
     log(f"training phase took {time.perf_counter() - t0:.1f} s")
     return lines
 
+
+def qat_state(torch, TQ, cfg, tcfg, images):
+    """A fresh train state; under static QAT its scales calibrated on
+    `images` (as the trainer does at an epoch's start)."""
+    from yolov3_tpu_torch.parallel.train_step import create_train_state
+    state = create_train_state(cfg, tcfg, SEED, DEVICE)
+    if cfg.int8_train and cfg.int8_train_static:
+        TQ.qat_recalibrator(cfg, DEVICE)(state.model, images)
+    return state
+
+
+def phase_qat_steps(torch, TQ, ModelConfig, batch, card):
+    """The train step at FULL, b16, in the three modes: each mode's peak
+    memory over what was allocated before its state (3 warm-up steps),
+    ms/step by CUDA events over 10 steps, in turns (plain, dynamic,
+    static, static, dynamic, plain), and one profiled step, with the
+    device time of `torch._int_mm` and of the whole `int8_conv_sums`
+    (the im2col with it)."""
+    from yolov3_tpu_torch.config import TrainConfig
+    from yolov3_tpu_torch.ops import quant
+    from yolov3_tpu_torch.parallel.train_step import make_train_step
+    tcfg = TrainConfig(batch_size=TRAIN_BATCH)
+    lr = tcfg.learning_rate
+    runs, out = {}, {}
+    for mode, kw in QAT_MODES.items():
+        cfg = ModelConfig(**dict(FULL, **kw))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        state = qat_state(torch, TQ, cfg, tcfg, batch[0])
+        step = make_train_step(cfg, tcfg, TRAIN_BATCH)
+        for _ in range(3):
+            step(state, batch, lr)
+        torch.cuda.synchronize()
+        runs[mode] = (state, step)
+        out[mode] = {"peak_bytes": torch.cuda.max_memory_allocated() - base}
+    times = {mode: [] for mode in QAT_MODES}
+    for mode in list(QAT_MODES) + list(QAT_MODES)[::-1]:
+        state, step = runs[mode]
+        times[mode].append(cuda_ms(lambda: step(state, batch, lr), 10,
+                                   warmup=1))
+    orig = quant.int8_conv_sums
+
+    def spanned(*args):
+        with torch.profiler.record_function("int8_conv_sums"):
+            return orig(*args)
+    quant.int8_conv_sums = spanned
+    try:
+        for mode, (state, step) in runs.items():
+            ms = sum(times[mode]) / len(times[mode])
+            prof = phase_profile(torch, lambda _: step(state, batch, lr),
+                                 None, reps=1, what=f"{mode} train steps",
+                                 ops=("aten::_int_mm", "int8_conv_sums"))
+            out[mode].update(ms_per_step=ms, ms_turns=times[mode],
+                             images_per_s=TRAIN_BATCH / (ms * 1e-3),
+                             profile=prof)
+            log(f"train step {mode} b{TRAIN_BATCH} 512px bf16: {ms:.3f} "
+                f"ms/step (turns {[round(t, 3) for t in times[mode]]}), "
+                f"peak {out[mode]['peak_bytes'] / 2**30:.2f} GiB over "
+                f"what was allocated before its state, on {card}")
+    finally:
+        quant.int8_conv_sums = orig
+    del runs
+    return dict(out, card=card, batch=TRAIN_BATCH)
+
+
+def phase_qat_sums(torch, TQ, ModelConfig, batch):
+    """One QAT train forward at FULL on one image: every STE conv's int32
+    sums on the card (recorded at `ops/quant.py::int8_conv_sums`) equal
+    the CPU's float64 sums of the same codes."""
+    from yolov3_tpu_torch.config import TrainConfig
+    from yolov3_tpu_torch.models.yolo import ConvBlock
+    from yolov3_tpu_torch.ops import quant
+    cfg = ModelConfig(**dict(FULL, int8_train=True))
+    state = qat_state(torch, TQ, cfg, TrainConfig(), None)
+    calls, orig = [], quant.int8_conv_sums
+
+    def recorded(q_x, q_w, stride):
+        sums = orig(q_x, q_w, stride)
+        calls.append((q_x.cpu(), q_w.cpu(), stride, sums.cpu()))
+        return sums
+    quant.int8_conv_sums = recorded
+    try:
+        with torch.no_grad():
+            state.model(batch[0][:1])
+    finally:
+        quant.int8_conv_sums = orig
+    want = sum(1 for m in state.model.modules()
+               if isinstance(m, ConvBlock) and m.int8_ste)
+    del state
+    t0 = time.perf_counter()
+    differ = [i for i, (q_x, q_w, stride, sums) in enumerate(calls)
+              if not torch.equal(orig(q_x, q_w, stride), sums)]
+    out = {"convs": len(calls), "ste_blocks": want, "differ": differ,
+           "largest_abs_sum": max(int(c[3].abs().max()) for c in calls),
+           "cpu_s": time.perf_counter() - t0}
+    log(f"QAT int32 sums, one 512px image: {len(calls)} STE convs on the "
+        f"card against the CPU's float64 sums, {len(differ)} differ "
+        f"(largest |sum| {out['largest_abs_sum']}; CPU "
+        f"{out['cpu_s']:.1f} s)")
+    if differ or len(calls) != want:
+        raise AssertionError(f"QAT sums: card and CPU disagree: {out}")
+    return out
+
+
+def phase_qat_learns(torch, TQ, ModelConfig, batch, card):
+    """30 QAT steps on one batch at lr 1e-4 in each QAT mode (static:
+    calibrated first): the loss finite and falling."""
+    from yolov3_tpu_torch.config import TrainConfig
+    from yolov3_tpu_torch.parallel.train_step import make_train_step
+    tcfg = TrainConfig(batch_size=TRAIN_BATCH)
+    out = {"card": card, "lr": 1e-4}
+    for mode in ("dynamic", "static"):
+        cfg = ModelConfig(**dict(FULL, **QAT_MODES[mode]))
+        state = qat_state(torch, TQ, cfg, tcfg, batch[0])
+        step = make_train_step(cfg, tcfg, TRAIN_BATCH)
+        losses = [float(step(state, batch, 1e-4)[1]["loss"])
+                  for _ in range(30)]
+        del state
+        out[mode] = {i: losses[i] for i in (0, 10, 20, 29)}
+        log(f"QAT {mode} 30 steps on one batch: loss {out[mode]}")
+        if not (all(math.isfinite(v) for v in losses)
+                and losses[29] < losses[0]):
+            raise AssertionError(f"QAT {mode}: the loss did not fall: "
+                                 f"{losses}")
+    return out
+
+
+def phase_qat_trainer(torch, inf, TQ, build, workdir, card):
+    """`train.train_model` with --int8_train 1, and with --int8_train 1
+    --int8_static 1, two epochs of 9 steps each on phase 9's stores: one
+    recalibration an epoch (static), every checkpointed scale finite and
+    > 0 under `calibrate`'s keys, the export's config with both flags
+    cleared, the export served bf16 and int8 with the serving launch
+    counts."""
+    import numpy as np
+    from yolov3_tpu_torch.utils import checkpoint as ckpt
+    out = {}
+    for mode in ("dynamic", "static"):
+        static = mode == "static"
+        export, run = phase_trainer(torch, workdir, card, QAT_MODES[mode],
+                                    name=f"qat_{mode}_out")
+        saved = ckpt._load_checkpoint(os.path.dirname(export), "cpu")
+        scales = {ckpt.flax_module_path(k.rsplit(".", 1)[0]): float(v)
+                  for k, v in saved["model"].items()
+                  if k.endswith(".act_scale")}
+        _, _, cfg = ckpt.load_model(export)
+        keys = {name for name, _ in TQ.QuantizedYoloV3(
+            cfg, kernels={}).conv_blocks()}
+        run.update(scales=len(scales),
+                   scale_range=[min(scales.values()), max(scales.values())]
+                   if scales else None,
+                   export_flags=[cfg.int8_train, cfg.int8_train_static])
+        log(f"QAT trainer {mode}: {run['recalibrations']} recalibrations, "
+            f"{len(scales)} scales in the checkpoint "
+            f"{run['scale_range']}, export flags {run['export_flags']}")
+        ok = (run["recalibrations"] == (TRAIN_EPOCHS if static else 0)
+              and bool(scales) == static and set(scales) <= keys
+              and all(np.isfinite(v) and v > 0 for v in scales.values())
+              and not (cfg.int8_train or cfg.int8_train_static))
+        if not ok:
+            raise AssertionError(f"QAT trainer {mode}: {run}")
+        run["export_served"] = phase_train_served(torch, inf, TQ, build,
+                                                  export, workdir, card)
+        out[mode] = run
+    return out
+
+
+def phase_qat(torch, inf, TQ, build, ModelConfig, workdir, card):
+    """Phase 11: quantization-aware training at full width on phase 9's
+    stores; one JSON line."""
+    t0 = time.perf_counter()
+    _, batch = store_examples(os.path.join(workdir, "train.ydb"),
+                              TRAIN_BATCH, FULL["anchors"])
+    batch = [torch.from_numpy(a).to(DEVICE) for a in batch]
+    out = {"steps": phase_qat_steps(torch, TQ, ModelConfig, batch, card)}
+    torch.cuda.empty_cache()
+    out["sums"] = phase_qat_sums(torch, TQ, ModelConfig, batch)
+    out["learns"] = phase_qat_learns(torch, TQ, ModelConfig, batch, card)
+    del batch
+    torch.cuda.empty_cache()
+    out["trainer"] = phase_qat_trainer(torch, inf, TQ, build, workdir, card)
+    out["card_vs_cpu"] = phase_train_reference(torch, ModelConfig, card,
+                                               int8_train=True)
+    log(f"QAT phase took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def gate_run(mode, workdir):
+    """One training mode of phase 12 in a process of its own (the step
+    is host-bound, so the modes run side by side): plant, overfit, serve,
+    score. Returns its record."""
+    import numpy as np
+    import torch
+    from yolov3_tpu_torch.config import ModelConfig
+    from yolov3_tpu_torch.quality_gate_512 import (lr_schedule, overfit,
+                                                   plant_dataset,
+                                                   serve_and_score)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(1)
+    g = GATE
+    t0 = time.perf_counter()
+    d = os.path.join(workdir, f"gate_{mode}")
+    img_dir, gt_dir, images, gts = plant_dataset(
+        d, g["images"], g["size"], g["box"], np.random.RandomState(42))
+    cfg = ModelConfig(img_size=(g["size"], g["size"], 3), number_classes=1,
+                      anchors=((24, 24), (12, 12)), block_count=1,
+                      filter_count=g["filter_count"], compute_dtype="float32",
+                      **GATE_MODES[mode])
+    lr_at = lr_schedule(g["lr"], *g["schedule"])
+    state, final, logged = overfit(cfg, images, gts, g["steps"], lr_at,
+                                   DEVICE, recalibrate_every=g["recalibrate"],
+                                   log_every=250)
+    train_s = time.perf_counter() - t0
+    maps = serve_and_score(state, cfg, img_dir, gt_dir, d, g["min_box_size"],
+                           g["images"], DEVICE)
+    out = {"final_loss": final, "loss_at": logged, "mAP_bf16": maps["bf16"],
+           "mAP_int8": maps["int8"], "train_s": train_s}
+    log(f"gate {mode}: final loss {final:.4f} after {g['steps']} steps "
+        f"({train_s:.1f} s), mAP@0.5 bf16 {maps['bf16']:.4f}, int8 "
+        f"{maps['int8']:.4f}")
+    return out
+
+
+def phase_gates(workdir, card):
+    """Phase 12: tests/test_quality_e2e.py's closed loop on the card in
+    its three training modes (`GATE`), one process each, side by side:
+    the loss under 0.5, then the export served through
+    `inference.inference` in bf16 and with `--int8` (the card's default
+    kernel set) and scored by `evaluate_folders`: mAP@0.5 >= 0.9 on both.
+    Every mode runs before a failure is raised."""
+    import concurrent.futures
+    import multiprocessing
+    g = GATE
+    out, failed = {"card": card, "recipe": dict(g)}, []
+    t0 = time.perf_counter()
+    with concurrent.futures.ProcessPoolExecutor(
+            len(GATE_MODES),
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        runs = {mode: pool.submit(gate_run, mode, workdir)
+                for mode in GATE_MODES}
+        for mode, run in runs.items():
+            out[mode] = run.result()
+            if not (out[mode]["final_loss"] < g["max_loss"]
+                    and min(out[mode]["mAP_bf16"],
+                            out[mode]["mAP_int8"]) >= g["min_map"]):
+                failed.append(mode)
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"quality gates took {out['wall_s']:.1f} s")
+    print(json.dumps({"quality_gates": out}), flush=True)
+    if failed:
+        raise AssertionError(f"quality gates failed: {failed}: {out}")
+    return out
 
 def raw_batch(path, n):
     """The first `n` records of a store as the raw feed carries them:
@@ -2025,6 +2346,11 @@ def main(argv=None) -> int:
         training["device_feed"] = phase_device_feed(
             torch, inf, TQ, build, workdir, smi, training["trainer"])
         result["device_feed"] = training["device_feed"]
+        torch.cuda.empty_cache()
+        training["qat"] = result["qat"] = phase_qat(
+            torch, inf, TQ, build, ModelConfig, workdir, smi)
+        torch.cuda.empty_cache()
+        result["quality_gates"] = phase_gates(workdir, smi)
     result["pointwise_calls"] = pw_rows
     result["nms_cases"] = nms_rows
     result["greedy_cases"] = greedy_rows

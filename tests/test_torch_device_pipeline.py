@@ -297,18 +297,29 @@ def test_encode_labels_matches_jax(case):
 
 @pytest.mark.parametrize("augment", [True, False])
 def test_preprocess_batch_matches_jax(augment):
+    check_preprocess_batch(SIZE, augment)
+
+
+@pytest.mark.parametrize("size", [(64, 96, 3), (96, 64, 3)])
+@pytest.mark.parametrize("augment", [True, False])
+def test_preprocess_batch_nonsquare_matches_jax(size, augment):
+    """H != W (tests/test_nonsquare.py), at the bounds above."""
+    check_preprocess_batch(size, augment)
+
+
+def check_preprocess_batch(size, augment):
     rng = np.random.default_rng(8)
-    images = rng.integers(0, 256, (4, *SIZE), dtype=np.uint8)
-    boxes, valid = random_boxes(rng, 4, 12)
+    images = rng.integers(0, 256, (4, *size), dtype=np.uint8)
+    boxes, valid = random_boxes(rng, 4, 12, size=min(size[:2]))
     key = jax.random.PRNGKey(8)
     want = J.preprocess_batch(jnp.asarray(images), jnp.asarray(boxes),
                               jnp.asarray(valid), key, JAugmentConfig(),
-                              SIZE, ANCHORS, 2, use_augmentation=augment)
-    draws = jax_draws(key, 4, SIZE, M, AugmentConfig()) if augment else None
+                              size, ANCHORS, 2, use_augmentation=augment)
+    draws = jax_draws(key, 4, size, M, AugmentConfig()) if augment else None
     got = T.preprocess_batch(torch.from_numpy(images),
                              torch.from_numpy(boxes),
                              torch.from_numpy(valid), None, AugmentConfig(),
-                             SIZE, ANCHORS, 2, use_augmentation=augment,
+                             size, ANCHORS, 2, use_augmentation=augment,
                              draws=draws)
     for g, w in zip(got[1:], want[1:]):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))

@@ -27,30 +27,33 @@ ANCHORS = ((16, 16), (32, 32))
 STRIDES = (32, 16, 8)
 
 
-def make_inputs(seed, kind, batch=3):
+def make_inputs(seed, kind, batch=3, img=IMG):
     """Feature maps [B, gh, gw, A*(5+C)] and label grids [B, gh, gw, A,
-    5+C]: `empty` has no boxes (V = 0), `anchors` boxes that select
-    every anchor, `random` random boxes (with exact-zero logits and
-    underflowing wh logits planted in the feature maps)."""
+    5+C] for images of `img` (H, W, C): `empty` has no boxes (V = 0),
+    `anchors` boxes that select every anchor, `random` random boxes (with
+    exact-zero logits and underflowing wh logits planted in the feature
+    maps)."""
     rng = np.random.RandomState(seed)
-    fms = [rng.randn(batch, 64 // s, 64 // s, len(ANCHORS) * (5 + NCLS))
+    h, w = img[0], img[1]
+    fms = [rng.randn(batch, h // s, w // s, len(ANCHORS) * (5 + NCLS))
            .astype(np.float32) * 1.5 for s in STRIDES]
     grids = [[], [], []]
     for b in range(batch):
         if kind == "empty":
             boxes = np.zeros((0, 5), np.int32)
         elif kind == "anchors":
-            boxes = np.array([[rng.randint(0, 40), rng.randint(0, 40),
+            boxes = np.array([[rng.randint(0, w - 24), rng.randint(0, h - 24),
                                aw + rng.randint(-2, 3),
                                ah + rng.randint(-2, 3), i % NCLS]
                               for i, (aw, ah) in enumerate(ANCHORS)],
                              np.int32)
         else:
             n = rng.randint(1, 5)
-            boxes = np.stack([rng.randint(0, 48, n), rng.randint(0, 48, n),
+            boxes = np.stack([rng.randint(0, w - 16, n),
+                              rng.randint(0, h - 16, n),
                               rng.randint(6, 40, n), rng.randint(6, 40, n),
                               rng.randint(0, NCLS, n)], 1).astype(np.int32)
-        for g, grid in zip(grids, j_encode_boxes(boxes, IMG, ANCHORS, NCLS)):
+        for g, grid in zip(grids, j_encode_boxes(boxes, img, ANCHORS, NCLS)):
             g.append(grid)
     grids = [np.stack(g) for g in grids]
     if kind == "random":
@@ -101,6 +104,57 @@ def test_loss_gradients_match_jax(seed, kind):
         assert scale > 0
         np.testing.assert_allclose(t.grad.numpy(), w, rtol=0,
                                    atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("img", [(64, 96, 3), (96, 64, 3)])
+@pytest.mark.parametrize("kind", ["random", "anchors"])
+def test_nonsquare_loss_and_gradients_match_jax(img, kind):
+    """H != W (tests/test_nonsquare.py): the components and the gradients
+    at the bounds above."""
+    fms, grids = make_inputs(0, kind, img=img)
+    want = jax_loss(fms, grids)
+    want_g = jax_loss_grad(fms, grids)
+    ts = [torch.from_numpy(f).requires_grad_() for f in fms]
+    got = tloss.compute_loss(ts, [torch.from_numpy(g) for g in grids],
+                             ANCHORS, NCLS, STRIDES)
+    for name, g, w in zip(want._fields, got, want):
+        np.testing.assert_allclose(float(g), float(w), rtol=1e-5,
+                                   err_msg=name)
+    got.total.backward()
+    for t, w in zip(ts, want_g):
+        w = np.asarray(w)
+        np.testing.assert_allclose(t.grad.numpy(), w, rtol=0,
+                                   atol=1e-5 * np.abs(w).max())
+
+
+def test_wh_overflow_gives_finite_gradients():
+    """wh logits past the f32 exp's overflow (89, 100), in a cell with an
+    object and in one without: the port's loss equals JAX's, and where
+    JAX's gradients are finite the port's are the same; JAX's backward
+    meets 0 * inf and gives NaN, the port's (`WH_LOGIT_MAX`) 0 there."""
+    fms, grids = make_inputs(0, "random")
+    obj = np.argwhere(grids[0][..., 4] > 0)[0]
+    cell = tuple(obj[:3])
+    a = int(obj[3])
+    fms[0][cell + (a * 7 + 2,)] = 89.0       # the object's w
+    fms[0][0, 1, 1, 3] = 100.0               # a cell without an object
+    want = jax_loss(fms, grids)
+    want_g = jax_loss_grad(fms, grids)
+    ts = [torch.from_numpy(f).requires_grad_() for f in fms]
+    got = tloss.compute_loss(ts, [torch.from_numpy(g) for g in grids],
+                             ANCHORS, NCLS, STRIDES)
+    for name, g, w in zip(want._fields, got, want):
+        np.testing.assert_allclose(float(g), float(w), rtol=1e-5,
+                                   err_msg=name)
+    got.total.backward()
+    assert not np.isfinite(np.asarray(want_g[0])).all()
+    for t, w in zip(ts, want_g):
+        g, w = t.grad.numpy(), np.asarray(w)
+        assert np.isfinite(g).all()
+        ok = np.isfinite(w)
+        np.testing.assert_allclose(g[ok], w[ok], rtol=0,
+                                   atol=1e-5 * np.abs(w[ok]).max())
+        assert (g[~ok] == 0).all()
 
 
 @pytest.mark.parametrize("fn", ["clip", "sigmoid_ce"])

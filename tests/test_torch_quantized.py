@@ -91,6 +91,36 @@ def test_int8_matches_jax_kernels():
         assert d.mean() <= 0.02 * w.std() + 1e-7
 
 
+@pytest.mark.parametrize("skip", ["Darknet53_0/FeatureBlock_1/ConvBlock_1",
+                                  "Darknet53_0/FeatureBlock_2/ConvBlock_0",
+                                  "YoloBlock_1/ConvBlock_3"])
+def test_quant_skip_any_conv_matches_jax(skip):
+    """`quant_skip` takes any conv block, as the reference's does
+    (quantized.py:113, 150, 166-167, 494, 577, 618): the block runs the
+    bf16 path and its neighbours stop chaining s8 into and out of it;
+    against JAX's wiring with the same skip, at the bound above."""
+    cfg, jcfg, p, s, x = setup(block_count=2, filter_count=32)
+    scales = Q.calibrate(p, s, jcfg, x)
+    skips = TQ.DEFAULT_QUANT_SKIP + (skip,)
+    model = TQ.build_quantized_model(p, s, cfg, "cpu", scales,
+                                     quant_skip=skips)
+    blocks = dict(model.conv_blocks())
+    assert not blocks[skip].q_int8
+    assert not any(b.q_int8 and b.q_emits_s8 and b.q_inv_next == 0.0
+                   for b in blocks.values())
+    got = port_maps(model, x)
+    want = Q.forward_feature_maps(p, s, jcfg, x, act_scales=scales,
+                                  quant_skip=skips, fused_interpret=True,
+                                  **KERNELS)
+    plain = port_maps(TQ.build_quantized_model(p, s, cfg, "cpu", scales), x)
+    assert any(np.abs(g - q).max() > 0 for g, q in zip(got, plain))
+    for g, w in zip(got, want):
+        w = np.asarray(w, np.float32)
+        d = np.abs(g - w)
+        assert d.max() <= 0.15 * w.std() + 1e-6, (d.max(), w.std())
+        assert d.mean() <= 0.02 * w.std() + 1e-7
+
+
 @pytest.mark.parametrize("s2d,dtype", [(False, "float32"),
                                        (False, "bfloat16"),
                                        (True, "float32")])

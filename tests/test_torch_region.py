@@ -341,8 +341,10 @@ def test_ineligible_routes():
         p, s, dataclasses.replace(cfg, stem_space_to_depth=False), "cpu",
         scales)
     assert plain.region_route(64, 64, CUDA_SET) == "blocks"
-    with pytest.raises(NotImplementedError):
-        port_model(quant_skip=(f"{D}/FeatureBlock_0/ConvBlock_0",))
+    # a bf16 block inside the region: every fused route needs it int8
+    model, _ = port_model(quant_skip=(f"{D}/FeatureBlock_0/ConvBlock_0",))
+    assert model.region_route(64, 64, dict(CUDA_SET,
+                                           region_pallas=True)) == "blocks"
 
 
 @pytest.mark.parametrize("c1,c,cm,co,region,tile,total", [

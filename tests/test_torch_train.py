@@ -2,7 +2,8 @@
 CPU: a 64 px store written by the port's own `RecordWriter`, readers,
 the train and eval steps, `test_loss.csv`, the best-only checkpoint, the
 export, `--resume`, `--profile_dir`, the NaN tripwire and the flags of
-later slices (the device feed's flags: tests/test_torch_feed.py). The model is cut to block_count 1, filter_count 32 (the
+a later slice (the device feed's flags: tests/test_torch_feed.py; QAT's:
+tests/test_torch_qat.py). The model is cut to block_count 1, filter_count 32 (the
 CLI, like the JAX one, has no width flags: the tests narrow its
 `ModelConfig`). The export is served by the port's whole-image CLI.
 """
@@ -142,8 +143,7 @@ def test_nan_loss_raises(small, stores, monkeypatch, where):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--num_devices", "2"], ["--shard_optimizer", "1"],
-    ["--int8_train", "1"], ["--int8_static", "1"]])
+    ["--num_devices", "2"], ["--shard_optimizer", "1"]])
 def test_unported_flags_raise(stores, flag):
     with pytest.raises(NotImplementedError, match="not ported"):
         train.main(cli(stores, *flag))

@@ -37,6 +37,7 @@ from yolov3_tpu.config import ModelConfig as JConfig
 from yolov3_tpu.config import TrainConfig as JTrainConfig
 from yolov3_tpu.data.encoder import encode_boxes
 from yolov3_tpu.models.yolo import YoloV3 as JYoloV3
+from yolov3_tpu.ops.loss import compute_loss as j_compute_loss
 from yolov3_tpu.parallel import (make_eval_step as j_make_eval_step,
                                  make_mesh,
                                  make_train_step as j_make_train_step,
@@ -53,16 +54,21 @@ SMALL = dict(img_size=(64, 64, 3), number_classes=2,
              compute_dtype="float32")
 BATCH = 2
 LR = 1e-4
+# the leaves held to JAX's own spread at H != W, and that spread's cap,
+# relative to each leaf's largest |g| (test_nonsquare_step_matches_jax)
+SPREAD_LEAVES = ("params/Darknet53_0/ConvBlock_0/BatchNorm_0/scale",
+                 "params/Darknet53_0/FeatureBlock_0/ConvBlock_0/Conv_0/kernel")
+SPREAD_CAP = 1e-2
 
 
-def make_batch(seed=0):
+def make_batch(seed=0, h=64, w=64):
     rng = np.random.RandomState(seed)
-    images = rng.randn(BATCH, 64, 64, 3).astype(np.float32)
+    images = rng.randn(BATCH, h, w, 3).astype(np.float32)
     grids = [[], [], []]
     for b in range(BATCH):
         boxes = np.array([[8 + 20 * b, 8, 20, 24, b % 2],
                           [30, 34 - 10 * b, 28, 16, 1]], np.int32)
-        for g, grid in zip(grids, encode_boxes(boxes, SMALL["img_size"],
+        for g, grid in zip(grids, encode_boxes(boxes, (h, w, 3),
                                                SMALL["anchors"], 2)):
             g.append(grid)
     return (images, *[np.stack(g) for g in grids])
@@ -141,6 +147,61 @@ def test_gradients_match_jax(init, jax_grads):
         scale = np.abs(want[k]).max()
         np.testing.assert_allclose(got[k], want[k], rtol=0,
                                    atol=2e-3 * scale, err_msg=k)
+
+
+@pytest.mark.parametrize("hw", [(64, 96), (96, 64)])
+def test_nonsquare_step_matches_jax(init, hw):
+    """H != W (tests/test_nonsquare.py): one train-mode forward's feature
+    maps and BatchNorm statistics, the loss and the gradients against
+    JAX's, at the bounds above. Two leaves (`SPREAD_LEAVES`) are held to
+    the larger of 2e-3 and JAX's own spread when the batch's two images
+    are swapped (the same math, another summation order), and that spread
+    to at most `SPREAD_CAP`: stem1's BatchNorm scale, a one-channel
+    sum(dy * x_hat) that cancels to ~0.02, and the two-weight 1x1 kernel
+    fed by that channel (measured at 96x64, of each leaf's largest |g|:
+    the port 5.5e-3 and 2.03e-3, JAX's own spread 6.3e-3 and 3.7e-3)."""
+    params, stats = init
+    h, w = hw
+    jcfg = JConfig(**dict(SMALL, img_size=(h, w, 3)))
+    jmodel = JYoloV3(jcfg)
+    batch = make_batch(0, h, w)
+
+    def loss_fn(p, b):
+        fms, mutated = jmodel.apply({"params": p, "batch_stats": stats}, b[0],
+                                    train=True, mutable=["batch_stats"])
+        loss = j_compute_loss(fms, b[1:], jcfg.anchors, jcfg.number_classes,
+                              jcfg.strides).total / float(BATCH)
+        return loss, (fms, mutated["batch_stats"])
+
+    run = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
+    (want_loss, (want_fms, want_stats)), want = run(params, batch)
+    # JAX against itself with the batch's two images swapped
+    spread = flat(host(run(params, tuple(np.ascontiguousarray(a[::-1])
+                                         for a in batch))[1]), "params")
+    cfg, state = port_state(init, img_size=(h, w, 3))
+    b = to_torch(batch)
+    fms = state.model(b[0])
+    for g, wf in zip(fms, want_fms):
+        np.testing.assert_allclose(g.detach().numpy(), np.asarray(wf),
+                                   rtol=1e-4, atol=1e-4)
+    got_stats = flat(params_to_jax(state.model.state_dict())[1], "s")
+    for k, ws in flat(host(want_stats), "s").items():
+        np.testing.assert_allclose(got_stats[k], ws, rtol=1e-5, atol=1e-6,
+                                   err_msg=k)
+    loss = T.compute_loss(fms, b[1:], cfg.anchors, cfg.number_classes,
+                          cfg.strides).total / float(BATCH)
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(want_loss),
+                               rtol=1e-5)
+    got = port_grads(state.model)
+    for k, wg in flat(host(want), "params").items():
+        scale = np.abs(wg).max()
+        atol = 2e-3 * scale
+        if k in SPREAD_LEAVES:
+            own = np.abs(spread[k] - wg).max()
+            assert own <= SPREAD_CAP * scale, (own, scale)
+            atol = max(atol, own)
+        np.testing.assert_allclose(got[k], wg, rtol=0, atol=atol, err_msg=k)
 
 
 @pytest.mark.parametrize("steps", [1, 3])

@@ -7,17 +7,20 @@ package unchanged.
 
 Every field of the JAX config is accepted, including the TPU-only ones
 (`stem_space_to_depth`, `s2d_base_grads`, `stem1_im2row_grads`,
-`int8_train`, `int8_train_static`, `remat_blocks`). The float forward of
-this port ignores them: the space-to-depth stem is the same math as the
-plain stem laid out for the TPU's 128-wide lanes (one variable tree for
-both), and the two grad options change only how the TPU computes weight
-gradients. int8 post-training-quantized serving is ported
+`remat_blocks`). The float forward of this port ignores them: the
+space-to-depth stem is the same math as the plain stem laid out for the
+TPU's 128-wide lanes (one variable tree for both), and the two grad
+options change only how the TPU computes weight gradients.
+`remat_blocks` (recompute activations in the backward) is accepted and
+changes no math; multi-device training will take it through
+`torch.utils.checkpoint`. int8 post-training-quantized serving is ported
 (`models/quantized.py`, selected by the caller, not by the config); as in
 the reference, `stem_space_to_depth` is where its stem-region kernels
-apply (computed in the plain layout);
-`int8_train` and `int8_train_static` (quantization-aware training) and
-`remat_blocks` select training forwards that wait for later slices
-(`train.py` raises on the first two).
+apply (computed in the plain layout), and where stem1 stays bf16 under
+quantization-aware training. `int8_train` selects the QAT train forward
+(`models/yolo.py::int8_ste_conv`), and `int8_train_static`, with it, the
+frozen activation scales; without `int8_train` it changes nothing, as in
+the reference.
 
 `TrainConfig` and `AugmentConfig` are copies of the JAX package's, with
 its defaults. The TPU-only `packed_loss` (the lane-domain loss) and
@@ -72,11 +75,14 @@ class ModelConfig:
     use_pallas_pointwise: bool = False
     # reference-compatible channel-sum upsample (models/yolo.py upsample_2x)
     upsample_channel_sum: bool = False
-    # TPU training options; accepted and ignored by the inference forward
+    # TPU training options; the math is the plain stem's
     s2d_base_grads: Any = False
     stem1_im2row_grads: bool = False
+    # quantization-aware training (the train forward only): int8 forward,
+    # straight-through backward; static: frozen calibrated act scales
     int8_train: bool = False
     int8_train_static: bool = False
+    # accepted; the same math (recomputing activations is multi-device's)
     remat_blocks: bool = False
 
     def __post_init__(self):

@@ -1,7 +1,8 @@
 """Image I/O and normalization helpers (copy of `yolov3_tpu/data/imaging.py`).
 
 `imageio` is imported inside `imread`/`imwrite` only, so the serving path
-runs on hosts that have no imageio.
+runs on hosts that have no imageio; a `.npy` file is an image array read
+and written by numpy, with no codec.
 """
 
 from __future__ import annotations
@@ -21,11 +22,16 @@ def zscore_normalize(image_data: np.ndarray) -> np.ndarray:
 
 
 def imread(fp: str) -> np.ndarray:
+    if fp.endswith(".npy"):
+        return np.load(fp, allow_pickle=False)
     import imageio.v2 as iio
     return np.asarray(iio.imread(fp))
 
 
 def imwrite(img: np.ndarray, fp: str) -> None:
+    if fp.endswith(".npy"):
+        np.save(fp, img, allow_pickle=False)
+        return
     import imageio.v2 as iio
     iio.imwrite(fp, img)
 

@@ -8,7 +8,9 @@ code path:
 - bf16    (no scales): the reference's math, the folded epilogue
           `leaky(conv + b) * mul + add` in f32; the wiring oracle;
 - collect (inside `calibrate`): bf16 math while recording each conv
-          input's absmax, or its |activation| histogram;
+          input's absmax, or its |activation| histogram; with
+          `train_mode` each BatchNorm normalises with the batch's own
+          statistics (QAT's calibration), never moving the running ones;
 - int8    (after `set_act_scales`): per-output-channel symmetric weight
           scales, per-tensor activation scales, int8 x int8 -> int32 convs
           with the dequant, bias, LeakyReLU and affine BatchNorm folded
@@ -20,6 +22,11 @@ wrappers in `ops/kernels/`, which take their plain versions on the CPU),
 plus the stem region of the reference's kernel set (below):
 
 - stem1 (`Darknet53_0/ConvBlock_0`) stays bf16 (`DEFAULT_QUANT_SKIP`);
+  `quant_skip` may name any conv block, which then runs the bf16 path;
+  its neighbours neither emit s8 into it nor read s8 out of it, and a
+  feature block or YoloBlock holding one runs its convs one by one (the
+  reference's unfused route), as do the stem region's routes, which need
+  all their blocks int8;
 - each stride-2 block quantizes its bf16 input and emits the next feature
   block's s8 input (`down_conv_q`);
 - a feature block runs s8 in, s8 out: each rep's 1x1 on `pointwise_q`,
@@ -103,9 +110,6 @@ BF16 = torch.bfloat16
 
 # conv blocks that stay bf16 in the int8 path: stem1 (contraction 9 x 3)
 DEFAULT_QUANT_SKIP: Tuple[str, ...] = ("Darknet53_0/ConvBlock_0",)
-# the blocks `quant_skip` may name here: stem1 and the stride-2 blocks (the
-# port's feature blocks and YoloBlocks run int8 throughout)
-SKIPPABLE = tuple(f"Darknet53_0/ConvBlock_{i}" for i in range(6))
 
 _D = "Darknet53_0"
 STEM1, STEM2 = f"{_D}/ConvBlock_0", f"{_D}/ConvBlock_1"
@@ -174,17 +178,13 @@ class QuantizedYoloV3(YoloV3):
                  quant_skip: Tuple[str, ...] = DEFAULT_QUANT_SKIP):
         super().__init__(dataclasses.replace(config,
                                              use_pallas_pointwise=False))
-        bad = set(quant_skip) - set(SKIPPABLE)
-        if bad:
-            raise NotImplementedError(
-                f"quant_skip {sorted(bad)}: only stem1 and the stride-2 "
-                f"blocks may stay bf16 in the port's int8 wiring")
         self.alpha = config.leaky_relu_alpha
         self.act_scales = act_scales
         self.quant_skip = frozenset(quant_skip)
         self.kernels = None if kernels is None else check_kernels(kernels)
         self._collect: Optional[dict] = None
         self._hist = False
+        self._bn_batch = False
         self.register_load_state_dict_post_hook(lambda m, _: m.prepare())
         self.prepare()
 
@@ -241,13 +241,17 @@ class QuantizedYoloV3(YoloV3):
             folded[name] = epi
             blk.constant("q_wt", w_t.to(dev))
             blk.constant("q_epi", epi.to(dev))
-            blk.q_inv_in = quant.reciprocal(sx)
+            blk.q_scale, blk.q_inv_in = sx, quant.reciprocal(sx)
             nb = nxt.get(name)
+            if nb in self.quant_skip:  # a bf16 block takes no s8 input
+                nb = None
             blk.q_emits_s8 = nb is not None
             blk.q_inv_next = quant.reciprocal(f32(nb)) if nb else 0.0
             blk.q_res_scale = 0.0
-            if "/FeatureBlock_" in name and int(name.rsplit("_", 1)[1]) % 2:
-                blk.q_res_scale = f32(name.rsplit("/", 1)[0] + "/ConvBlock_0")
+            cb0 = name.rsplit("/", 1)[0] + "/ConvBlock_0"
+            if ("/FeatureBlock_" in name and int(name.rsplit("_", 1)[1]) % 2
+                    and cb0 not in self.quant_skip):
+                blk.q_res_scale = f32(cb0)
         self._prepare_region(folded, f32, stem1)
 
     def _prepare_region(self, folded: dict, f32, stem1) -> None:
@@ -268,12 +272,16 @@ class QuantizedYoloV3(YoloV3):
         tables = dict.fromkeys((
             "q_region_epi", "q_region_epi_img", "q_tail_epi", "q_exit_epi",
             "q_w_s1", "q_affine2_w_pw", "q_affine2_w_fb0", "q_affine2_w_ex"))
-        if EXIT in folded:
+        # every route past "blocks" runs FeatureBlock_0 on its kernels and
+        # emits FeatureBlock_1's s8 input
+        if (all(n in folded for n in (FB0_PW, FB0_C3, EXIT))
+                and FB1_IN not in self.quant_skip):
             tables["q_exit_epi"] = quant.exit_epi(folded[EXIT], f32(FB1_IN))
             tail = (folded[FB0_PW], folded[FB0_C3], folded[EXIT],
                     *(f32(n) for n in (FB0_PW, FB0_C3, EXIT, FB1_IN)))
             tables["q_tail_epi"] = quant.tail_epi(*tail)
-        if EXIT in folded and STEM2 in folded and flags.get("region_full"):
+        if (tables["q_tail_epi"] is not None and STEM2 in folded
+                and flags.get("region_full")):
             if affine2:
                 epi, signs = quant.region_epi_affine2(
                     folded[STEM2], *tail, alpha=self.alpha)
@@ -306,10 +314,23 @@ class QuantizedYoloV3(YoloV3):
                 [t.to(F32).abs().max() for t in tensors]).max()
 
     def _epilogue(self, blk: ConvBlock, y: torch.Tensor) -> torch.Tensor:
-        """bias -> LeakyReLU -> affine BN on an f32 conv output."""
+        """bias -> LeakyReLU -> affine BN on an f32 conv output; inside
+        `calibrate(train_mode=True)` the BN of the batch's own statistics
+        (quantized.py:278-300), the running ones left as they are."""
         y = y + blk.conv.bias.to(F32)
         y = torch.where(y >= 0, y, self.alpha * y)
+        if self._bn_batch:
+            mean = y.mean((0, 1, 2))
+            var = torch.square(y - mean).mean((0, 1, 2))
+            mul = torch.rsqrt(var + self.config.bn_epsilon) * blk.bn.weight
+            return (y * mul + (blk.bn.bias - mean * mul)).to(
+                self.config.dtype)
         return (y * blk.q_mul + blk.q_add).to(self.config.dtype)
+
+    def _dequantize(self, q: torch.Tensor, blk: ConvBlock) -> torch.Tensor:
+        """The image of s8 codes at `blk`'s input scale, in the compute
+        dtype (the residual of `_Ctx.block_input`)."""
+        return (q.to(F32) * np.float32(blk.q_scale)).to(self.config.dtype)
 
     def _kernel_kw(self, blk: ConvBlock, **kw) -> dict:
         return dict(inv_in=blk.q_inv_in, inv_next=blk.q_inv_next,
@@ -368,7 +389,7 @@ class QuantizedYoloV3(YoloV3):
         reps = len(convs) // 2
         if reps == 0:
             return x
-        if self.int8:
+        if self.int8 and all(c.q_int8 for c in convs):
             conv_in = x
             if x.dtype != torch.int8:  # requantize the block input
                 conv_in = quant.quantize_act(x, convs[0].q_inv_in)
@@ -383,7 +404,13 @@ class QuantizedYoloV3(YoloV3):
                                       emit_s8=not last,
                                       out_dtype=BF16 if last else None))
             return q
+        # one conv at a time (quantized.py:585-611); in int8 mode the
+        # residual adds the dequantized image of the s8 block input
         inputs = x
+        if x.dtype != torch.int8 and self.int8 and convs[0].q_int8:
+            x = quant.quantize_act(x, convs[0].q_inv_in)
+        if x.dtype == torch.int8:
+            inputs = self._dequantize(x, convs[0])
         for r in range(reps):
             y = self._conv_block(convs[2 * r], x)
             x = inputs + self._conv_block(convs[2 * r + 1], y)
@@ -396,7 +423,7 @@ class QuantizedYoloV3(YoloV3):
         if x2 is not None:
             x = self._conv_block_cat2(c[0], x, x2)
             start = 1
-        if not self.int8:
+        if not (self.int8 and all(blk.q_int8 for blk in c[2:])):
             for blk in c[start:5]:
                 x = self._conv_block(blk, x)
             return x, self._conv_block(c[5], x)
@@ -457,23 +484,21 @@ class QuantizedYoloV3(YoloV3):
                 inv_in=None if rawimg else down1.q_inv_in,
                 w_s1=self.q_w_s1 if rawimg else None)
         q2 = self._down_block(down1, y)
+        if route == "blocks":
+            return self._down_block(
+                down2, self._feature_block(self.darknet.blocks[0], q2))
         if q2.dtype != torch.int8:  # stem2 stayed bf16
             q2 = quant.quantize_act(q2, pw.q_inv_in)
         if route == "tail":
             return s2d_tail_block_q(q2, pw.q_wt, c3.q_wt, down2.q_wt,
                                     self.q_tail_epi, alpha=self.alpha,
                                     cast_bf16=cast)
-        if route == "exit":
-            q4 = conv3x3_block_q(
-                self._pw_block(pw, q2), c3.q_wt, c3.q_epi, cast_bf16=cast,
-                residual_q=q2, inv_in=c3.q_inv_in,
-                inv_next=down2.q_inv_in, alpha=self.alpha,
-                res_scale=c3.q_res_scale)
-            return exit_conv_block_q(q4, down2.q_wt, self.q_exit_epi,
-                                     alpha=self.alpha, cast_bf16=cast)
-        return self._down_block(down2,
-                                self._feature_block(self.darknet.blocks[0],
-                                                    q2))
+        q4 = conv3x3_block_q(
+            self._pw_block(pw, q2), c3.q_wt, c3.q_epi, cast_bf16=cast,
+            residual_q=q2, inv_in=c3.q_inv_in, inv_next=down2.q_inv_in,
+            alpha=self.alpha, res_scale=c3.q_res_scale)
+        return exit_conv_block_q(q4, down2.q_wt, self.q_exit_epi,
+                                 alpha=self.alpha, cast_bf16=cast)
 
     def neck_outputs(self, x: torch.Tensor) -> List[torch.Tensor]:
         """Backbone + FPN up to the heads: the three neck outputs,
@@ -537,24 +562,59 @@ class QuantizedYoloV3(YoloV3):
 
 @torch.inference_mode()
 def calibrate(model: QuantizedYoloV3, images: torch.Tensor,
-              percentile: Optional[float] = None) -> Dict[str, float]:
+              percentile: Optional[float] = None,
+              train_mode: bool = False) -> Dict[str, float]:
     """Per-tensor activation scales {block path: scale} from one batch
     (z-scored NHWC f32), in the bf16 mode's math: absmax / 127, or with
     `percentile` (e.g. 99.9) that percentile of |activations| from a
-    4096-bin histogram per conv input. QAT calibration (`train_mode`)
-    waits for the QAT port (ROADMAP Queue A 13)."""
+    4096-bin histogram per conv input. `train_mode` (static QAT,
+    quantized.py:1288-1322) normalises each BatchNorm with the batch's
+    own statistics, as the train forward the scales serve does; the
+    running statistics and every parameter stay untouched."""
     collect: dict = {}
     model._collect, model._hist = collect, percentile is not None
+    model._bn_batch = train_mode
     try:
         model(images)
     finally:
-        model._collect, model._hist = None, False
+        model._collect, model._hist, model._bn_batch = None, False, False
     if percentile is None:
         vals = {k: float(v) for k, v in collect.items()}
     else:
         vals = {k: float(quant.hist_percentile(c, m, percentile))
                 for k, (c, m) in collect.items()}
     return {k: max(v, 1e-12) / 127.0 for k, v in vals.items()}
+
+
+def scales_to_buffers(scales: Dict[str, float], model: YoloV3) -> None:
+    """Set each static-QAT `act_scale` buffer of `model` from
+    `calibrate`'s {block path: scale} dict (the counterpart of the
+    reference's `scales_to_collection`, quantized.py:1325-1343). Raises
+    KeyError when a declared scale has no value."""
+    from yolov3_tpu_torch.utils.checkpoint import flax_module_path
+    blocks = [(flax_module_path(n), m) for n, m in model.named_modules()
+              if isinstance(m, ConvBlock) and hasattr(m, "act_scale")]
+    for key, _ in blocks:
+        if key not in scales:
+            raise KeyError(f"no calibrated scale for {key}; have "
+                           f"{sorted(scales)[:8]}...")
+    with torch.no_grad():
+        for key, m in blocks:
+            m.act_scale.fill_(float(scales[key]))
+
+
+def qat_recalibrator(cfg: ModelConfig, device):
+    """Static QAT's scale refresh, recalibrate(model, images): `calibrate
+    (train_mode=True)` of the training model's current weights on
+    `images`, run by a `QuantizedYoloV3` mirror of them, written into
+    its `act_scale` buffers (the JAX trainer's `recalibrate`,
+    train.py:181-210)."""
+    mirror = QuantizedYoloV3(cfg, kernels={}).to(device).eval()
+
+    def recalibrate(model: YoloV3, images: torch.Tensor) -> None:
+        mirror.load_state_dict(model.state_dict())
+        scales_to_buffers(calibrate(mirror, images, train_mode=True), model)
+    return recalibrate
 
 
 def build_quantized_model(params: dict, batch_stats: dict, cfg: ModelConfig,

@@ -17,7 +17,10 @@ Reference quirks kept for output parity (reference/model.py:19-464):
 
 The JAX model's space-to-depth stem is the same math as the plain stem,
 laid out for the TPU, over the same variable tree; this port runs the
-plain stem whatever `stem_space_to_depth` says.
+plain stem whatever `stem_space_to_depth` says. In train mode the
+region's five blocks (stem1, stem2, FeatureBlock_0, ConvBlock_2) keep
+the reference's `_s2d_conv_block` arithmetic under it
+(`ConvBlock.forward_affine_train`).
 
 What the forward needs beyond the parameters (weights in the compute
 dtype, the 1x1 kernel's [Ci, Co] bf16 layout, the folded BatchNorm) is
@@ -30,6 +33,20 @@ The train-mode forward reads the parameters themselves, cast to the
 compute dtype inside the graph, so autograd reaches the f32 parameters;
 it never reads the derived constants, and never takes the fused 1x1
 kernel (as yolo.py:89-90 takes it only when `not train`).
+
+Quantization-aware training (`ModelConfig.int8_train`, yolo.py:61-87,
+446-550): in train mode each quantizing ConvBlock runs `int8_ste_conv`,
+an int8 forward (per-batch absmax activation scale, per-output-channel
+weight scales, exact int32 sums from `ops/quant.py::int8_conv_sums`)
+whose backward is the plain conv's VJP in the compute dtype at the saved
+operands (the straight-through estimator), and normalises through the
+reference's `_s2d_batchnorm` arithmetic (`BatchNorm.forward_affine`).
+With `int8_train_static` the activation scale is the block's frozen
+`act_scale` buffer (`int8_ste_conv_static`), set by
+`models/quantized.py::calibrate(train_mode=True)` and
+`scales_to_buffers`. Every ConvBlock quantizes except stem1 under
+`stem_space_to_depth` (the reference keeps it bf16 there); the detection
+heads stay plain. The eval forward ignores both flags.
 """
 
 from __future__ import annotations
@@ -41,8 +58,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from yolov3_tpu_torch.config import ModelConfig
+from yolov3_tpu_torch.ops import quant
 from yolov3_tpu_torch.ops.decode import decode_detections
 from yolov3_tpu_torch.ops.kernels import conv_block
+
+F32 = torch.float32
 
 
 def _same_pads(size: int, k: int, s: int) -> Tuple[int, int]:
@@ -64,6 +84,93 @@ def conv2d_same(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     else:
         y = F.conv2d(F.pad(x, (pl, pr, pt, pb)), weight, bias, stride)
     return y.permute(0, 2, 3, 1)
+
+
+def _conv_vjp(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
+              stride: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dx, dw) of `conv2d_same(x, w, None, stride)` for the cotangent dy
+    (NHWC), in the operands' dtype."""
+    k = w.shape[-1]
+    (pt, pb), (pl, pr) = (_same_pads(x.shape[1], k, stride),
+                          _same_pads(x.shape[2], k, stride))
+    xn = x.permute(0, 3, 1, 2)
+    even = pt == pb and pl == pr
+    if not even:
+        xn = F.pad(xn, (pl, pr, pt, pb))
+    dx, dw, _ = torch.ops.aten.convolution_backward(
+        dy.permute(0, 3, 1, 2), xn, w, None, (stride, stride),
+        (pt, pl) if even else (0, 0), (1, 1), False, (0, 0), 1,
+        (True, True, False))
+    if not even:
+        dx = dx[:, :, pt:pt + x.shape[1], pl:pl + x.shape[2]]
+    return dx.permute(0, 2, 3, 1), dw
+
+
+# --- int8-forward training (straight-through estimator) -------------------
+
+def _ste_quantize_act(x: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-tensor symmetric quantization with this batch's absmax scale
+    (yolo.py:446-452): s = max(absmax, 1e-6) / 127, codes round(x / s)
+    clipped to +-127. The scale stays a device tensor."""
+    xf = x.to(F32)
+    s = torch.clamp_min(xf.abs().amax(), 1e-6) / 127.0
+    return torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8), s
+
+
+def _ste_quantize_weight(w: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-output-channel symmetric quantization of an OIHW f32 kernel
+    (yolo.py:455-459): s[o] = max(max|w[o]|, 1e-12) / 127."""
+    s = torch.clamp_min(w.abs().amax(dim=(1, 2, 3)), 1e-12) / 127.0
+    q = torch.clamp(torch.round(w / s[:, None, None, None]), -127, 127)
+    return q.to(torch.int8), s
+
+
+class _Int8SteConv(torch.autograd.Function):
+    """The int8 forward `(sums * (s_x * s_w)).to(dtype)` and the plain
+    conv's VJP in `dtype` at the saved (x, w) as the backward; with a
+    frozen `sx` (static mode) the codes saturate and `sx` gets a zero
+    gradient (yolo.py:463-548)."""
+
+    @staticmethod
+    def forward(ctx, x, w, sx, stride, dtype):
+        if sx is None:
+            qx, s = _ste_quantize_act(x)
+        else:
+            s = torch.clamp_min(sx.to(F32), 1e-12)
+            qx = torch.clamp(torch.round(x.to(F32) / s), -127,
+                             127).to(torch.int8)
+        qw, sw = _ste_quantize_weight(w)
+        sums = quant.int8_conv_sums(qx, qw, stride)
+        ctx.save_for_backward(x, w)
+        ctx.stride, ctx.dtype = stride, dtype
+        return (sums.to(F32) * (s * sw)).to(dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx, dw = _conv_vjp(x, w.to(ctx.dtype), dy.to(ctx.dtype), ctx.stride)
+        dsx = None
+        if ctx.needs_input_grad[2]:
+            dsx = torch.zeros((), dtype=F32, device=dy.device)
+        return dx.to(x.dtype), dw.to(w.dtype), dsx, None, None
+
+
+def int8_ste_conv(x: torch.Tensor, w: torch.Tensor, stride: int,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """SAME conv (x NHWC, w OIHW f32) with an int8 forward (dynamic
+    per-batch activation scale) and the straight-through backward."""
+    return _Int8SteConv.apply(x, w, None, stride, dtype)
+
+
+def int8_ste_conv_static(x: torch.Tensor, w: torch.Tensor,
+                         sx: torch.Tensor, stride: int,
+                         dtype: torch.dtype) -> torch.Tensor:
+    """`int8_ste_conv` with the frozen activation scale `sx` (floor
+    1e-12): out-of-range activations saturate at +-127; zero gradient to
+    `sx`."""
+    return _Int8SteConv.apply(x, w, sx, stride, dtype)
 
 
 class Prepared(nn.Module):
@@ -136,6 +243,12 @@ class BatchNorm(Prepared):
         y = (x.to(torch.float32) - self.running_mean) * self.mul + self.bias
         return y.to(x.dtype)
 
+    def _update_stats(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+
     def forward_train(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.to(torch.float32)
         dims = tuple(range(xf.dim() - 1))
@@ -143,12 +256,23 @@ class BatchNorm(Prepared):
         # torch.maximum splits the gradient at a tie, as jnp.maximum does
         var = torch.maximum((xf * xf).mean(dims) - mean * mean,
                             xf.new_tensor(0.0))
-        with torch.no_grad():
-            m = self.momentum
-            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        self._update_stats(mean, var)
         y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight)
         return (y + self.bias).to(x.dtype)
+
+    def forward_affine(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode in `_s2d_batchnorm`'s arithmetic (yolo.py:639-661),
+        the QAT blocks' normalisation: the statistics in f32 with no clamp
+        of the variance, inv = rsqrt(var + eps) * scale, and x * mul + add
+        in x's dtype with mul = inv and add = bias - mean * inv each cast
+        to it."""
+        xf = x.to(torch.float32)
+        dims = tuple(range(xf.dim() - 1))
+        mean = xf.mean(dims)
+        var = (xf * xf).mean(dims) - mean * mean
+        self._update_stats(mean, var)
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        return x * inv.to(x.dtype) + (self.bias - mean * inv).to(x.dtype)
 
 
 class ConvBlock(Prepared):
@@ -156,20 +280,32 @@ class ConvBlock(Prepared):
 
     With `use_pallas_pointwise`, a 1x1 stride-1 block runs as one fused
     kernel (matmul + bias + LeakyReLU + affine BatchNorm), as
-    yolo.py:89-104 does.
+    yolo.py:89-104 does. With `affine_bn` (the space-to-depth region's
+    blocks: stem1, stem2, FeatureBlock_0 and ConvBlock_2) the train
+    forward is `_s2d_conv_block`'s arithmetic (yolo.py:711-715), as
+    `forward_affine_train` says. With `int8_ste` its train-mode forward is
+    the QAT one (yolo.py:67-87), in that arithmetic too; with
+    `int8_static` as well, the block holds
+    its frozen activation scale as the persistent buffer `act_scale`
+    (1.0 until calibrated, as the reference's `quant_scales` collection
+    starts), which the eval forward ignores.
     """
 
     def __init__(self, in_features: int, features: int, kernel: int,
                  stride: int = 1, alpha: float = 0.2, bn_epsilon: float = 1e-3,
                  dtype: torch.dtype = torch.bfloat16,
                  use_pallas_pointwise: bool = False,
-                 bn_momentum: float = 0.99):
+                 bn_momentum: float = 0.99, int8_ste: bool = False,
+                 int8_static: bool = False, affine_bn: bool = False):
         super().__init__()
         self.stride, self.alpha = stride, alpha
         self.bn_epsilon, self.dtype = bn_epsilon, dtype
         self.fused = use_pallas_pointwise and kernel == 1 and stride == 1
+        self.int8_ste, self.affine_bn = int8_ste, affine_bn
         self.conv = Conv(in_features, features, kernel)
         self.bn = BatchNorm(features, bn_epsilon, bn_momentum)
+        if int8_ste and int8_static:
+            self.register_buffer("act_scale", torch.ones(()))
         self.prepare()
 
     @torch.no_grad()
@@ -193,6 +329,8 @@ class ConvBlock(Prepared):
             bn.prepare()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and (self.int8_ste or self.affine_bn):
+            return self.forward_affine_train(x)
         if self.training:
             conv = self.conv
             y = conv2d_same(x.to(self.dtype), conv.weight.to(self.dtype),
@@ -206,6 +344,24 @@ class ConvBlock(Prepared):
             return y.reshape(n, h, w, -1)
         y = conv2d_same(x.to(self.dtype), self.w, self.b, self.stride)
         return self.bn(F.leaky_relu(y, self.alpha))
+
+    def forward_affine_train(self, x: torch.Tensor) -> torch.Tensor:
+        """The train forward of the QAT and space-to-depth blocks: the conv
+        (the STE conv under `int8_ste`) without its bias, the bias added in
+        the compute dtype after it, LeakyReLU and
+        `BatchNorm.forward_affine`. LeakyReLU is Flax's
+        `where(y >= 0, y, a * y)`, whose gradient at 0 is 1 (that of
+        `F.leaky_relu` is a): the int32 sums are often exactly 0."""
+        x, w = x.to(self.dtype), self.conv.weight
+        if not self.int8_ste:
+            y = conv2d_same(x, w.to(self.dtype), None, self.stride)
+        elif hasattr(self, "act_scale"):
+            y = int8_ste_conv_static(x, w, self.act_scale, self.stride,
+                                     self.dtype)
+        else:
+            y = int8_ste_conv(x, w, self.stride, self.dtype)
+        y = y + self.conv.bias.to(self.dtype)
+        return self.bn.forward_affine(torch.where(y >= 0, y, self.alpha * y))
 
 
 class FeatureBlock(nn.Module):
@@ -285,17 +441,20 @@ class Darknet53(nn.Module):
     (reference/model.py:382-421)."""
 
     def __init__(self, in_channels: int, ck: dict, block_count: int,
-                 filter_count: int, kernel: int):
+                 filter_count: int, kernel: int, region_ck: dict,
+                 stem_ck: dict):
         super().__init__()
         fc, k = filter_count, kernel
         widths = [fc // 32, fc // 16, fc // 8, fc // 4, fc // 2, fc]
         chans = [in_channels] + widths
+        cks = [stem_ck, region_ck, region_ck, ck, ck, ck]
         self.convs = nn.ModuleList(
             ConvBlock(chans[i], chans[i + 1], k, stride=1 if i == 0 else 2,
-                      **ck) for i in range(6))
+                      **cks[i]) for i in range(6))
         reps = [1, 2, block_count, block_count, block_count // 2]
         self.blocks = nn.ModuleList(
-            FeatureBlock(r, k, wd, ck) for r, wd in zip(reps, widths[1:]))
+            FeatureBlock(r, k, wd, region_ck if i == 0 else ck)
+            for i, (r, wd) in enumerate(zip(reps, widths[1:])))
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         x = self.convs[0](x)
@@ -316,9 +475,18 @@ class YoloV3(nn.Module):
         cfg = self.config = config
         ck = dict(alpha=cfg.leaky_relu_alpha, bn_epsilon=cfg.bn_epsilon,
                   bn_momentum=cfg.bn_momentum, dtype=cfg.dtype,
-                  use_pallas_pointwise=cfg.use_pallas_pointwise)
+                  use_pallas_pointwise=cfg.use_pallas_pointwise,
+                  int8_ste=cfg.int8_train,
+                  int8_static=cfg.int8_train_static)
+        # the reference's space-to-depth region trains in
+        # `_s2d_conv_block`'s arithmetic, and keeps stem1 in bf16 under
+        # QAT with no scale (yolo.py:826-830)
+        region_ck = dict(ck, affine_bn=cfg.stem_space_to_depth)
+        stem_ck = dict(region_ck, int8_ste=cfg.int8_train
+                       and not cfg.stem_space_to_depth)
         k, fc = cfg.kernel_size, cfg.filter_count
-        self.darknet = Darknet53(cfg.img_size[2], ck, cfg.block_count, fc, k)
+        self.darknet = Darknet53(cfg.img_size[2], ck, cfg.block_count, fc, k,
+                                 region_ck, stem_ck)
         f8, f16, f32 = fc // 4, fc // 2, fc
         self.yolo_blocks = nn.ModuleList([
             YoloBlock(f32, k, f32, ck), YoloBlock(2 * f16, k, f16, ck),

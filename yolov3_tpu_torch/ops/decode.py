@@ -7,7 +7,7 @@ Per cell and anchor (YOLOv3 paper, reference/model.py:122-212):
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -15,13 +15,15 @@ import torch
 def reorg_feature_map(feature_map: torch.Tensor,
                       anchors: Sequence[Tuple[float, float]],
                       number_classes: int, stride: int,
+                      max_twh: Optional[float] = None,
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                  torch.Tensor]:
     """Decode one NHWC feature map [N, gh, gw, A*(5+C)].
 
     Returns (xy_offset [gh,gw,1,2], boxes [N,gh,gw,A,4] as absolute-pixel
     (cx, cy, w, h), objectness_logits [N,gh,gw,A,1], class_logits
-    [N,gh,gw,A,C]).
+    [N,gh,gw,A,C]). With `max_twh` the wh logits are clamped to it before
+    the exp (the loss's overflow guard, `ops/loss.py`).
     """
     n, gh, gw, _ = feature_map.shape
     dev = feature_map.device
@@ -34,7 +36,10 @@ def reorg_feature_map(feature_map: torch.Tensor,
     xy_offset = torch.stack([col, row], dim=-1).reshape(gh, gw, 1, 2)
     anchors_t = torch.tensor(anchors, dtype=torch.float32, device=dev)
     box_xy = (torch.sigmoid(fm[..., 0:2]) + xy_offset) * float(stride)
-    box_wh = torch.exp(fm[..., 2:4]) * anchors_t
+    twh = fm[..., 2:4]
+    if max_twh is not None:
+        twh = torch.clamp(twh, max=max_twh)
+    box_wh = torch.exp(twh) * anchors_t
     boxes = torch.cat([box_xy, box_wh], dim=-1)
     return xy_offset, boxes, fm[..., 4:5], fm[..., 5:]
 

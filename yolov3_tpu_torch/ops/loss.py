@@ -15,6 +15,17 @@ Kept as the JAX module has them:
 - the ignore mask and the targets carry no gradient (loss.py:124-125,
   138, 149).
 
+One guard the JAX loss lacks: the wh logits are clamped at 80 before the
+exp (`WH_LOGIT_MAX`). A cell without an object gets no gradient on its
+wh logits, so they can drift; past 88.7 the f32 exp overflows, and the
+backward's 0 * inf makes every gradient NaN. Past ln(1e9) ~ 20.7 the
+[1e-9, 1e9] clip already fixes the value and zeroes the gradient, so the
+clamp changes no loss value and no gradient that JAX's gives finite. It
+is a guard, not a fix: the port's full-depth 512 px training drifts there
+within ~500 steps on the card, where the reference's record of the same
+recipe shows no divergence, and why is not yet known (ROADMAP Queue C
+G1); with the guard that run still spikes late.
+
 Gradient ties follow JAX's rules: `max(x, 0)` and the clips are
 `torch.maximum`/`torch.minimum` against tensors, which split the
 gradient evenly at a tie as `jnp.maximum`/`jnp.clip` do (`clamp` would
@@ -33,6 +44,8 @@ from yolov3_tpu_torch.ops.decode import reorg_feature_map
 XY_CLIP = 0.01  # reference/model.py:326
 WH_LOG_CLIP_MIN = 1e-9  # reference/model.py:344
 WH_LOG_CLIP_MAX = 1e9
+# below the f32 exp's overflow at 88.72, above ln(WH_LOG_CLIP_MAX / 1e-3)
+WH_LOGIT_MAX = 80.0
 IGNORE_IOU_THRESHOLD = 0.5  # reference/model.py:273
 
 
@@ -96,7 +109,8 @@ def loss_layer(feature_map: torch.Tensor, gt_grid: torch.Tensor,
     gt_grid = gt_grid.to(torch.float32)
 
     xy_offset, pred_boxes, pred_obj_logits, pred_class_logits = (
-        reorg_feature_map(feature_map, anchors, number_classes, stride))
+        reorg_feature_map(feature_map, anchors, number_classes, stride,
+                          max_twh=WH_LOGIT_MAX))
     object_mask = gt_grid[..., 4:5]                       # [B,gh,gw,A,1]
     pred_xy, pred_wh = pred_boxes[..., 0:2], pred_boxes[..., 2:4]
 

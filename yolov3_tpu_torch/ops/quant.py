@@ -8,7 +8,10 @@
 - calibration: per-tensor absmax, or a percentile of |activations| from a
   fixed 4096-bin histogram;
 - the inference BatchNorm as the affine pair (mul, add), with
-  mul = scale * rsqrt(var + eps).
+  mul = scale * rsqrt(var + eps);
+- the exact int32 sums of an s8 SAME conv (`int8_conv_sums`), which the
+  quantization-aware training forward (`models/yolo.py::int8_ste_conv`)
+  scales itself.
 
 Every result is computed in float32 in the reference's op order, since a
 last-bit difference in a scale flips the codes that sit on a .5 boundary.
@@ -20,6 +23,7 @@ from typing import Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 F32 = torch.float32
 
@@ -247,3 +251,63 @@ def exit_epi(exit_: torch.Tensor, s5: float) -> torch.Tensor:
     """The exit kernel's f32 [4, co] table: b/dq, mul*dq, add, 1/s5."""
     inv = (_f32(1.0) / _f32(s5)).expand(exit_.shape[1])
     return torch.cat([exit_, inv[None]]).contiguous()
+
+
+# --- the int32 sums of an s8 convolution ------------------------------------
+
+
+def int8_conv_sums(q_x: torch.Tensor, q_w: torch.Tensor,
+                   stride: int) -> torch.Tensor:
+    """Exact int32 sums of the SAME convolution of s8 codes: q_x NHWC
+    int8, q_w OIHW int8 -> NHWC int32 (the reference's
+    `conv_general_dilated(..., preferred_element_type=int32)`, padded as
+    XLA's SAME pads, the odd pixel at the end).
+
+    On a CUDA tensor: `torch._int_mm` over an im2col (`_int_mm_sums`);
+    a failure there raises. On the CPU: a float64 convolution of the
+    codes, exact since |sum| <= taps * Ci * 127^2 (9 * 1024 * 127^2, about
+    1.5e8, at the widest conv) lies far below 2^53."""
+    from yolov3_tpu_torch.ops.kernels._conv_q import same_pads
+    n, h, w, _ = q_x.shape
+    k = q_w.shape[-1]
+    pads = same_pads(h, k, stride) + same_pads(w, k, stride)
+    if q_x.device.type == "cuda":
+        return _int_mm_sums(q_x, q_w, stride, pads)
+    pt, pb, pl, pr = pads
+    y = F.conv2d(F.pad(q_x.permute(0, 3, 1, 2).to(torch.float64),
+                       (pl, pr, pt, pb)), q_w.to(torch.float64),
+                 stride=stride)
+    return y.permute(0, 2, 3, 1).to(torch.int32)
+
+
+def _ceil16(v: int) -> int:
+    return -(-v // 16) * 16
+
+
+def _int_mm_sums(q_x: torch.Tensor, q_w: torch.Tensor, stride: int,
+                 pads: Tuple[int, int, int, int]) -> torch.Tensor:
+    """`int8_conv_sums` by `torch._int_mm`: the rows (M = N*Ho*Wo, at
+    least 32) of an im2col in (tap, channel) order, K and Co padded with
+    zero codes to multiples of 16 (cuBLAS's int8 GEMM takes K and Co in
+    multiples of 8 and M above 16), times the weights as a column-major
+    [K, Co]."""
+    n, h, w, ci = q_x.shape
+    co, _, k, _ = q_w.shape
+    pt, pb, pl, pr = pads
+    oh, ow = -(-h // stride), -(-w // stride)
+    m, kk = n * oh * ow, k * k * ci
+    cols = q_x.new_zeros((max(m, 32), _ceil16(kk)))
+    if k == 1 and stride == 1:
+        cols[:m, :ci] = q_x.reshape(m, ci)
+    else:
+        xp = F.pad(q_x, (0, 0, pl, pr, pt, pb))
+        view = cols[:m].view(n, oh, ow, cols.shape[1])
+        for u in range(k):
+            for v in range(k):
+                t = (u * k + v) * ci
+                view[..., t:t + ci] = xp[:, u:u + stride * (oh - 1) + 1:stride,
+                                         v:v + stride * (ow - 1) + 1:stride]
+    wm = q_w.new_zeros((_ceil16(co), cols.shape[1]))
+    wm[:co, :kk] = q_w.permute(0, 2, 3, 1).reshape(co, kk)
+    sums = torch._int_mm(cols, wm.t())
+    return sums[:m, :co].reshape(n, oh, ow, co)

@@ -15,7 +15,12 @@ the warm-up changes it without rebuilding anything. Weight decay, when
 on, is added to the loss as the JAX step adds it, not through AdamW.
 
 The train step runs the train-mode forward (batch statistics, running
-statistics moved). The eval step runs the inference forward with the
+statistics moved): with `ModelConfig.int8_train` the QAT forward
+(`models/yolo.py::int8_ste_conv`, the int8 forward with the
+straight-through backward), and with `int8_train_static` as well on the
+model's frozen `act_scale` buffers, which the step leaves as they are
+(the trainer refreshes them, `train.py`). The eval step runs the
+inference forward with the
 running statistics and changes no state; after a train step it derives
 the model's constants again first, so the fused 1x1 kernel, when the
 config asks for it, sees the current weights.
@@ -39,9 +44,10 @@ Batch = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 @dataclasses.dataclass
 class TrainState:
-    """The model (its parameters and BatchNorm statistics), the optimizer
-    (its Adam moments), the step count, and whether the model's derived
-    constants predate its parameters."""
+    """The model (its parameters, BatchNorm statistics and, under static
+    QAT, activation scales), the optimizer (its Adam moments), the step
+    count, and whether the model's derived constants predate its
+    parameters."""
     model: YoloV3
     optimizer: torch.optim.Optimizer
     step: int = 0
@@ -65,14 +71,18 @@ def make_optimizer(model: torch.nn.Module,
 
 def create_train_state(cfg: ModelConfig, tcfg: TrainConfig, seed: int = 0,
                        device="cuda", params: Optional[dict] = None,
-                       batch_stats: Optional[dict] = None) -> TrainState:
+                       batch_stats: Optional[dict] = None,
+                       quant_scales: Optional[dict] = None) -> TrainState:
     """A fresh train state on `device`, the model in train mode: weights
-    from the Flax-shaped trees given, else `init_train_params(cfg, seed)`."""
+    from the Flax-shaped trees given, else `init_train_params(cfg, seed)`;
+    under static QAT the scales from `quant_scales` (JAX's collection),
+    else 1.0, as the reference's init gives them."""
     check_train_config(tcfg)
     if params is None:
         params, batch_stats = init_train_params(cfg, seed)
     model = YoloV3(cfg)
-    model.load_state_dict(params_from_jax(params, batch_stats, cfg))
+    model.load_state_dict(params_from_jax(params, batch_stats, cfg,
+                                          quant_scales))
     model = model.to(device).train()
     return TrainState(model, make_optimizer(model, tcfg))
 

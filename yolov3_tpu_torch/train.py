@@ -20,6 +20,11 @@ Loop semantics are the JAX trainer's (train.py:63-371):
   back (:336-348), or at `--max_epochs`;
 - `--resume` restores the checkpoint and `test_loss.csv` and goes on
   from the next epoch (:164-175);
+- `--int8_train 1` trains with the int8 forward and the straight-through
+  backward (quantization-aware training); `--int8_static 1` with it
+  freezes the activation scales, recalibrated at every epoch's start on
+  one train batch with that batch's BatchNorm statistics (:181-210,
+  273-274); `--int8_static 1` alone changes nothing (:461-464);
 - `--profile_dir` writes a `torch.profiler` trace of epoch 1
   (`trace.json`, Chrome format; :285-286, 303-304);
 - at the end the best checkpoint is exported to `<output>/saved_model`,
@@ -33,9 +38,8 @@ thread's stream; each batch draws from its own generator, seeded from
 (seed + 1, the batch's number in its feed), so a run repeats whatever
 the thread's timing. `--shm_feed 1` (with `--device_augment 1` only, as
 in the JAX trainer) moves the raw batches through a shared-memory ring.
-Runs on "cuda" unless asked for "cpu". The flags of later slices
-(`--num_devices` > 1, `--shard_optimizer 1`, `--int8_train 1`,
-`--int8_static 1`) raise NotImplementedError.
+Runs on "cuda" unless asked for "cpu". The flags of a later slice
+(`--num_devices` > 1, `--shard_optimizer 1`) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -55,6 +59,7 @@ from yolov3_tpu_torch.config import (TRAIN_DEFAULT_ANCHORS, AugmentConfig,
                                      ModelConfig, TrainConfig)
 from yolov3_tpu_torch.data.device_pipeline import preprocess_batch
 from yolov3_tpu_torch.data.reader import DatasetReader, ShmBatchReader
+from yolov3_tpu_torch.models.quantized import qat_recalibrator
 from yolov3_tpu_torch.parallel.train_step import (create_train_state,
                                                   make_eval_step,
                                                   make_train_step)
@@ -70,16 +75,11 @@ def _not_ported(what: str) -> NotImplementedError:
         f"Queue A)")
 
 
-def _check_ported(num_devices, shard_optimizer, model_overrides) -> None:
+def _check_ported(num_devices, shard_optimizer) -> None:
     if num_devices not in (None, 1):
         raise _not_ported("--num_devices > 1 (multi-device training)")
     if shard_optimizer:
         raise _not_ported("--shard_optimizer")
-    overrides = model_overrides or {}
-    for name, flag in (("int8_train", "--int8_train"),
-                       ("int8_train_static", "--int8_static")):
-        if overrides.get(name):
-            raise _not_ported(f"{flag} (quantization-aware training)")
 
 
 def batch_generator(seed: int, counter: int, device) -> torch.Generator:
@@ -137,9 +137,9 @@ def train_model(batch_size: int, test_every_n_steps: int,
                 report: Optional[dict] = None) -> Optional[str]:
     """Run the training loop; returns the export path (or None). With
     `report` given, fills it with the train loop's step count, its wall
-    seconds, the seconds it waited for batches, the eval steps run and
-    the store reader's kind."""
-    _check_ported(num_devices, shard_optimizer, model_overrides)
+    seconds, the seconds it waited for batches, the eval steps run, the
+    static-QAT recalibrations run and the store reader's kind."""
+    _check_ported(num_devices, shard_optimizer)
     os.makedirs(output_folder, exist_ok=True)
     global_batch_size = batch_size  # one device
     reader_count = (tcfg or TrainConfig()).reader_count_per_device
@@ -184,7 +184,8 @@ def train_model(batch_size: int, test_every_n_steps: int,
 
     report = {} if report is None else report
     report.update(train_steps=0, train_s=0.0, feed_wait_s=0.0, eval_steps=0,
-                  store_kind=train_reader.store_kind, feed=feed)
+                  recalibrations=0, store_kind=train_reader.store_kind,
+                  feed=feed)
     export_path = None
     best_checkpoint_saved = False
     train_batches = test_batches = None
@@ -220,6 +221,8 @@ def train_model(batch_size: int, test_every_n_steps: int,
 
         train_step = make_train_step(cfg, tcfg, global_batch_size)
         eval_step = make_eval_step(cfg, tcfg, global_batch_size)
+        recalibrate = (qat_recalibrator(cfg, device)
+                       if cfg.int8_train and cfg.int8_train_static else None)
         train_transform = test_transform = None
         if device_augment:
             feed_args = (seed, device, augment_config or AugmentConfig(),
@@ -247,6 +250,9 @@ def train_model(batch_size: int, test_every_n_steps: int,
         print("Running Network")
         while True:
             print(f"---- Epoch: {epoch} ----")
+            if recalibrate is not None:
+                recalibrate(state.model, next(train_batches)[0])
+                report["recalibrations"] += 1
             if epoch == 0:
                 cur_train_epoch_size = min(tcfg.warmup_steps, train_epoch_size)
                 print(f"Performing Adam Optimizer learning rate warmup for "
@@ -394,9 +400,11 @@ def main(argv=None) -> None:
     parser.add_argument("--shard_optimizer", type=int, default=0,
                         help="ZeRO-1 optimizer sharding (not ported yet)")
     parser.add_argument("--int8_train", type=int, default=0,
-                        help="quantization-aware training (not ported yet)")
+                        help="quantization-aware training: int8 forward, "
+                             "straight-through backward [0=false, 1=true]")
     parser.add_argument("--int8_static", type=int, default=0,
-                        help="static-scale QAT (not ported yet)")
+                        help="with --int8_train 1: frozen activation "
+                             "scales, recalibrated every epoch")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to train on (default: cuda)")
     args = parser.parse_args(argv)
@@ -420,10 +428,10 @@ def main(argv=None) -> None:
                 resume=args.resume,
                 shard_optimizer=bool(args.shard_optimizer),
                 max_epochs=args.max_epochs,
-                model_overrides=dict(
-                    **({"int8_train": True} if args.int8_train else {}),
+                model_overrides=(dict(
+                    int8_train=True,
                     **({"int8_train_static": True} if args.int8_static
-                       else {})) or None,
+                       else {})) if args.int8_train else None),
                 device=args.device)
 
 

@@ -17,8 +17,17 @@ this package: load it with the JAX package, turn the leaves into numpy,
 and pass them to `export_model`. `params_to_jax` is the inverse of
 `params_from_jax`: the trainer exports its model through it.
 
+Under static quantization-aware training (`int8_train` with
+`int8_train_static`) each quantizing ConvBlock also holds an `act_scale`
+buffer, the JAX `quant_scales` collection's leaf of the same path
+(`quant_scales/Darknet53_0/ConvBlock_1/act_scale`): `params_from_jax`
+takes that collection as well (1.0 where none is given, as the Flax init
+starts it) and `scales_to_jax` gives it back. The trainer's checkpoint
+keeps the scales with the rest of the state; the export carries none.
+
 The training checkpoint (`save_checkpoint` / `restore_checkpoint`) is the
-whole train state (parameters, BatchNorm statistics, Adam moments, step)
+whole train state (parameters, BatchNorm statistics, QAT scales, Adam
+moments, step)
 in one `torch.save` file under `<output>/checkpoint/`, the JAX package's
 directory name, overwritten in place: the reference's best-only policy
 (reference/train.py:178-182).
@@ -29,7 +38,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import shutil
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -54,6 +63,8 @@ _MODULES = {
     "conv": "Conv_0",
     "bn": "BatchNorm_0",
 }
+# a quantizing ConvBlock's frozen activation scale (static QAT)
+SCALE_LEAF = "act_scale"
 # (owner module, port leaf) -> (Flax collection, Flax leaf)
 _LEAVES = {
     ("conv", "weight"): ("params", "kernel"),
@@ -81,9 +92,16 @@ def flax_path(key: str) -> str:
     `darknet.blocks.2.convs.3.bn.running_var` ->
     `batch_stats/Darknet53_0/FeatureBlock_2/ConvBlock_3/BatchNorm_0/var`."""
     parts = key.split(".")
-    collection, leaf = _LEAVES[(parts[-2], parts[-1])]
+    if parts[-1] == SCALE_LEAF:
+        collection, leaf = "quant_scales", SCALE_LEAF
+    else:
+        collection, leaf = _LEAVES[(parts[-2], parts[-1])]
     return "/".join([collection, flax_module_path(".".join(parts[:-1])),
                      leaf])
+
+
+def _is_scale(key: str) -> bool:
+    return key.rsplit(".", 1)[-1] == SCALE_LEAF
 
 
 def _flax_shape(value: torch.Tensor) -> Tuple[int, ...]:
@@ -119,17 +137,24 @@ def _template(cfg: ModelConfig) -> Dict[str, torch.Tensor]:
         return YoloV3(cfg).state_dict()
 
 
-def params_from_jax(params: dict, batch_stats: dict,
-                    cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+def params_from_jax(params: dict, batch_stats: dict, cfg: ModelConfig,
+                    quant_scales: Optional[dict] = None
+                    ) -> Dict[str, torch.Tensor]:
     """Flax `YoloV3` trees (nested dicts of numpy arrays) -> the port's
     `YoloV3` state_dict. Raises on any leaf missing, left over, or of the
-    wrong shape. The kernels go from HWIO to OIHW here and only here."""
+    wrong shape. The kernels go from HWIO to OIHW here and only here.
+    Under static QAT the `act_scale` buffers come from `quant_scales`
+    (the JAX collection), or are 1.0 when it is None."""
     flat: Dict[str, np.ndarray] = {}
     _flatten(params, "params", flat)
     _flatten(batch_stats, "batch_stats", flat)
+    if quant_scales is not None:
+        _flatten(quant_scales, "quant_scales", flat)
     state = {}
     for key, meta in _template(cfg).items():
         path = flax_path(key)
+        if _is_scale(key) and quant_scales is None:
+            flat[path] = np.ones((), np.float32)
         if path not in flat:
             raise KeyError(f"Flax tree has no {path} (for {key})")
         value = np.asarray(flat.pop(path), np.float32)
@@ -144,17 +169,29 @@ def params_from_jax(params: dict, batch_stats: dict,
     return state
 
 
-def params_to_jax(state: Dict[str, torch.Tensor]) -> Tuple[dict, dict]:
-    """The port's `YoloV3` state_dict -> Flax-shaped (params, batch_stats)
-    trees of f32 numpy arrays; kernels go from OIHW back to HWIO."""
+def _to_jax(state: Dict[str, torch.Tensor]) -> dict:
     flat = {}
     for key, value in state.items():
         value = value.detach().to("cpu", torch.float32).numpy()
         if value.ndim == 4:
             value = value.transpose(2, 3, 1, 0)  # OIHW -> HWIO
         flat[flax_path(key)] = np.ascontiguousarray(value)
-    tree = _unflatten(flat)
+    return _unflatten(flat)
+
+
+def params_to_jax(state: Dict[str, torch.Tensor]) -> Tuple[dict, dict]:
+    """The port's `YoloV3` state_dict -> Flax-shaped (params, batch_stats)
+    trees of f32 numpy arrays; kernels go from OIHW back to HWIO. QAT
+    scales, if any, are left out (`scales_to_jax`)."""
+    tree = _to_jax({k: v for k, v in state.items() if not _is_scale(k)})
     return tree["params"], tree["batch_stats"]
+
+
+def scales_to_jax(state: Dict[str, torch.Tensor]) -> Optional[dict]:
+    """The state_dict's static-QAT `act_scale` buffers as the JAX
+    `quant_scales` collection (None when it has none)."""
+    scales = {k: v for k, v in state.items() if _is_scale(k)}
+    return _to_jax(scales)["quant_scales"] if scales else None
 
 
 def init_train_params(cfg: ModelConfig, seed: int) -> Tuple[dict, dict]:
@@ -166,6 +203,8 @@ def init_train_params(cfg: ModelConfig, seed: int) -> Tuple[dict, dict]:
     rng = np.random.default_rng(seed)
     flat = {}
     for key, meta in _template(cfg).items():
+        if _is_scale(key):
+            continue
         shape = _flax_shape(meta)
         leaf = key.rsplit(".", 1)[-1]
         if len(shape) == 4:
@@ -191,6 +230,8 @@ def init_params(cfg: ModelConfig, seed: int) -> Tuple[dict, dict]:
     rng = np.random.default_rng(seed)
     flat = {}
     for key, meta in _template(cfg).items():
+        if _is_scale(key):
+            continue
         shape = _flax_shape(meta)
         leaf = key.rsplit(".", 1)[-1]
         owner = key.rsplit(".", 2)[-2]
