@@ -118,7 +118,29 @@ Phases, in order; any failure exits non-zero:
      loss under 0.5, then the export served through
      `inference.inference` in bf16 and with `--int8` and scored by
      `evaluate_folders`: mAP@0.5 >= 0.9 on both. One JSON line.
- 13. One JSON line of kernel results, then the last line
+ 13. Multi-device and G1 (`G1`, the 512 px gate's setting): the gate's
+     first 30 steps at full depth, bf16, from `init_train_params(cfg,
+     0)`, a step's loss and per scale its largest |objectness logit| and
+     wh logit of the cells without an object as one JSON line; one
+     full-depth f32 step's gradients on the card (TF32 off) against the
+     CPU's, each leaf within the larger of 2e-3 of its largest |g| and
+     `SPREAD_FACTOR` times the CPU's own spread when the batch is
+     reversed or rolled. Data-parallel training at full width, bf16, 2
+     ranks on the one card over gloo (NCCL takes one rank a device),
+     global batch 8 = one half twice: `loss` within 1e-3 of one
+     process's on the global batch, `loss_sum` twice its, the summed
+     gradients exactly twice one rank's and, halved, within the spread
+     bound of one process's; ms a step per rank beside one process's,
+     each rank's peak memory with the replicated Adam and with ZeRO-1,
+     whose parameters after 3 steps equal the replicated run's within
+     rtol 2e-6 / atol 1e-7 (the reference's bound). The sharded
+     detectors on [cuda:0, cuda:0], bf16 (the 1x1 kernel) and int8 (the
+     default set), against one device: each sharded call's launches
+     twice one replica's, decode fidelity >= 0.999. One forward and
+     backward with and without `remat_blocks` (full width, bf16, b8,
+     after a warm-up): equal loss and gradients, the peak memory and
+     time of each. One JSON line.
+ 14. One JSON line of kernel results, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 A kernel's `ms` is device time: `device_ms` captures 20 calls in a CUDA
@@ -240,6 +262,24 @@ GATE = dict(size=64, box=24, images=8, steps=1000, lr=5e-3,
 GATE_MODES = {"bf16_train": {}, "int8_ste_train": {"int8_train": True},
               "int8_static_train": {"int8_train": True,
                                     "int8_train_static": True}}
+# phase 13: the 512 px gate's setting (8 planted 96 px squares,
+# scripts/quality_gate_512.py:72-122): its first `steps` steps at full
+# depth in bf16 on its lr schedule (lr, warm-up, decay start, decay end),
+# and one f32 step card vs CPU. `model` narrows the model (only a CPU
+# rehearsal does)
+G1 = dict(size=512, box=96, images=8, steps=30, anchors=((96, 96), (48, 48)),
+          lr=(3e-4, 300, 2500, 6000), model={})
+# a full-depth gradient leaf is held to the larger of GRAD_BOUND and this
+# many times the reference's own spread (its gradient with the batch
+# reversed, or rolled by one image): from the init, the same math in
+# another summation order moves 280 of 294 leaves by more than
+# GRAD_BOUND (up to 0.26 of their largest |g|), and XLA's step against
+# the port's lies within 5.3x of that spread (median 1.8x;
+# scripts/g1_trajectory.py, f32, teacher-forced at step 0)
+SPREAD_FACTOR = 16
+# the data-parallel check: ranks on the one card, the global batch (one
+# half twice, 4 images a rank), steps with the replicated Adam and ZeRO-1
+DP_WORLD, DP_BATCH, DP_STEPS = 2, 8, 3
 # the tiled CLI phase: a seeded image of 2048 x 1536, 512 px tiles with 96
 # px ghost zones (35 tiles: 4 batches of 8 and one of 3)
 TILED_IMAGE = (2048, 1536, 3)
@@ -2267,6 +2307,420 @@ def phase_device_feed(torch, inf, TQ, build, workdir, card, host):
     return out
 
 
+# -- phase 13: G1's logits, data-parallel training, ZeRO-1, sharded
+# serving, remat -------------------------------------------------------------
+
+def g1_batch(size, box, n):
+    """The 512 px gate's 8 planted images (scripts/quality_gate_512.py:
+    72-84, RandomState(42)) as the train step's batch, in numpy."""
+    import numpy as np
+    from yolov3_tpu_torch.data.encoder import encode_boxes
+    from yolov3_tpu_torch.data.imaging import zscore_normalize
+    rng = np.random.RandomState(42)
+    images, grids = [], []
+    for _ in range(n):
+        img = (rng.rand(size, size, 3) * 40).astype(np.float32)
+        x = rng.randint(0, size - box)
+        y = rng.randint(0, size - box)
+        img[y:y + box, x:x + box] += 180 + rng.rand() * 40
+        images.append(zscore_normalize(np.clip(img, 0, 255).astype(
+            np.uint8)))
+        grids.append(encode_boxes(np.array([[x, y, box, box, 0]],
+                                           np.float32),
+                                  (size, size, 3), G1["anchors"], 1))
+    return [np.stack(images).astype(np.float32)] + [
+        np.stack([g[i] for g in grids]).astype(np.float32) for i in range(3)]
+
+
+def leaf_errors(got, want, spreads):
+    """Per leaf: the distance of `got` from `want`, and the largest
+    distance of the `spreads` (the same math in other summation orders)
+    from `want`, each over the leaf's largest |want|."""
+    out = {}
+    for name, w in want.items():
+        scale = float(w.abs().max()) or 1.0
+        out[name] = (float((got[name] - w).abs().max()) / scale,
+                     max(float((s[name] - w).abs().max()) / scale
+                         for s in spreads))
+    return out
+
+
+def reorders(batch):
+    """The batch reversed, and rolled by one image: the same math in two
+    other summation orders."""
+    import numpy as np
+    return ([np.ascontiguousarray(a[::-1]) for a in batch],
+            [np.ascontiguousarray(np.roll(a, 1, axis=0)) for a in batch])
+
+
+def spread_check(errors, label):
+    """Each leaf within the larger of GRAD_BOUND and SPREAD_FACTOR times
+    the reference's own spread; the summary of the check."""
+    over = {k: v for k, v in errors.items()
+            if v[0] > max(GRAD_BOUND, SPREAD_FACTOR * v[1])}
+    worst = max(errors, key=lambda k: errors[k][0])
+    out = {"leaves": len(errors),
+           "within_grad_bound": sum(v[0] <= GRAD_BOUND
+                                    for v in errors.values()),
+           "spread_over_grad_bound": sum(v[1] > GRAD_BOUND
+                                         for v in errors.values()),
+           "worst": [worst, *errors[worst]],
+           "max_ratio_to_spread": max(v[0] / max(v[1], 1e-12)
+                                      for v in errors.values()
+                                      if v[0] > GRAD_BOUND) if any(
+               v[0] > GRAD_BOUND for v in errors.values()) else 0.0,
+           "over": sorted(over)[:8]}
+    log(f"{label}: {out['within_grad_bound']}/{out['leaves']} leaves within "
+        f"{GRAD_BOUND} of their largest |g|, the reference's own spread "
+        f"over it on {out['spread_over_grad_bound']}; worst {out['worst']}; "
+        f"largest ratio to the spread {out['max_ratio_to_spread']:.2f}")
+    if over:
+        raise AssertionError(f"{label}: {len(over)} leaves beyond "
+                             f"max({GRAD_BOUND}, {SPREAD_FACTOR} x spread): "
+                             f"{out}")
+    return out
+
+
+def grads_of(torch, T, cfg, tcfg, batch, device, n, seed=SEED):
+    """The loss and gradients ({name: CPU tensor}) of one train-mode
+    forward and backward from `init_train_params(cfg, seed)` on `batch`
+    (numpy), the loss over `n` images."""
+    state = T.create_train_state(cfg, tcfg, seed, device)
+    b = [torch.from_numpy(a).to(device) for a in batch]
+    loss, _ = T._loss(state.model, cfg, tcfg, n, b[0], b[1:])
+    loss.backward()
+    return float(loss.detach()), {k: p.grad.detach().float().cpu()
+                                  for k, p in state.model.named_parameters()}
+
+
+def phase_g1(torch, ModelConfig, card):
+    """G1 on the card: the 512 px gate's first `G1["steps"]` steps (full
+    depth, bf16, its lr schedule, from `init_train_params(cfg, 0)`), the
+    loss and per scale the largest |objectness logit| and wh logit of
+    the cells without an object, a step each, as one JSON line; then one
+    full-depth f32 step (TF32 off) on the card against the same step on
+    the CPU."""
+    import numpy as np
+    from yolov3_tpu_torch.config import TrainConfig
+    from yolov3_tpu_torch.parallel import train_step as T
+    from yolov3_tpu_torch.quality_gate_512 import lr_schedule
+    g = G1
+    n = g["images"]
+    batch = g1_batch(g["size"], g["box"], n)
+    kw = dict(img_size=(g["size"], g["size"], 3), number_classes=1,
+              anchors=g["anchors"], **g["model"])
+    cfg = ModelConfig(**kw, compute_dtype="bfloat16")
+    tcfg = TrainConfig(batch_size=n)
+    state = T.create_train_state(cfg, tcfg, SEED, DEVICE)
+    step = T.make_train_step(cfg, tcfg, n)
+    fms = []
+    state.model.register_forward_hook(
+        lambda m, i, out: fms.__setitem__(slice(None), out))
+    dev = [torch.from_numpy(a).to(DEVICE) for a in batch]
+    empty = [grid[..., 4] == 0 for grid in dev[1:]]
+    lr_at = lr_schedule(*g["lr"])
+    rows = []
+    t0 = time.perf_counter()
+    for i in range(g["steps"]):
+        state, metrics = step(state, dev, lr_at(i))
+        maps = [f.detach().float().reshape(*f.shape[:3], cfg.number_anchors,
+                                           -1) for f in fms]
+        stats = torch.stack(
+            [metrics["loss"].float()]
+            + [f[..., 4].abs().max() for f in maps]
+            + [f[..., 2:4][e].max() for f, e in zip(maps, empty)]).tolist()
+        rows.append({"step": i, "lr": lr_at(i), "loss": stats[0],
+                     "obj_logit": stats[1:4], "wh_logit_empty": stats[4:7]})
+    steps_s = time.perf_counter() - t0
+    del state, step, dev
+    torch.cuda.empty_cache()
+    out = {"card": card, "steps": rows, "steps_s": steps_s}
+    print(json.dumps({"g1_steps": out}), flush=True)
+    last = rows[-1]
+    log(f"G1 {g['steps']} gate steps at 512 px, full depth, bf16: loss "
+        f"{rows[0]['loss']:.3f} -> {last['loss']:.3f}, |objectness| "
+        f"{last['obj_logit']}, wh (no object) {last['wh_logit_empty']} "
+        f"({steps_s:.1f} s)")
+    if not (all(math.isfinite(v) for r in rows for v in
+                [r["loss"], *r["obj_logit"], *r["wh_logit_empty"]])
+            and last["loss"] < rows[0]["loss"]):
+        raise AssertionError(f"G1 steps: {rows}")
+
+    cfg32 = ModelConfig(**kw, compute_dtype="float32")
+    t0 = time.perf_counter()
+    loss_card, g_card = grads_of(torch, T, cfg32, tcfg, batch, DEVICE, n)
+    torch.cuda.empty_cache()
+    loss_cpu, g_cpu = grads_of(torch, T, cfg32, tcfg, batch, "cpu", n)
+    # the CPU's own spread: the same math in two other batch orders
+    spreads = [grads_of(torch, T, cfg32, tcfg, b, "cpu", n)[1]
+               for b in reorders(batch)]
+    check = spread_check(leaf_errors(g_card, g_cpu, spreads),
+                         "G1 f32 full-depth step, card vs CPU")
+    out["f32_card_vs_cpu"] = dict(check, loss_card=loss_card,
+                                  loss_cpu=loss_cpu,
+                                  seconds=time.perf_counter() - t0)
+    if not abs(loss_card - loss_cpu) <= 1e-5 * abs(loss_cpu):
+        raise AssertionError(f"G1 f32 loss card {loss_card} vs CPU "
+                             f"{loss_cpu}")
+    return out
+
+
+def flat_params(model):
+    return {k: v.detach().float().cpu().clone()
+            for k, v in model.state_dict().items()}
+
+
+def dp_rank(rank, world, batch, cfg_kw, steps, lr, device):
+    """One rank of phase 13's data-parallel check on the one card (gloo):
+    this rank's half of `batch` (the global batch, one half twice), one
+    step, `steps` steps with the replicated Adam and with ZeRO-1; rank 0
+    also runs one process's steps (a group of its own) on its half and
+    on the whole global batch, and compares."""
+    import torch
+    import torch.distributed as dist
+    from yolov3_tpu_torch.config import ModelConfig, TrainConfig
+    from yolov3_tpu_torch.parallel import distributed as D
+    from yolov3_tpu_torch.parallel import train_step as T
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # one algorithm per shape, so two runs of one step agree bit for bit
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.set_num_threads(2)
+    solo = [dist.new_group([r]) for r in range(world)][rank]
+    cfg = ModelConfig(**cfg_kw)
+    n = batch[0].shape[0]
+    full = [torch.from_numpy(a).to(device) for a in batch]
+    local = D.shard_batch(full, rank, world)
+    cuda = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    out = {}
+
+    def run(tcfg, group, data, k):
+        sync()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        state = T.create_train_state(cfg, tcfg, SEED, device, group=group)
+        step = T.make_train_step(cfg, tcfg, n, group=group)
+        times, metrics, grads = [], None, None
+        for i in range(k):
+            sync()
+            t0 = time.perf_counter()
+            state, m = step(state, data, lr)
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                metrics = {key: float(v) for key, v in m.items()}
+                grads = {key: p.grad.detach().float().cpu().clone()
+                         for key, p in state.model.named_parameters()}
+        rec = {"ms_per_step": times, "metrics": metrics,
+               "max_memory_allocated": (torch.cuda.max_memory_allocated()
+                                        if cuda else 0)}
+        params = flat_params(state.model)
+        del state, step
+        if cuda:
+            torch.cuda.empty_cache()
+        return rec, grads, params
+
+    plain, zero = TrainConfig(), TrainConfig(shard_optimizer=True)
+    out["dp"], dp_grads, rep_params = run(plain, None, local, steps)
+    out["zero"], _, zero_params = run(zero, None, local, steps)
+    zero_err = max(float(((zero_params[k] - v).abs()
+                          - 2e-6 * v.abs()).max() / 1e-7)
+                   for k, v in rep_params.items())
+    out["zero_vs_replicated_atol_units"] = zero_err
+    out["zero_max_abs_diff"] = max(float((zero_params[k] - v).abs().max())
+                                   for k, v in rep_params.items())
+    if rank == 0:
+        # one process on this half (the group of rank 0 alone): the
+        # ranks' inputs are equal, so the summed gradients are twice its
+        out["solo_half"], half_grads, _ = run(plain, solo, local, steps)
+        # one process on the global batch, one half twice, and in two
+        # other orders (its own spread)
+        out["solo_global"], glob_grads, _ = run(plain, solo, full, steps)
+        spreads = [run(plain, solo, [torch.from_numpy(a).to(device)
+                                     for a in b], 1)[1]
+                   for b in reorders(batch)]
+        out["exact_sum_err"] = max(float((dp_grads[k] - 2 * v).abs().max())
+                                   for k, v in half_grads.items())
+        out["global_errors"] = leaf_errors(
+            {k: v / 2 for k, v in dp_grads.items()}, glob_grads, spreads)
+    dist.barrier()
+    return out
+
+
+def phase_data_parallel(torch, ModelConfig, card):
+    """Data-parallel training at full width (512 px, 1024 filters, 8
+    blocks, bf16) over DP_WORLD ranks on the one card, joined by gloo
+    (NCCL takes one rank a device), against one process; ZeRO-1 against
+    the replicated Adam."""
+    import numpy as np
+    from yolov3_tpu_torch.parallel import distributed as D
+    half = g1_batch(G1["size"], G1["box"], DP_BATCH // DP_WORLD)
+    batch = [np.concatenate([a] * DP_WORLD) for a in half]
+    cfg_kw = dict(img_size=(G1["size"], G1["size"], 3), number_classes=1,
+                  anchors=G1["anchors"], compute_dtype="bfloat16",
+                  **G1["model"])
+    t0 = time.perf_counter()
+    ranks = D.spawn(dp_rank, DP_WORLD, batch, cfg_kw, DP_STEPS, 1e-4,
+                    DEVICE, backend="gloo", timeout_s=600.0)
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    dp, solo = r0["dp"]["metrics"], r0["solo_global"]["metrics"]
+    out = {"card": card, "world": DP_WORLD, "backend": "gloo",
+           "global_batch": DP_BATCH, "wall_s": wall,
+           "dp_loss": dp["loss"], "dp_loss_sum": dp["loss_sum"],
+           "solo_loss": solo["loss"], "solo_loss_sum": solo["loss_sum"],
+           "exact_sum_err": r0["exact_sum_err"],
+           "ms_per_step": {f"rank{r}": ranks[r]["dp"]["ms_per_step"]
+                           for r in range(DP_WORLD)},
+           "zero_ms_per_step": {f"rank{r}": ranks[r]["zero"]["ms_per_step"]
+                                for r in range(DP_WORLD)},
+           "solo_ms_per_step": {
+               "half": r0["solo_half"]["ms_per_step"],
+               "global": r0["solo_global"]["ms_per_step"]},
+           "max_memory_allocated": {
+               f"rank{r}": {"replicated": ranks[r]["dp"][
+                   "max_memory_allocated"], "zero": ranks[r]["zero"][
+                   "max_memory_allocated"]} for r in range(DP_WORLD)},
+           "solo_global_max_memory_allocated": r0["solo_global"][
+               "max_memory_allocated"],
+           "zero_vs_replicated_atol_units": max(
+               r["zero_vs_replicated_atol_units"] for r in ranks),
+           "zero_max_abs_diff": max(r["zero_max_abs_diff"] for r in ranks)}
+    log(f"data-parallel, {DP_WORLD} ranks on one card over gloo, global "
+        f"batch {DP_BATCH}, 512 px, full width, bf16: loss {dp['loss']} / "
+        f"one process {solo['loss']}, loss_sum {dp['loss_sum']} / "
+        f"{solo['loss_sum']}; summed gradients - 2 x one rank's: "
+        f"{out['exact_sum_err']}; ms/step {out['ms_per_step']} (one "
+        f"process: {out['solo_ms_per_step']}); peak memory "
+        f"{out['max_memory_allocated']}; ZeRO-1 vs replicated after "
+        f"{DP_STEPS} steps: max |diff| {out['zero_max_abs_diff']}")
+    out["gradients_vs_one_process"] = spread_check(
+        r0["global_errors"], "DP summed gradients / 2 vs one process on "
+        "the global batch")
+    if not (abs(dp["loss"] - solo["loss"]) <= 1e-3 * abs(solo["loss"])
+            and abs(dp["loss_sum"] - 2 * solo["loss_sum"])
+            <= 1e-3 * abs(2 * solo["loss_sum"])
+            and out["exact_sum_err"] == 0.0
+            and out["zero_vs_replicated_atol_units"] <= 1.0):
+        raise AssertionError(f"data-parallel step: {out}")
+    return out
+
+
+def phase_sharded_serving(torch, inf, TQ, build, path, card):
+    """`--num-devices`' sharded detectors on [cuda:0, cuda:0] against one
+    device, bf16 (the 1x1 kernel) and int8 (the default set), each
+    sharded call's launches twice one replica's batch of 4."""
+    import numpy as np
+    devices = [DEVICE] * 2
+    images = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (BATCH, *FULL["img_size"]), dtype=np.float32)).to(DEVICE)
+    out = {"card": card, "devices": devices}
+    for label in ("bf16", "int8"):
+        if label == "bf16":
+            one, _ = inf.make_detector_fn(path, device=DEVICE)
+            sharded, _ = inf.make_detector_fn(path, devices=devices)
+        else:
+            one, _ = TQ.make_quantized_detector_fn(path, images,
+                                                   device=DEVICE)
+            sharded, _ = TQ.make_quantized_detector_fn(path, images,
+                                                       devices=devices)
+        build.launch_counts.clear()
+        one(images[:BATCH // 2])
+        torch.cuda.synchronize()
+        replica = dict(build.launch_counts)
+        want = one(images)
+        build.launch_counts.clear()
+        got = sharded(images)
+        torch.cuda.synchronize()
+        launches = dict(build.launch_counts)
+        expected = {k: 2 * v for k, v in replica.items()}
+        err = float((got.float() - want.float()).abs().max())
+        fidelity = TQ.decode_iou_fidelity(want.float().cpu().numpy(),
+                                          got.float().cpu().numpy(),
+                                          top_k=20)
+        out[label] = {"launches": launches, "per_replica": replica,
+                      "max_abs_err": err, "fidelity": fidelity}
+        log(f"sharded {label} detector on {devices}: launches {launches} "
+            f"(one replica's batch of {BATCH // 2}: {replica}), max |diff| "
+            f"{err} against one device, decode fidelity {fidelity:.6f}")
+        if not (launches == expected and replica and fidelity >= 0.999
+                and got.shape == want.shape):
+            raise AssertionError(f"sharded {label}: {out[label]}")
+    return out
+
+
+def phase_remat(torch, ModelConfig, card):
+    """One train-mode forward and backward at full width (512 px, bf16,
+    b8) with and without `remat_blocks`, after one warm-up each: the loss
+    and gradients equal, the peak memory over the state and the seconds
+    of each."""
+    from yolov3_tpu_torch.config import TrainConfig
+    from yolov3_tpu_torch.parallel import train_step as T
+    batch = g1_batch(G1["size"], G1["box"], G1["images"])
+    kw = dict(img_size=(G1["size"], G1["size"], 3), number_classes=1,
+              anchors=G1["anchors"], compute_dtype="bfloat16", **G1["model"])
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    tcfg, n = TrainConfig(), G1["images"]
+    dev = [torch.from_numpy(a).to(DEVICE) for a in batch]
+    out, res = {"card": card}, {}
+    try:
+        for remat in (False, True):
+            cfg = ModelConfig(**kw, remat_blocks=remat)
+            state = T.create_train_state(cfg, tcfg, SEED, DEVICE)
+            for timed in (False, True):
+                state.model.zero_grad(set_to_none=True)
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                loss, _ = T._loss(state.model, cfg, tcfg, n, dev[0], dev[1:])
+                loss.backward()
+                torch.cuda.synchronize()
+            out["remat" if remat else "plain"] = {
+                "peak_over_base": torch.cuda.max_memory_allocated() - base,
+                "ms": (time.perf_counter() - t0) * 1e3}
+            res[remat] = (float(loss.detach()), {
+                k: p.grad.detach().float().cpu()
+                for k, p in state.model.named_parameters()})
+            del state, loss
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (l0, g0), (l1, g1) = res[False], res[True]
+    err = max(float((g1[k] - v).abs().max() / (v.abs().max() or 1.0))
+              for k, v in g0.items())
+    out.update(loss=l0, loss_remat=l1, max_grad_err_rel_leaf_max=err)
+    log(f"remat_blocks: loss {l1} vs {l0}, gradients within {err:.3e} of "
+        f"each leaf's largest |g|; peak over the state "
+        f"{out['remat']['peak_over_base'] / 2**30:.2f} GiB vs "
+        f"{out['plain']['peak_over_base'] / 2**30:.2f} GiB; forward and "
+        f"backward {out['remat']['ms']:.1f} ms vs {out['plain']['ms']:.1f}")
+    if not (l1 == l0 and err <= 1e-6
+            and out["remat"]["peak_over_base"]
+            < out["plain"]["peak_over_base"]):
+        raise AssertionError(f"remat: {out}")
+    return out
+
+
+def phase_multi(torch, inf, TQ, build, ModelConfig, path, card):
+    """Phase 13: G1's logits and full-depth step, data-parallel training
+    and ZeRO-1, sharded serving, remat; one JSON line."""
+    t0 = time.perf_counter()
+    out = {"g1": phase_g1(torch, ModelConfig, card)}
+    torch.cuda.empty_cache()
+    out["data_parallel"] = phase_data_parallel(torch, ModelConfig, card)
+    out["sharded_serving"] = phase_sharded_serving(torch, inf, TQ, build,
+                                                   path, card)
+    torch.cuda.empty_cache()
+    out["remat"] = phase_remat(torch, ModelConfig, card)
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"phase 13 took {out['wall_s']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", default=None,
@@ -2351,6 +2805,9 @@ def main(argv=None) -> int:
             torch, inf, TQ, build, ModelConfig, workdir, smi)
         torch.cuda.empty_cache()
         result["quality_gates"] = phase_gates(workdir, smi)
+        torch.cuda.empty_cache()
+        training["multi_device"] = result["multi_device"] = phase_multi(
+            torch, inf, TQ, build, ModelConfig, path, smi)
     result["pointwise_calls"] = pw_rows
     result["nms_cases"] = nms_rows
     result["greedy_cases"] = greedy_rows

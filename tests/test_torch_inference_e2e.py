@@ -189,11 +189,23 @@ def test_overlays_and_main(exports, images, tmp_path):
 
 @pytest.mark.parametrize("flags", [["--num-devices", "2"]])
 def test_unported_flags_raise(exports, images, tmp_path, flags):
+    """The flag once refused, now ported: `--num-devices 2` on the CPU
+    (the CPU twice) shards each batch of 2 (and the last batch of 1,
+    padded) over two replicas, and writes the one-device CSVs, in bf16
+    and with `--int8` (the int8 detector then, not the fused serving
+    function, calibrated once: the reference's rule)."""
     _, tpath = exports
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tinf.main(["--saved-model-filepath", tpath, "--output-folder",
-                   str(tmp_path / "o"), "--image-folder", images,
-                   "--image-format", "png", "--device", CPU, *flags])
+    for extra in ([], ["--int8"]):
+        outs = []
+        for more in ([], flags):
+            out = str(tmp_path / f"o{len(outs)}{len(extra)}")
+            tinf.main(["--saved-model-filepath", tpath, "--output-folder",
+                       out, "--image-folder", images, "--image-format",
+                       "png", "--device", CPU, "--batch-size", "2",
+                       "--save-scores", *extra, *more])
+            outs.append(read_all(out))
+        assert sorted(outs[1]) == ["im0.csv", "im1.csv", "im2.csv"]
+        assert outs[1] == outs[0]
 
 
 @pytest.fixture

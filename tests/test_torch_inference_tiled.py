@@ -194,6 +194,15 @@ def test_tile_size_must_match_the_export(exports, big_image, tmp_path):
 
 
 def test_num_devices_is_not_ported(exports, big_image, tmp_path):
+    """The flag once refused, now ported: `--num-devices 3` on the CPU
+    (the CPU three times) shards each batch of 8 tiles (padded to 9)
+    over three replicas and writes the one-device CSVs, in bf16 and with
+    `--int8` (the scales calibrate once, on the first device)."""
     _, tpath = exports
-    with pytest.raises(NotImplementedError, match="not ported"):
-        cli(tpath, big_image, str(tmp_path / "o"), "--num-devices", "2")
+    for extra in ([], ["--int8"]):
+        outs = []
+        for more in ([], ["--num-devices", "3"]):
+            out = str(tmp_path / f"o{len(outs)}{len(extra)}")
+            cli(tpath, big_image, out, *extra, *more)
+            outs.append(read_all(out))
+        assert outs[1] and outs[1] == outs[0]

@@ -1,9 +1,11 @@
 """The port's trainer CLI (`yolov3_tpu_torch/train.py`) end to end on the
 CPU: a 64 px store written by the port's own `RecordWriter`, readers,
 the train and eval steps, `test_loss.csv`, the best-only checkpoint, the
-export, `--resume`, `--profile_dir`, the NaN tripwire and the flags of
-a later slice (the device feed's flags: tests/test_torch_feed.py; QAT's:
-tests/test_torch_qat.py). The model is cut to block_count 1, filter_count 32 (the
+export, `--resume`, `--profile_dir`, the NaN tripwire and
+`--num_devices 2` with and without `--shard_optimizer 1` (the device
+feed's flags: tests/test_torch_feed.py; QAT's: tests/test_torch_qat.py;
+the data-parallel step and ZeRO-1 against JAX:
+tests/test_torch_parallel.py). The model is cut to block_count 1, filter_count 32 (the
 CLI, like the JAX one, has no width flags: the tests narrow its
 `ModelConfig`). The export is served by the port's whole-image CLI.
 """
@@ -143,11 +145,32 @@ def test_nan_loss_raises(small, stores, monkeypatch, where):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--num_devices", "2"], ["--shard_optimizer", "1"]])
-def test_unported_flags_raise(stores, flag):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        train.main(cli(stores, *flag))
-    assert not os.path.exists(stores / "out" / "test_loss.csv")
+    ["--num_devices", "2"], ["--num_devices", "2", "--shard_optimizer", "1"]])
+def test_unported_flags_raise(stores, monkeypatch, flag):
+    """The flags once refused, now ported: the CLI over two CPU processes
+    (gloo), replicated and with ZeRO-1, trains two epochs, writes
+    `test_loss.csv` and the checkpoint once (rank 0), and exports. The
+    ranks are fresh processes, so the narrow model goes to them through
+    `model_overrides` rather than the `small` fixture."""
+    real = train.train_model
+
+    def narrow(*args, **kw):
+        kw["model_overrides"] = dict(kw["model_overrides"] or {},
+                                     block_count=1, filter_count=32)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(train, "train_model", narrow)
+    train.main(cli(stores, *flag))
+    out = stores / "out"
+    losses = read_losses(out)
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    saved = ckpt._load_checkpoint(str(out), "cpu")
+    # every parameter's Adam state, whole, in the file
+    assert len(saved["optimizer"]["state"]) == len(list(
+        k for k in saved["model"] if k.endswith(("weight", "bias"))))
+    _, _, cfg = ckpt.load_model(str(out / "saved_model"))
+    assert (cfg.block_count, cfg.filter_count) == (1, 32)
+    assert len(glob.glob(str(out / "tensorboard-*"))) == 1
 
 
 def test_defaults_run_on_the_card():

@@ -47,7 +47,9 @@ from yolov3_tpu.parallel.train_step import _loss_and_metrics, make_optimizer
 from yolov3_tpu_torch.config import ModelConfig, TrainConfig
 from yolov3_tpu_torch.models.yolo import YoloV3
 from yolov3_tpu_torch.parallel import train_step as T
-from yolov3_tpu_torch.utils.checkpoint import flax_path, params_to_jax
+from yolov3_tpu_torch.utils.checkpoint import (adam_state_from_jax,
+                                               flax_path, params_to_jax,
+                                               set_adam_state)
 
 SMALL = dict(img_size=(64, 64, 3), number_classes=2,
              anchors=((16, 16), (32, 32)), block_count=1, filter_count=32,
@@ -251,6 +253,62 @@ def test_adam_fed_jax_gradients_matches_optax(init, steps):
                                        err_msg=f"{key} {k}")
 
 
+def test_adam_state_bridge_matches_optax(init):
+    """optax's Adam state after two steps, carried into the port's Adam by
+    `adam_state_from_jax` / `set_adam_state`, then one more step from the
+    same gradients on both sides: the parameters and moments agree at
+    test_adam_fed_jax_gradients_matches_optax's bounds for one step."""
+    tcfg = TrainConfig()
+    lr = tcfg.learning_rate
+    opt = optax.scale_by_adam(b1=tcfg.adam_b1, b2=tcfg.adam_b2,
+                              eps=tcfg.adam_eps)
+    params = init[0]
+    opt_state = opt.init(params)
+    update = jax.jit(opt.update)
+    rng = np.random.RandomState(7)
+
+    def draw():
+        return jax.tree_util.tree_map(
+            lambda p: (rng.randn(*p.shape) * 10.0 ** rng.uniform(-6, 0)
+                       ).astype(np.float32), params)
+
+    def apply(params, opt_state, grads):
+        updates, opt_state = update(grads, opt_state, params)
+        return optax.apply_updates(params, jax.tree_util.tree_map(
+            lambda u: -lr * u, updates)), opt_state
+
+    for _ in range(2):
+        params, opt_state = apply(params, opt_state, draw())
+    params, opt_state = host(params), host(opt_state)
+    cfg, state = port_state((params, init[1]))
+    set_adam_state(state.optimizer, state.model, adam_state_from_jax(
+        opt_state.mu, opt_state.nu, opt_state.count, cfg))
+    grads = draw()
+    params, opt_state = apply(params, opt_state, grads)
+    by_path = {flax_path(n): p for n, p in state.model.named_parameters()}
+    for k, g in flat(grads, "params").items():
+        by_path[k].grad = torch.from_numpy(
+            g.transpose(3, 2, 0, 1).copy() if g.ndim == 4 else g)
+    for group in state.optimizer.param_groups:
+        group["lr"] = lr
+    state.optimizer.step()
+    want = {"p": flat(host(params), "params"),
+            "m": flat(host(opt_state.mu), "params"),
+            "v": flat(host(opt_state.nu), "params")}
+    assert int(opt_state.count) == 3
+    for k, p in by_path.items():
+        st = state.optimizer.state[p]
+        assert float(st["step"]) == 3
+        for key, t in (("p", p), ("m", st["exp_avg"]),
+                       ("v", st["exp_avg_sq"])):
+            got = t.detach().numpy()
+            got = got.transpose(2, 3, 1, 0) if got.ndim == 4 else got
+            w = want[key][k]
+            atol = 1e-5 * lr if key == "p" else 1e-6 * np.abs(w).max()
+            np.testing.assert_allclose(got, w, rtol=1e-6, atol=atol,
+                                       err_msg=f"{key} {k}")
+
+
 @pytest.fixture(scope="module")
 def jax_grads(init):
     """JAX's loss and parameter gradients on the batch (train mode)."""
@@ -359,8 +417,20 @@ def test_eval_step_keeps_state_and_reprepares(init):
     assert float(m1["loss"]) != float(m0["loss"])
 
 
-def test_unported_train_config_raises():
-    for name in ("packed_loss", "shard_optimizer"):
-        with pytest.raises(NotImplementedError, match=name):
-            T.make_train_step(ModelConfig(**SMALL),
-                              TrainConfig(**{name: True}), BATCH)
+def test_unported_train_config_raises(init):
+    """`packed_loss`, a TPU formulation, stays refused; `shard_optimizer`
+    is ported (ZeRO-1, tests/test_torch_parallel.py), and over one rank
+    its optimizer is Adam itself, whose step is the plain one."""
+    with pytest.raises(NotImplementedError, match="packed_loss"):
+        T.make_train_step(ModelConfig(**SMALL),
+                          TrainConfig(packed_loss=True), BATCH)
+    tcfg = TrainConfig(shard_optimizer=True)
+    cfg, state = port_state(init, tcfg)
+    assert type(state.optimizer) is torch.optim.Adam
+    _, plain = port_state(init)
+    batch = to_torch(make_batch())
+    state, _ = T.make_train_step(cfg, tcfg, BATCH)(state, batch, LR)
+    plain, _ = T.make_train_step(cfg, TrainConfig(), BATCH)(plain, batch, LR)
+    for a, b in zip(state.model.state_dict().values(),
+                    plain.model.state_dict().values()):
+        assert torch.equal(a, b)

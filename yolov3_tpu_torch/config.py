@@ -6,25 +6,27 @@ An own copy of `yolov3_tpu/config.py`'s `ModelConfig` and
 package unchanged.
 
 Every field of the JAX config is accepted, including the TPU-only ones
-(`stem_space_to_depth`, `s2d_base_grads`, `stem1_im2row_grads`,
-`remat_blocks`). The float forward of this port ignores them: the
-space-to-depth stem is the same math as the plain stem laid out for the
-TPU's 128-wide lanes (one variable tree for both), and the two grad
-options change only how the TPU computes weight gradients.
-`remat_blocks` (recompute activations in the backward) is accepted and
-changes no math; multi-device training will take it through
-`torch.utils.checkpoint`. int8 post-training-quantized serving is ported
-(`models/quantized.py`, selected by the caller, not by the config); as in
-the reference, `stem_space_to_depth` is where its stem-region kernels
-apply (computed in the plain layout), and where stem1 stays bf16 under
+(`stem_space_to_depth`, `s2d_base_grads`, `stem1_im2row_grads`). The
+float forward of this port ignores them: the space-to-depth stem is the
+same math as the plain stem laid out for the TPU's 128-wide lanes (one
+variable tree for both), and the two grad options change only how the
+TPU computes weight gradients. `remat_blocks` recomputes each
+FeatureBlock's and YoloBlock's activations in the backward
+(`torch.utils.checkpoint`, `models/yolo.py::remat`), as the reference's
+`nn.remat` does: the same math in less memory. int8
+post-training-quantized serving is ported (`models/quantized.py`,
+selected by the caller, not by the config); as in the reference,
+`stem_space_to_depth` is where its stem-region kernels apply (computed
+in the plain layout), and where stem1 stays bf16 under
 quantization-aware training. `int8_train` selects the QAT train forward
 (`models/yolo.py::int8_ste_conv`), and `int8_train_static`, with it, the
 frozen activation scales; without `int8_train` it changes nothing, as in
 the reference.
 
 `TrainConfig` and `AugmentConfig` are copies of the JAX package's, with
-its defaults. The TPU-only `packed_loss` (the lane-domain loss) and
-`shard_optimizer` (ZeRO-1) are accepted at their defaults only.
+its defaults. `shard_optimizer` is ZeRO-1 over the data-parallel group
+(`parallel/train_step.py`); the TPU-only `packed_loss` (the lane-domain
+loss) is accepted at its default only.
 
 torch is imported lazily (`ModelConfig.dtype`): the reader's worker
 processes import this module and need no torch.
@@ -82,7 +84,7 @@ class ModelConfig:
     # straight-through backward; static: frozen calibrated act scales
     int8_train: bool = False
     int8_train_static: bool = False
-    # accepted; the same math (recomputing activations is multi-device's)
+    # recompute FeatureBlock/YoloBlock activations in the backward
     remat_blocks: bool = False
 
     def __post_init__(self):

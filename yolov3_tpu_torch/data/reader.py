@@ -27,8 +27,9 @@ Differences from the reference: examples are NHWC float32, not CHW, and
 stages onto the card. In raw mode (`--device_augment`) the workers only
 decode and pad the boxes; `data/device_pipeline.py` does the rest on the
 card. `ShmBatchReader` (`--shm_feed`) moves raw batches through a
-shared-memory ring instead of per-example pickles. The JAX reader's
-multi-host `shard` belongs to a later slice. Worker-reachable modules
+shared-memory ring instead of per-example pickles. `shard=(rank, world)`
+gives each data-parallel process an equal, disjoint 1/world of the
+store (the JAX reader's multi-host shard). Worker-reachable modules
 (this one, `config`, `augment`, `records`, `encoder`, `imaging`,
 `store`, `store_native`, `shm_ring`) import no torch and make no CUDA
 call.
@@ -86,9 +87,20 @@ class DatasetReader:
                  shuffle: bool = True,
                  num_workers: int = 1,
                  augment_config: Optional[AugmentConfig] = None,
-                 raw_mode: bool = False):
+                 raw_mode: bool = False,
+                 shard: Optional[Tuple[int, int]] = None):
         if not os.path.exists(img_db):
             raise FileNotFoundError(f"Missing database: {img_db}")
+        if shard is not None:
+            rank, world = int(shard[0]), int(shard[1])
+            if not 0 <= rank < world:
+                raise ValueError(f"shard rank {rank} not in [0, {world})")
+            shard = (rank, world) if world > 1 else None
+        # data parallelism: (rank, world) restricts this process to an
+        # equal-size, disjoint 1/world slice of the store; the class census
+        # still spans the whole store, so every rank derives the same
+        # number_classes and label shapes
+        self.shard = shard
         self.image_db = img_db
         self.anchors = [tuple(a) for a in anchors]
         self.use_augmentation = use_augmentation
@@ -139,6 +151,19 @@ class DatasetReader:
                         empty_images = True
                     else:
                         highest_class = max(highest_class, int(k))
+
+            if self.shard is not None:
+                rank, world = self.shard
+                # truncate to a multiple of world so every rank's shard,
+                # and so its epoch accounting, has the same size: unequal
+                # step counts would leave a collective waiting
+                usable = len(all_keys) - (len(all_keys) % world)
+                if usable == 0:
+                    raise ValueError(
+                        f"Database {self.image_db} has {len(all_keys)} "
+                        f"records, fewer than the {world} ranks sharding "
+                        f"it")
+                all_keys = [all_keys[i] for i in range(rank, usable, world)]
 
             bucket_count = highest_class + 1 + (1 if empty_images else 0)
             self.keys: List[List[bytes]] = [[] for _ in range(bucket_count)]

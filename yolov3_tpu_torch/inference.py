@@ -9,11 +9,18 @@ z-score -> model -> clip corners to the image -> strict small-box filter
 `--int8` serves the int8 post-training-quantized model
 (`models/quantized.py`), calibrated on the first batch (absmax, or
 `--calib-percentile`): through the fused serving function, the last
-chunk padded to the batch size, or with `--host_nms` through the int8
-detector and the shared post-processing. Everything runs on `device`,
-"cuda" unless the caller asks for "cpu" (the tests do). Multi-device
-sharding is not ported yet: `--num-devices` > 1 raises
-NotImplementedError.
+chunk padded to the batch size, or with `--host_nms` or `--num-devices`
+> 1 through the int8 detector and the shared post-processing (the
+reference's rule, inference.py:213-218). Everything runs on `device`,
+"cuda" unless the caller asks for "cpu" (the tests do).
+
+`--num-devices N` > 1 shards each batch over the first N cards (raises
+when fewer exist; with `--device cpu`, the CPU N times): one model
+replica per device, the batch padded to a multiple of N and split, the
+detections gathered in order (`parallel/distributed.py::
+shard_detector`, the reference's `shard_detector`). `make_detector_fn`
+and `inference` also take an explicit device list, which may repeat a
+device.
 """
 
 from __future__ import annotations
@@ -31,29 +38,47 @@ from yolov3_tpu_torch.data.imaging import ensure_hwc, imread
 from yolov3_tpu_torch.models import quantized
 from yolov3_tpu_torch.ops import boxes as bbox
 from yolov3_tpu_torch.ops.nms import batched_nms_device, nms_to_host
+from yolov3_tpu_torch.parallel import distributed as D
 from yolov3_tpu_torch.utils import checkpoint as ckpt
 
-_NOT_PORTED = ("--num-devices > 1 is not ported yet: the port serves on "
-               "one card (ROADMAP.md)")
+
+def resolve_devices(num_devices: int, device: str,
+                    devices: Optional[Sequence[str]] = None) -> List[str]:
+    """The serving device list: `devices` when given, else
+    `--num-devices`' (`distributed.serving_devices`), else [device]."""
+    if devices is not None:
+        return [str(d) for d in devices]
+    if num_devices > 1:
+        return D.serving_devices(num_devices, device)
+    return [device]
 
 
 def make_detector_fn(saved_model_filepath: str, num_devices: int = 1,
-                     device: str = "cuda"):
+                     device: str = "cuda",
+                     devices: Optional[Sequence[str]] = None):
     """Load an exported model and return (detector_fn, config).
 
     detector_fn(images NHWC [B, H, W, C]) -> detections [B, num_boxes,
-    4+1+C] float32 on `device`.
+    4+1+C] float32 on `device`; over several devices (`num_devices` > 1,
+    or an explicit `devices` list) the batch is sharded across replicas
+    and the detections land on the first device.
     """
-    if num_devices > 1:
-        raise NotImplementedError(_NOT_PORTED)
+    devices = resolve_devices(num_devices, device, devices)
     params, batch_stats, cfg = ckpt.load_model(saved_model_filepath)
-    model = ckpt.build_model(params, batch_stats, cfg, device)
+    models = {}
+    for dev in devices:
+        if dev not in models:
+            models[dev] = ckpt.build_model(params, batch_stats, cfg, dev)
 
-    @torch.inference_mode()
-    def detect(images) -> torch.Tensor:
-        return model(torch.as_tensor(images, device=device))
+    def detector(dev):
+        @torch.inference_mode()
+        def detect(images) -> torch.Tensor:
+            return models[dev](torch.as_tensor(images, device=dev))
+        return detect
 
-    return detect, cfg
+    if len(devices) == 1:
+        return detector(devices[0]), cfg
+    return D.shard_detector([detector(d) for d in devices], devices), cfg
 
 
 def make_serving_fn(saved_model_filepath: str,
@@ -200,9 +225,10 @@ def inference(image_folder: str, image_format: str,
               use_int8: bool = False,
               calib_percentile=None,
               save_scores: bool = False,
-              device: str = "cuda") -> None:
-    if num_devices > 1:
-        raise NotImplementedError(_NOT_PORTED)
+              device: str = "cuda",
+              devices: Optional[Sequence[str]] = None) -> None:
+    devices = resolve_devices(num_devices, device, devices)
+    device = devices[0]
     os.makedirs(output_folder, exist_ok=True)
     icfg = icfg or InferenceConfig(min_box_size=min_box_size)
     image_format = image_format.lstrip(".")
@@ -210,16 +236,19 @@ def inference(image_folder: str, image_format: str,
     files = sorted(fn for fn in os.listdir(image_folder)
                    if fn.endswith(f".{image_format}"))
     paths = [os.path.join(image_folder, fn) for fn in files]
-    # the int8 variants calibrate on the first batch, so they build lazily
+    # the int8 variants calibrate on the first batch, so they build
+    # lazily; the fused int8 serving function runs on one device only
     serve = detect = None
+    int8_fused = use_int8 and not use_host_nms and len(devices) == 1
     if not use_int8:
-        detect, cfg = make_detector_fn(saved_model_filepath, device=device)
+        detect, cfg = make_detector_fn(saved_model_filepath,
+                                       devices=devices)
 
     print("Starting inference of file list")
     for start in range(0, len(paths), batch_size):
         chunk = paths[start:start + batch_size]
         images = [ensure_hwc(imread(fp)) for fp in chunk]
-        if use_int8 and not use_host_nms:
+        if int8_fused:
             batch = zscore_images(torch.from_numpy(np.stack(images)).to(
                 device))
             if serve is None:
@@ -230,11 +259,12 @@ def inference(image_folder: str, image_format: str,
             rows_per_image, scores_per_image = serve_batch(serve, batch,
                                                            batch_size)
         else:
-            if detect is None:  # int8 with --host_nms
+            if detect is None:  # int8 with --host_nms or several devices
                 detect, cfg = quantized.make_quantized_detector_fn(
                     saved_model_filepath, zscore_images(torch.from_numpy(
                         np.stack(images)).to(device)),
-                    calib_percentile=calib_percentile, device=device)
+                    calib_percentile=calib_percentile, device=device,
+                    devices=devices)
             rows_per_image, scores_per_image = detect_images(
                 images, detect, cfg.number_classes, icfg, min_box_size,
                 use_host_nms, device)
@@ -285,8 +315,8 @@ def main(argv=None) -> None:
                         help="serve the int8 post-training-quantized path "
                              "(calibrated on the first batch)")
     parser.add_argument("--num-devices", type=int, default=1,
-                        help="shard image batches across N devices "
-                             "(only 1 is ported)")
+                        help="shard image batches across the first N "
+                             "devices")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to run on (default cuda)")
     args = parser.parse_args(argv)

@@ -13,8 +13,10 @@ tiles that are left.
 (`models/quantized.py::make_quantized_detector_fn`, on the device's
 default kernel set), calibrated on the first image's first 8 tiles.
 Everything runs on `device`, "cuda" unless the caller asks for "cpu"
-(the tests do). `--num-devices` > 1 raises NotImplementedError, as in
-`inference.py`.
+(the tests do). `--num-devices N` > 1 shards each tile batch over the
+first N cards, as `inference.py` does, the int8 detector too (its scales
+calibrate once, on the first card); `inference_image_folder` also takes
+an explicit device list.
 
     python -m yolov3_tpu_torch.inference_tiled --saved-model-filepath M \\
         --image-folder IN --output-folder OUT --image-format tif [--int8]
@@ -32,7 +34,7 @@ import torch
 from yolov3_tpu_torch.config import EDGE_EFFECT_RANGE, InferenceConfig
 from yolov3_tpu_torch.data.device_pipeline import zscore_images
 from yolov3_tpu_torch.data.imaging import ensure_hwc, imread
-from yolov3_tpu_torch.inference import _NOT_PORTED, make_detector_fn
+from yolov3_tpu_torch.inference import make_detector_fn, resolve_devices
 from yolov3_tpu_torch.ops import boxes as bbox
 from yolov3_tpu_torch.ops.nms import batched_nms_device, nms_to_host
 from yolov3_tpu_torch.utils.tiling import (convert_image_to_tiles,
@@ -111,9 +113,10 @@ def inference_image_folder(image_folder: str, image_format: str,
                            icfg: Optional[InferenceConfig] = None,
                            use_int8: bool = False,
                            calib_percentile=None,
-                           device: str = "cuda") -> None:
-    if num_devices > 1:
-        raise NotImplementedError(_NOT_PORTED)
+                           device: str = "cuda",
+                           devices: Optional[Sequence[str]] = None) -> None:
+    devices = resolve_devices(num_devices, device, devices)
+    device = devices[0]
     if not os.path.exists(saved_model_filepath):
         raise RuntimeError("Missing saved model filepath")
     image_format = image_format.lstrip(".")
@@ -129,9 +132,11 @@ def inference_image_folder(image_folder: str, image_format: str,
                                               tile_size, edge_range)
         detect, cfg = make_quantized_detector_fn(
             saved_model_filepath, zscore_tiles(tiles0[:8], device),
-            calib_percentile=calib_percentile, device=device)
+            calib_percentile=calib_percentile, device=device,
+            devices=devices)
     else:
-        detect, cfg = make_detector_fn(saved_model_filepath, device=device)
+        detect, cfg = make_detector_fn(saved_model_filepath,
+                                       devices=devices)
     expected_hw = (cfg.img_size[0], cfg.img_size[1])
     if tuple(tile_size) != expected_hw:
         raise ValueError(
@@ -167,8 +172,8 @@ def main(argv=None) -> None:
     parser.add_argument("--edge-range", type=int, default=EDGE_EFFECT_RANGE,
                         help="ghost-zone radius in pixels (multiple of 32)")
     parser.add_argument("--num-devices", type=int, default=1,
-                        help="shard tile batches across N devices "
-                             "(only 1 is ported)")
+                        help="shard tile batches across the first N "
+                             "devices")
     parser.add_argument("--max-boxes", type=int, default=512,
                         help="per-class candidate cap for the device NMS")
     parser.add_argument("--host_nms", action="store_true")

@@ -87,7 +87,7 @@ construction, after `load_state_dict` and in `set_act_scales`.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -652,20 +652,38 @@ def _calibrated(saved_model_filepath: str, calib_images,
 def make_quantized_detector_fn(saved_model_filepath: str, calib_images,
                                calib_percentile: Optional[float] = None,
                                device: str = "cuda",
-                               kernels: Optional[Dict[str, bool]] = None):
+                               kernels: Optional[Dict[str, bool]] = None,
+                               devices: Optional[Sequence[str]] = None):
     """int8 twin of `inference.make_detector_fn`: detect(images NHWC f32)
     -> decoded detections [B, num_boxes, 4+1+C] (no NMS), calibrated on
     `calib_images` (a representative z-scored batch). `kernels`: kernel
-    flag overrides (default: `default_serving_kernels(device)`)."""
-    model, cfg, _ = _calibrated(saved_model_filepath, calib_images,
-                                calib_percentile, device, kernels)
+    flag overrides (default: `default_serving_kernels(device)`). Over a
+    `devices` list the scales calibrate once, on the first device, and
+    the batch shards across replicas holding them
+    (`distributed.shard_detector`)."""
+    from yolov3_tpu_torch.parallel.distributed import shard_detector
+    devices = [str(d) for d in devices] if devices else [device]
+    model, cfg, scales = _calibrated(saved_model_filepath, calib_images,
+                                     calib_percentile, devices[0], kernels)
+    models = {devices[0]: model}
+    for dev in devices[1:]:
+        if dev not in models:
+            from yolov3_tpu_torch.utils import checkpoint as ckpt
+            params, batch_stats, _ = ckpt.load_model(saved_model_filepath)
+            models[dev] = build_quantized_model(params, batch_stats, cfg,
+                                                dev, act_scales=scales,
+                                                kernels=kernels)
 
-    @torch.inference_mode()
-    def detect(images) -> torch.Tensor:
-        return model.forward_detections(torch.as_tensor(images,
-                                                        device=device))
+    def detector(dev):
+        @torch.inference_mode()
+        def detect(images) -> torch.Tensor:
+            return models[dev].forward_detections(
+                torch.as_tensor(images, device=dev))
+        return detect
 
-    return detect, cfg
+    if len(devices) == 1:
+        return detector(devices[0]), cfg
+    return shard_detector([detector(d) for d in devices], devices), cfg
 
 
 def make_quantized_serving_fn(saved_model_filepath: str, calib_images,

@@ -47,13 +47,22 @@ With `int8_train_static` the activation scale is the block's frozen
 `scales_to_buffers`. Every ConvBlock quantizes except stem1 under
 `stem_space_to_depth` (the reference keeps it bf16 there); the detection
 heads stay plain. The eval forward ignores both flags.
+
+`ModelConfig.remat_blocks` wraps each FeatureBlock and YoloBlock of the
+train forward in `torch.utils.checkpoint` (non-reentrant), as the
+reference wraps them in `nn.remat` (yolo.py:814-822, 894-901): the
+backward recomputes their activations instead of keeping them. The
+recomputation moves no running statistic (`remat`), so the step's math
+is the plain one.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import List, Tuple
 
 import torch
+import torch.utils.checkpoint
 import torch.nn.functional as F
 from torch import nn
 
@@ -230,6 +239,7 @@ class BatchNorm(Prepared):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
+        self.frozen = False
         self.prepare()
 
     @torch.no_grad()
@@ -244,6 +254,8 @@ class BatchNorm(Prepared):
         return y.to(x.dtype)
 
     def _update_stats(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        if self.frozen:  # a checkpointed block's recomputation (`remat`)
+            return
         with torch.no_grad():
             m = self.momentum
             self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
@@ -364,6 +376,29 @@ class ConvBlock(Prepared):
         return self.bn.forward_affine(torch.where(y >= 0, y, self.alpha * y))
 
 
+@contextlib.contextmanager
+def _frozen_stats(module: nn.Module):
+    """The running statistics of `module`'s BatchNorms stay as they are."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for m in bns:
+        m.frozen = True
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.frozen = False
+
+
+def remat(module: nn.Module, x: torch.Tensor):
+    """module(x) in train mode under `torch.utils.checkpoint`: the
+    backward runs the forward again for the activations, with the
+    BatchNorms' running statistics left as the first run moved them."""
+    return torch.utils.checkpoint.checkpoint(
+        module, x, use_reentrant=False,
+        context_fn=lambda: (contextlib.nullcontext(),
+                            _frozen_stats(module)))
+
+
 class FeatureBlock(nn.Module):
     """Repeated 1x1 half-filter / k x k full-filter pairs; each repetition
     adds the ORIGINAL block input (reference/model.py:41-48)."""
@@ -442,8 +477,9 @@ class Darknet53(nn.Module):
 
     def __init__(self, in_channels: int, ck: dict, block_count: int,
                  filter_count: int, kernel: int, region_ck: dict,
-                 stem_ck: dict):
+                 stem_ck: dict, remat_blocks: bool = False):
         super().__init__()
+        self.remat_blocks = remat_blocks
         fc, k = filter_count, kernel
         widths = [fc // 32, fc // 16, fc // 8, fc // 4, fc // 2, fc]
         chans = [in_channels] + widths
@@ -460,7 +496,9 @@ class Darknet53(nn.Module):
         x = self.convs[0](x)
         routes = []
         for down, block in zip(self.convs[1:], self.blocks):
-            x = block(down(x))
+            x = down(x)
+            x = (remat(block, x) if self.remat_blocks and self.training
+                 else block(x))
             routes.append(x)
         return routes[2:]  # strides 8, 16, 32
 
@@ -486,7 +524,7 @@ class YoloV3(nn.Module):
                        and not cfg.stem_space_to_depth)
         k, fc = cfg.kernel_size, cfg.filter_count
         self.darknet = Darknet53(cfg.img_size[2], ck, cfg.block_count, fc, k,
-                                 region_ck, stem_ck)
+                                 region_ck, stem_ck, cfg.remat_blocks)
         f8, f16, f32 = fc // 4, fc // 2, fc
         self.yolo_blocks = nn.ModuleList([
             YoloBlock(f32, k, f32, ck), YoloBlock(2 * f16, k, f16, ck),
@@ -500,13 +538,19 @@ class YoloV3(nn.Module):
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         cfg = self.config
         route_s8, route_s16, route_s32 = self.darknet(x.to(cfg.dtype))
-        route, y = self.yolo_blocks[0](route_s32)
+
+        def yolo_block(block, x):
+            if cfg.remat_blocks and self.training:
+                return remat(block, x)
+            return block(x)
+
+        route, y = yolo_block(self.yolo_blocks[0], route_s32)
         fms = [self.heads[0](y)]
         for neck, skip, block, head in zip(self.necks, (route_s16, route_s8),
                                            self.yolo_blocks[1:],
                                            self.heads[1:]):
             y = upsample_2x(neck(route), cfg.upsample_channel_sum)
-            route, y = block(torch.cat([y, skip], dim=-1))
+            route, y = yolo_block(block, torch.cat([y, skip], dim=-1))
             fms.append(head(y))
         return fms
 

@@ -5,7 +5,10 @@ bf16 and with `--int8`, score the scored CSVs with `evaluate_folders`;
 mAP@0.5 must reach 0.9 on both (a copy of `scripts/quality_gate_512.py`).
 
     python -m yolov3_tpu_torch.quality_gate_512 [--steps 8000] \
-        [--out DIR] [--device cuda]
+        [--out DIR] [--device cuda] [--seed 0] [--compute_dtype bfloat16]
+
+`--seed` is the init seed of `init_train_params`; `--compute_dtype
+float32` trains the same recipe in f32 (the reference's gate is bf16).
 
 The images are written as `.npy` arrays (`data/imaging.py` reads them
 with numpy, no codec). `plant_dataset`, `overfit` and `serve_and_score`
@@ -78,8 +81,9 @@ def plant_dataset(out: str, n: int, size: int, box: int,
 
 def overfit(cfg, images: List[np.ndarray], gts: List[np.ndarray],
             steps: int, lr_at: Callable[[int], float], device: str,
-            recalibrate_every: Optional[int] = None, log_every: int = 0):
-    """Train `cfg` from `init_train_params(cfg, 0)` on the one batch of
+            recalibrate_every: Optional[int] = None, log_every: int = 0,
+            seed: int = 0):
+    """Train `cfg` from `init_train_params(cfg, seed)` on the one batch of
     all `images` for `steps` steps at lr_at(step); under static QAT the
     scales are recalibrated on the batch every `recalibrate_every` steps
     from step 0. Returns (state, the last step's loss, {step: loss} every
@@ -94,7 +98,7 @@ def overfit(cfg, images: List[np.ndarray], gts: List[np.ndarray],
                                                       make_train_step)
     n = len(images)
     tcfg = TrainConfig(batch_size=n)
-    state = create_train_state(cfg, tcfg, 0, device)
+    state = create_train_state(cfg, tcfg, seed, device)
     step = make_train_step(cfg, tcfg, n)
     labels = [encode_boxes(g.astype(np.float32), cfg.img_size, cfg.anchors,
                            cfg.number_classes) for g in gts]
@@ -159,6 +163,9 @@ def main(argv=None) -> int:
     p.add_argument("--decay_end", type=int, default=6000)
     p.add_argument("--out", default="qg512_out")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--compute_dtype", default="bfloat16",
+                   choices=("bfloat16", "float32"))
     args = p.parse_args(argv)
 
     from yolov3_tpu_torch.config import ModelConfig
@@ -172,17 +179,19 @@ def main(argv=None) -> int:
         args.out, args.images, size, box, np.random.RandomState(42))
     cfg = ModelConfig(img_size=(size, size, 3), number_classes=1,
                       anchors=((96, 96), (48, 48)),
-                      compute_dtype="bfloat16")
+                      compute_dtype=args.compute_dtype)
     t0 = time.perf_counter()
     state, final, logged = overfit(cfg, images, gts, args.steps, lr_at,
-                                   args.device, log_every=50)
+                                   args.device, log_every=50, seed=args.seed)
     train_s = time.perf_counter() - t0
     print(f"final loss {final:.4f} after {args.steps} steps "
           f"({train_s:.0f}s)", flush=True)
     maps = serve_and_score(state, cfg, img_dir, gt_dir, args.out,
                            min_box_size=32, batch_size=args.images,
                            device=args.device, save_scores=True)
-    results = {"steps": args.steps, "final_loss": final, "train_s": train_s,
+    results = {"steps": args.steps, "seed": args.seed,
+               "compute_dtype": args.compute_dtype, "final_loss": final,
+               "train_s": train_s,
                "mAP_bf16": maps["bf16"], "mAP_int8": maps["int8"],
                "loss_at": logged}
     print(json.dumps(results), flush=True)

@@ -27,10 +27,12 @@ keeps the scales with the rest of the state; the export carries none.
 
 The training checkpoint (`save_checkpoint` / `restore_checkpoint`) is the
 whole train state (parameters, BatchNorm statistics, QAT scales, Adam
-moments, step)
-in one `torch.save` file under `<output>/checkpoint/`, the JAX package's
-directory name, overwritten in place: the reference's best-only policy
-(reference/train.py:178-182).
+moments, step) in one `torch.save` file under `<output>/checkpoint/`,
+the JAX package's directory name, overwritten in place: the reference's
+best-only policy (reference/train.py:178-182). Under ZeRO-1 it holds the
+consolidated moments, so it resumes at any world size (the reference's
+ZeRO state is tied to its chip count). `adam_state_from_jax` carries
+optax's Adam state into `torch.optim.Adam`'s.
 """
 
 from __future__ import annotations
@@ -169,6 +171,50 @@ def params_from_jax(params: dict, batch_stats: dict, cfg: ModelConfig,
     return state
 
 
+def adam_state_from_jax(mu: dict, nu: dict, count, cfg: ModelConfig
+                        ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """optax's `ScaleByAdamState` (`mu`, `nu`: trees of numpy arrays in
+    the Flax `params` layout; `count`: the step) -> `torch.optim.Adam`'s
+    per-parameter state (`step`, `exp_avg`, `exp_avg_sq`), keyed by the
+    port's parameter name. The moments' kernels go from HWIO to OIHW as
+    the parameters' do; `set_adam_state` puts them into an optimizer."""
+    moments = {}
+    for tag, tree in (("exp_avg", mu), ("exp_avg_sq", nu)):
+        flat: Dict[str, np.ndarray] = {}
+        _flatten(tree, "params", flat)
+        moments[tag] = flat
+    step = torch.tensor(float(np.asarray(count)), dtype=torch.float32)
+    out = {}
+    for key, meta in _template(cfg).items():
+        path = flax_path(key)
+        if not path.startswith("params/"):
+            continue
+        out[key] = {"step": step.clone()}
+        for tag, flat in moments.items():
+            if path not in flat:
+                raise KeyError(f"Adam state has no {path} (for {key})")
+            value = np.asarray(flat.pop(path), np.float32)
+            if value.shape != _flax_shape(meta):
+                raise ValueError(f"{path}: shape {value.shape}, expected "
+                                 f"{_flax_shape(meta)}")
+            if value.ndim == 4:
+                value = value.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+            out[key][tag] = torch.from_numpy(np.ascontiguousarray(value))
+    left = sorted(k for flat in moments.values() for k in flat)
+    if left:
+        raise KeyError(f"Adam leaves left over: {left}")
+    return out
+
+
+def set_adam_state(optimizer: torch.optim.Optimizer, model: torch.nn.Module,
+                   state: Dict[str, Dict[str, torch.Tensor]]) -> None:
+    """Put `adam_state_from_jax`'s state into `optimizer` (an Adam over
+    `model`'s parameters), each tensor on its parameter's device."""
+    for name, p in model.named_parameters():
+        optimizer.state[p] = {k: v.to(p.device) if k != "step" else v
+                              for k, v in state[name].items()}
+
+
 def _to_jax(state: Dict[str, torch.Tensor]) -> dict:
     flat = {}
     for key, value in state.items():
@@ -254,15 +300,23 @@ def _checkpoint_file(output_folder: str) -> str:
                                         STATE_FILE))
 
 
-def save_checkpoint(output_folder: str, state) -> str:
+def save_checkpoint(output_folder: str, state, write: bool = True) -> str:
     """Overwrite `<output>/checkpoint` with the train state (`state.model`,
-    `state.optimizer`, `state.step`); the caller decides when."""
+    `state.optimizer`, `state.step`); the caller decides when. A ZeRO-1
+    optimizer's moments are consolidated onto rank 0 first (a collective:
+    every rank calls this, rank 0 with `write`), so the file holds the
+    whole Adam state, which an optimizer of any world size loads."""
+    optimizer = state.optimizer
+    if hasattr(optimizer, "consolidate_state_dict"):
+        optimizer.consolidate_state_dict(to=0)
     path = os.path.dirname(_checkpoint_file(output_folder))
+    if not write:
+        return path
     if os.path.exists(path):
         shutil.rmtree(path)
     os.makedirs(path)
     torch.save({"step": int(state.step), "model": state.model.state_dict(),
-                "optimizer": state.optimizer.state_dict()},
+                "optimizer": optimizer.state_dict()},
                _checkpoint_file(output_folder))
     return path
 
