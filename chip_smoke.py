@@ -2393,6 +2393,100 @@ def grads_of(torch, T, cfg, tcfg, batch, device, n, seed=SEED):
                                   for k, p in state.model.named_parameters()}
 
 
+def mxu_conv_shapes(torch, cfg, batch):
+    """The (x shape, weight shape, stride) of every conv of `cfg`'s train
+    forward at `batch` images (shapes only: a run on the meta device)."""
+    from yolov3_tpu_torch.models import yolo
+    model = yolo.YoloV3(cfg).to("meta").train()
+    shapes = set()
+
+    def hook(m, inputs):
+        stride = getattr(m, "stride", 1)
+        shapes.add((tuple(inputs[0].shape), tuple(m.conv.weight.shape),
+                    stride))
+    for m in model.modules():
+        if isinstance(m, (yolo.ConvBlock, yolo.DetectionHead)):
+            m.register_forward_pre_hook(hook)
+    model(torch.empty(batch, *cfg.img_size, device="meta"))
+    return sorted(shapes)
+
+
+def load_probe():
+    """scripts/qg512_probe.py as a module (its MXU conv)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "qg512_probe", os.path.join(HERE, "scripts", "qg512_probe.py"))
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    return probe
+
+
+def phase_mxu_exact(torch, ModelConfig, batches):
+    """The probe's `mxu_conv` (scripts/qg512_probe.py `--mxu 1`, G1's
+    experiment) on the card: at every conv shape of the flagship model's
+    train forward at each batch, on seeded bf16-valued operands, the
+    forward and the VJP (dgrad and wgrad) with TF32 on and off against
+    f64 (`route_errors`), and TF32 against TF32 off. A shape passes where
+    the route mxu_conv takes (TF32 where `tf32_is_exact`, else TF32 off)
+    is within the larger of MXU_TOL and twice the f32 conv's own error of
+    the f64 sums. An algorithm that transforms its operands (Winograd,
+    FFT) shows as a TF32 error far above the f32 conv's."""
+    from yolov3_tpu_torch.models import yolo
+    probe = load_probe()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+
+    def bf16_valued(shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=DEVICE)
+                * scale).to(torch.bfloat16)
+    cfg = ModelConfig(**dict(FULL, use_pallas_pointwise=False))
+    rows, t0 = [], time.perf_counter()
+    for batch in batches:
+        for xs, ws, stride in mxu_conv_shapes(torch, cfg, batch):
+            x = bf16_valued(xs)
+            w = bf16_valued(ws, (ws[1] * ws[2] * ws[3]) ** -0.5)
+            dy = bf16_valued((xs[0], -(-xs[1] // stride),
+                              -(-xs[2] // stride), ws[0]))
+            row = {"x": xs, "w": ws, "stride": stride}
+            for kind, fn in (
+                    ("fwd", lambda dt: (yolo.conv2d_same(
+                        x.to(dt), w.to(dt), None, stride),)),
+                    ("vjp", lambda dt: yolo._conv_vjp(
+                        x.to(dt), w.to(dt), dy.to(dt), stride))):
+                outs, errs = probe.route_errors(fn)
+                ok = probe.tf32_is_exact(errs)
+                row[kind] = {
+                    "tf32_err": errs[True], "f32_err": errs[False],
+                    "tf32_vs_off": max(
+                        float((a - b).abs().max() / b.abs().max())
+                        for a, b in zip(outs[True], outs[False])),
+                    "route": "tf32" if ok else "tf32_off",
+                    "route_err": errs[ok]}
+                del outs
+            rows.append(row)
+            del x, w, dy
+    torch.cuda.empty_cache()
+    kinds = [(r, k) for r in rows for k in ("fwd", "vjp")]
+    worst = max(kinds, key=lambda rk: rk[0][rk[1]]["tf32_vs_off"])
+    out = {"shapes": len(rows), "seconds": time.perf_counter() - t0,
+           "worst_tf32_vs_off": dict(worst[0], kind=worst[1]),
+           "worst_route_err": max(r[k]["route_err"] for r, k in kinds),
+           "pinned_tf32_off": [dict(r, kind=k) for r, k in kinds
+                               if r[k]["route"] == "tf32_off"],
+           "failed": [dict(r, kind=k) for r, k in kinds
+                      if r[k]["route_err"] > max(
+                          probe.MXU_TOL, 2 * r[k]["f32_err"])]}
+    log(f"mxu_conv at {len(rows)} conv shapes (batches {batches}): TF32 vs "
+        f"TF32 off at most {worst[0][worst[1]]['tf32_vs_off']:.3g} "
+        f"({worst[0]['x']} {worst[0]['w']} s{worst[0]['stride']} "
+        f"{worst[1]}); the route's error against f64 at most "
+        f"{out['worst_route_err']:.3g}; {len(out['pinned_tf32_off'])} "
+        f"of {len(kinds)} pinned TF32 off")
+    if out["failed"]:
+        raise AssertionError(f"mxu_conv's route is not exact: "
+                             f"{out['failed']}")
+    return out
+
+
 def phase_g1(torch, ModelConfig, card):
     """G1 on the card: the 512 px gate's first `G1["steps"]` steps (full
     depth, bf16, its lr schedule, from `init_train_params(cfg, 0)`), the
@@ -2706,10 +2800,13 @@ def phase_remat(torch, ModelConfig, card):
 
 
 def phase_multi(torch, inf, TQ, build, ModelConfig, path, card):
-    """Phase 13: G1's logits and full-depth step, data-parallel training
-    and ZeRO-1, sharded serving, remat; one JSON line."""
+    """Phase 13: the MXU conv's card route at every flagship conv shape
+    at the 512 px gate's batch, G1's logits and full-depth step,
+    data-parallel training and ZeRO-1, sharded serving, remat; one JSON
+    line."""
     t0 = time.perf_counter()
-    out = {"g1": phase_g1(torch, ModelConfig, card)}
+    out = {"mxu_exact": phase_mxu_exact(torch, ModelConfig, [G1["images"]])}
+    out["g1"] = phase_g1(torch, ModelConfig, card)
     torch.cuda.empty_cache()
     out["data_parallel"] = phase_data_parallel(torch, ModelConfig, card)
     out["sharded_serving"] = phase_sharded_serving(torch, inf, TQ, build,

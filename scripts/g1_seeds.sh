@@ -1,8 +1,16 @@
 #!/usr/bin/env bash
 # The 512 px quality gate several times side by side on one card, through
-# scripts/qg512_probe.py (every step logged). A run is named
-# bf16_seed<N> (bf16, init seed N), f32_seed<N> (f32 with TF32 off) or
-# bf16chain_seed<N> (bf16 with the probe's --f32_chain 1).
+# scripts/qg512_probe.py (every step logged). A run is named <arith>_seed<N>
+# (init seed N), the arithmetic one of:
+#   bf16        the port's bf16 training
+#   f32         f32 with TF32 off
+#   bf16chain   the probe's --f32_chain 1
+#   mxu         the probe's --mxu 1 (the TPU MXU's arithmetic)
+#   mxubwd32    --mxu 1 --mxu_f32_backward 1
+#   mxuheads    --mxu 1 --bf16_heads 1
+#   mxucot      --mxu 1 --bf16_cotangents 1
+#   mxures      --mxu 1 --bf16_residuals 1
+# A run that spiked and stayed above loss 10 for 1000 steps is cut.
 # Logs and outputs go to chiprun_out/g1/; each run's last lines (its
 # probe summary and the gate's result) are printed at the end. The exit
 # code is 0 when every run reached its summary, whether the gate passed
@@ -22,6 +30,11 @@ for name in "$@"; do
   case $name in
     bf16_seed*) extra=() ;;
     bf16chain_seed*) extra=(--f32_chain 1) ;;
+    mxu_seed*) extra=(--mxu 1) ;;
+    mxubwd32_seed*) extra=(--mxu 1 --mxu_f32_backward 1) ;;
+    mxuheads_seed*) extra=(--mxu 1 --bf16_heads 1) ;;
+    mxucot_seed*) extra=(--mxu 1 --bf16_cotangents 1) ;;
+    mxures_seed*) extra=(--mxu 1 --bf16_residuals 1) ;;
     f32_seed*) extra=(--tf32 0 --compute_dtype float32) ;;
     *) echo "unknown run $name"; exit 2 ;;
   esac
@@ -34,7 +47,7 @@ wait
 status=0
 for name in "$@"; do
   echo "== $name"
-  grep -E "^(probe summary|\{\"steps\"|GATE|bf16:|int8:|final loss)" \
+  grep -E "^(probe summary|\{\"steps\"|GATE|bf16:|int8:|final loss|.*mxu_conv)" \
     "$out/$name.out" | cut -c1-1500
   tail -n 1 "$out/$name.out"
   grep -q "probe summary" "$out/$name.out" || status=1

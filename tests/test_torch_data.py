@@ -2,8 +2,9 @@
 the store, the label encoder, augmentation and the reader) against the
 JAX package's, on the same seeded inputs.
 
-Everything is exact (bytes, keys, boxes, label grids, census, batches)
-except the augmented image, whose bilinear rescale is the port's own
+Everything is exact (bytes, keys, boxes, label grids and their decoding,
+the CHW transpose, census, batches) except the single-image z-score
+(1e-5: XLA sums in another order) and the augmented image, whose bilinear rescale is the port's own
 numpy version of the JAX module's OpenCV call: within 1.5 float32 ulp of
 a [0, 255] pixel (4.6e-5) before the noise and blur, which are linear,
 so within atol 2e-4 after them.
@@ -11,20 +12,33 @@ so within atol 2e-4 after them.
 
 import os
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from yolov3_tpu.data import augment as jaug
 from yolov3_tpu.data import isg_ai_pb2
 from yolov3_tpu.data import records as jrec
 from yolov3_tpu.data import store as jstore
+from yolov3_tpu.data import store_native as j_store_native
+from yolov3_tpu.data.device_pipeline import zscore_image as j_zscore_image
+from yolov3_tpu.data.encoder import decode_label_grid as j_decode_label_grid
 from yolov3_tpu.data.encoder import encode_boxes as j_encode_boxes
+from yolov3_tpu.data.imaging import format_image_chw as j_format_image_chw
 from yolov3_tpu.data.reader import DatasetReader as JReader
 from yolov3_tpu_torch.data import augment as taug
 from yolov3_tpu_torch.data import isg_ai
 from yolov3_tpu_torch.data import records as trec
 from yolov3_tpu_torch.data import store as tstore
+from yolov3_tpu_torch.data import store_native as t_store_native
+from yolov3_tpu_torch.data.device_pipeline import (
+    zscore_image as t_zscore_image)
+from yolov3_tpu_torch.data.encoder import (
+    decode_label_grid as t_decode_label_grid)
 from yolov3_tpu_torch.data.encoder import encode_boxes as t_encode_boxes
+from yolov3_tpu_torch.data.imaging import (
+    format_image_chw as t_format_image_chw)
 from yolov3_tpu_torch.data.reader import DatasetReader as TReader
 
 ANCHORS = ((16, 16), (32, 32))
@@ -137,6 +151,49 @@ def test_encode_boxes_matches_jax(seed):
         for t, j in zip(t_encode_boxes(boxes, img, ANCHORS, 3),
                         j_encode_boxes(boxes, img, ANCHORS, 3)):
             np.testing.assert_array_equal(t, j)
+
+
+@pytest.mark.parametrize("all_anchors", [True, False])
+@pytest.mark.parametrize("seed", range(3))
+def test_decode_label_grid_matches_jax(seed, all_anchors):
+    rng = np.random.RandomState(20 + seed)
+    img = (96, 64, 3)
+    n = rng.randint(0, 9)
+    boxes = np.stack([rng.randint(0, 32, n), rng.randint(0, 48, n),
+                      rng.randint(5, 40, n), rng.randint(5, 40, n),
+                      rng.randint(0, 3, n)], 1).astype(np.int32)
+    for grid in t_encode_boxes(boxes, img, ANCHORS, 3):
+        got = t_decode_label_grid(grid, all_anchors)
+        want = j_decode_label_grid(grid, all_anchors)
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+    with pytest.raises(ValueError):
+        t_decode_label_grid(np.zeros((4, 4, 7), np.float32))
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.float32])
+@pytest.mark.parametrize("shape", [(24, 20, 3), (9, 7, 1)])
+def test_image_helpers_match_jax(shape, dtype):
+    """format_image_chw, and the single-image zscore_image on a noisy
+    and a flat image (the std <= 1 branch) within 1e-5, as
+    test_torch_inference_e2e.py holds the batched zscore_images: XLA
+    sums in another order and divides by the count as a multiply by its
+    f32 reciprocal (a flat image of 7s has mean 7.0000005 there)."""
+    rng = np.random.RandomState(sum(shape))
+    img = (rng.rand(*shape) * 255).astype(dtype)
+    got = t_format_image_chw(img)
+    want = j_format_image_chw(img)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+    for x in (img, np.full(shape, 7, dtype)):
+        z = t_zscore_image(torch.from_numpy(x)).numpy()
+        jz = np.asarray(j_zscore_image(jnp.asarray(x)))
+        assert z.dtype == jz.dtype == np.float32
+        np.testing.assert_allclose(z, jz, rtol=1e-5, atol=1e-5)
+
+
+def test_native_store_available_matches_jax():
+    assert t_store_native.available() == j_store_native.available()
 
 
 def augment_inputs(seed):

@@ -1,5 +1,6 @@
-"""The PyTorch port and chip_smoke.py stand alone: no JAX, no JAX package,
-no scikit-learn and no OpenCV (the card's host has neither)."""
+"""The PyTorch port, chip_smoke.py and the probe script it loads stand
+alone: no JAX, no JAX package, no scikit-learn and no OpenCV (the card's
+host has neither)."""
 
 import os
 import shutil
@@ -18,6 +19,7 @@ names = [m.name for m in pkgutil.walk_packages(yolov3_tpu_torch.__path__,
 for name in names:
     __import__(name)
 import chip_smoke
+chip_smoke.load_probe()  # scripts/qg512_probe.py, which phase 13 loads
 banned = {"jax", "jaxlib", "flax", "optax", "orbax", "yolov3_tpu", "sklearn",
           "cv2"}
 bad = sorted(m for m in sys.modules if m.split(".")[0] in banned

@@ -1,7 +1,8 @@
 """The port's tools against the JAX package's: the dataset builder
 (`data/builder.py`), evaluation (`utils/evaluation.py`), the anchor
 finder (`find_anchors.py`, numpy k-means against scikit-learn's) and
-the Keras weight importer (`utils/tf_import.py`), the last also through
+the box-union helpers
+(`ops/boxes.py`), the Keras weight importer (`utils/tf_import.py`), the last also through
 the port's model alone on the golden fixtures.
 
 Exact: the builder's stores (keys, record bytes, annotation lists), AP
@@ -21,6 +22,7 @@ import torch
 from yolov3_tpu import find_anchors as janchors
 from yolov3_tpu.data import builder as jbuilder
 from yolov3_tpu.data import store as jstore
+from yolov3_tpu.ops import boxes as jboxes
 from yolov3_tpu.utils import evaluation as jeval
 from yolov3_tpu.utils import tf_golden
 from yolov3_tpu.utils import tf_import as jtf
@@ -123,6 +125,30 @@ def detections(seed, n_img=6):
                            rng.integers(0, 4, len(boxes)).astype(np.int32))
         gts[f"im{i}"] = gt
     return preds, gts
+
+
+@pytest.mark.parametrize("seed", range(3))
+@pytest.mark.parametrize("iou", [0.0, 0.2, 0.5])
+def test_union_all_overlapping_bb_matches_jax(seed, iou):
+    """`ops/boxes.py`'s box union helpers: clusters of overlapping
+    boxes merge to their hulls, bit for bit as JAX's."""
+    rng = np.random.default_rng(40 + seed)
+    n = int(rng.integers(2, 12))
+    lt = rng.uniform(0, 100, (n, 2))
+    boxes = np.concatenate([lt, lt + rng.uniform(5, 40, (n, 2))], 1)
+    scores = rng.uniform(0, 1, n)
+    got = bbox.union_all_overlapping_bb(boxes, scores, iou)
+    want = jboxes.union_all_overlapping_bb(boxes, scores, iou)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+    hull, weight = bbox.box_union(boxes, scores)
+    jhull, jweight = jboxes.box_union(boxes, scores)
+    np.testing.assert_array_equal(hull, jhull)
+    assert weight == jweight
+    for g, w in zip(bbox.union_all_overlapping_bb(boxes[:1], scores[:1]),
+                    jboxes.union_all_overlapping_bb(boxes[:1], scores[:1])):
+        np.testing.assert_array_equal(g, w)
 
 
 @pytest.mark.parametrize("seed", range(3))

@@ -196,6 +196,16 @@ def _gaussian_blur(img: torch.Tensor, sigma: torch.Tensor,
     return img
 
 
+def zscore_image(img: torch.Tensor) -> torch.Tensor:
+    """Per-image z-score of one image, in float32, with the std <= 1
+    guard (reference/imagereader.py:34-46); `zscore_images` is the
+    batched form."""
+    x = img.to(torch.float32)
+    mean = x.mean()
+    std = torch.sqrt(((x - mean) ** 2).mean())
+    return torch.where(std <= 1.0, x - mean, (x - mean) / std)
+
+
 def zscore_images(images: torch.Tensor) -> torch.Tensor:
     """Per-image z-score of an NHWC batch, in float32, on the batch's device.
 

@@ -81,6 +81,27 @@ def encode_boxes(boxes: np.ndarray, image_size: Sequence[int],
     return labels
 
 
+def decode_label_grid(label: np.ndarray, all_anchors: bool = True
+                      ) -> np.ndarray:
+    """Inverse of `encode_boxes` for one [gh, gw, A, 5+C] grid: the [M, 4]
+    boxes (x, y, w, h with x, y the top-left corner) of its object cells.
+    A debug helper after reference/imagereader.py:63-75, which inspects
+    anchor slot 0 only (`all_anchors=False`); the corner is x - int(w/2),
+    as the reference's inverse has it."""
+    if label.ndim != 4:
+        raise ValueError("expected [gh, gw, A, 5+C] grid")
+    grid = label if all_anchors else label[:, :, 0:1, :]
+    out = []
+    for i, j, a in zip(*np.nonzero(grid[:, :, :, 4])):
+        bb = grid[i, j, a, 0:4].copy()
+        bb[0] = bb[0] - int(bb[2] / 2)
+        bb[1] = bb[1] - int(bb[3] / 2)
+        out.append(bb)
+    if not out:
+        return np.zeros((0, 4), dtype=np.float32)
+    return np.vstack(out)
+
+
 # Fixed per-image box capacity for static shapes on the device (the raw
 # feed's padded boxes, which data/device_pipeline.py consumes).
 MAX_BOXES = 64

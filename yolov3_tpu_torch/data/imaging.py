@@ -36,6 +36,12 @@ def imwrite(img: np.ndarray, fp: str) -> None:
     iio.imwrite(fp, img)
 
 
+def format_image_chw(image_data: np.ndarray) -> np.ndarray:
+    """HWC -> CHW transpose (reference/imagereader.py:57-60), for the
+    reference's NCHW interchange format; the model takes NHWC."""
+    return np.transpose(image_data, [2, 0, 1])
+
+
 def ensure_hwc(img: np.ndarray) -> np.ndarray:
     """Promote a 2-D grayscale image to HWC with one channel."""
     if img.ndim == 2:

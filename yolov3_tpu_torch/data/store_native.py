@@ -117,6 +117,15 @@ def load() -> ctypes.CDLL:
     return lib
 
 
+def available() -> bool:
+    """Whether the engine's library builds and loads here."""
+    try:
+        load()
+    except (OSError, RuntimeError):
+        return False
+    return True
+
+
 class NativeRecordReader:
     """Drop-in for `store.RecordReader` over the C++ engine. Views from
     `get`/`get_batch` alias the engine's mapping: they are valid until

@@ -99,6 +99,52 @@ def filter_small_boxes(boxes: np.ndarray, min_size: float) -> np.ndarray:
 # CSV I/O
 # ---------------------------------------------------------------------------
 
+def box_union(boxes: np.ndarray, weights: np.ndarray
+              ) -> Tuple[np.ndarray, float]:
+    """The hull of ltrb `boxes` ([1, 4]) and their mean weight
+    (reference/bbox_utils.py:127-135)."""
+    bb = np.array([[boxes[:, 0].min(), boxes[:, 1].min(),
+                    boxes[:, 2].max(), boxes[:, 3].max()]])
+    return bb, float(np.mean(weights))
+
+
+def union_all_overlapping_bb(boxes: np.ndarray, scores: np.ndarray,
+                             minimum_iou_for_merge: float = 0.0,
+                             ) -> Tuple[np.ndarray, np.ndarray]:
+    """Merge overlapping ltrb boxes into their hulls until none overlap
+    (reference/bbox_utils.py:138-197; no CLI calls it). A worklist in
+    descending score: its head absorbs every box whose IoU with it
+    exceeds the threshold (hull, mean score) and goes to the back; the
+    loop ends once a whole pass merges nothing."""
+    if len(scores) <= 1:
+        return boxes, scores
+    boxes = boxes.astype(np.float64, copy=True)
+    scores = np.array(scores, copy=True)
+    areas = (boxes[:, 2] - boxes[:, 0]) * (boxes[:, 3] - boxes[:, 1])
+    worklist = scores.argsort()[::-1].tolist()
+    stale_passes = 0
+    while len(worklist) > 1 and stale_passes <= len(worklist):
+        idx = worklist.pop(0)
+        rest = np.asarray(worklist)
+        ious = compute_iou(boxes[idx], boxes[rest], areas[idx], areas[rest])
+        hit = np.nonzero(ious > minimum_iou_for_merge)[0]
+        if hit.size:
+            stale_passes = 0
+            members = np.append(rest[hit], idx)
+            hull, w = box_union(boxes[members], scores[members])
+            boxes[idx, :] = hull[0]
+            scores[idx] = w
+            areas[idx] = (hull[0, 2] - hull[0, 0]) * (hull[0, 3] - hull[0, 1])
+            absorbed = set(hit.tolist())
+            worklist = [v for k, v in enumerate(worklist)
+                        if k not in absorbed]
+        else:
+            stale_passes += 1
+        worklist.append(idx)
+    sel = np.asarray(worklist)
+    return boxes[sel, :], scores[sel]
+
+
 def load_boxes_to_xywhc(filepath: str) -> np.ndarray:
     """Read an annotation CSV into [N,5] float (x, y, w, h, class); a
     missing file yields an empty [0,5] array."""
