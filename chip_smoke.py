@@ -118,8 +118,10 @@ Phases, in order; any failure exits non-zero:
      loss under 0.5, then the export served through
      `inference.inference` in bf16 and with `--int8` and scored by
      `evaluate_folders`: mAP@0.5 >= 0.9 on both. One JSON line.
- 13. Multi-device and G1 (`G1`, the 512 px gate's setting): the gate's
-     first 30 steps at full depth, bf16, from `init_train_params(cfg,
+ 13. Multi-device and G1 (`G1`, the 512 px gate's setting): the G1
+     probe's MXU conv at every flagship conv shape at the gate's batch,
+     forward and VJP, the route it takes within `MXU_BOUND` of the f64
+     sums (`phase_mxu_exact`); the gate's first 30 steps at full depth, bf16, from `init_train_params(cfg,
      0)`, a step's loss and per scale its largest |objectness logit| and
      wh logit of the cells without an object as one JSON line; one
      full-depth f32 step's gradients on the card (TF32 off) against the
@@ -2393,6 +2395,16 @@ def grads_of(torch, T, cfg, tcfg, batch, device, n, seed=SEED):
                                   for k, p in state.model.named_parameters()}
 
 
+# the route mxu_conv takes against the f64 sums, of the largest |value|:
+# above the routes measured on an H100 (4.50e-5 at b16, 2.22e-5 at b8),
+# below what a conv that transforms its operands gives under TF32
+# (Winograd, FFT: each transformed operand rounded to a 10-bit mantissa,
+# up to 4.9e-4 of each product). The TF32-off conv alone is not held to
+# it: one wgrad's 131072-term sums (b8, 128 px, 64 -> 128 channels) are
+# 5.8e-5 off in f32, where TF32, 2.2e-5 off, is the route.
+MXU_BOUND = 5e-5
+
+
 def mxu_conv_shapes(torch, cfg, batch):
     """The (x shape, weight shape, stride) of every conv of `cfg`'s train
     forward at `batch` images (shapes only: a run on the meta device)."""
@@ -2426,11 +2438,12 @@ def phase_mxu_exact(torch, ModelConfig, batches):
     experiment) on the card: at every conv shape of the flagship model's
     train forward at each batch, on seeded bf16-valued operands, the
     forward and the VJP (dgrad and wgrad) with TF32 on and off against
-    f64 (`route_errors`), and TF32 against TF32 off. A shape passes where
-    the route mxu_conv takes (TF32 where `tf32_is_exact`, else TF32 off)
-    is within the larger of MXU_TOL and twice the f32 conv's own error of
-    the f64 sums. An algorithm that transforms its operands (Winograd,
-    FFT) shows as a TF32 error far above the f32 conv's."""
+    f64 (`route_errors`). A shape passes where the route mxu_conv takes
+    there (TF32 where `tf32_is_exact`, else TF32 off) is within
+    `MXU_BOUND` of the f64 sums, relative to the largest |value|, and
+    finite. TF32 against TF32 off is reported, not bounded: at some
+    shapes TF32 is the inexact one (pinned TF32 off), at one the f32
+    conv is."""
     from yolov3_tpu_torch.models import yolo
     probe = load_probe()
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
@@ -2466,21 +2479,25 @@ def phase_mxu_exact(torch, ModelConfig, batches):
             del x, w, dy
     torch.cuda.empty_cache()
     kinds = [(r, k) for r in rows for k in ("fwd", "vjp")]
-    worst = max(kinds, key=lambda rk: rk[0][rk[1]]["tf32_vs_off"])
+    worst = max(kinds, key=lambda rk: rk[0][rk[1]]["route_err"])
     out = {"shapes": len(rows), "seconds": time.perf_counter() - t0,
-           "worst_tf32_vs_off": dict(worst[0], kind=worst[1]),
-           "worst_route_err": max(r[k]["route_err"] for r, k in kinds),
+           "bound": MXU_BOUND, "worst_route": dict(worst[0], kind=worst[1]),
+           "worst_route_err": worst[0][worst[1]]["route_err"],
+           "worst_f32_err": max(r[k]["f32_err"] for r, k in kinds),
+           "worst_tf32_vs_off": max(r[k]["tf32_vs_off"] for r, k in kinds),
            "pinned_tf32_off": [dict(r, kind=k) for r, k in kinds
                                if r[k]["route"] == "tf32_off"],
+           # `not <=` also fails a NaN
            "failed": [dict(r, kind=k) for r, k in kinds
-                      if r[k]["route_err"] > max(
-                          probe.MXU_TOL, 2 * r[k]["f32_err"])]}
-    log(f"mxu_conv at {len(rows)} conv shapes (batches {batches}): TF32 vs "
-        f"TF32 off at most {worst[0][worst[1]]['tf32_vs_off']:.3g} "
+                      if not r[k]["route_err"] <= MXU_BOUND]}
+    log(f"mxu_conv at {len(rows)} conv shapes (batches {batches}): the "
+        f"route's error against f64 at most {out['worst_route_err']:.3g} "
         f"({worst[0]['x']} {worst[0]['w']} s{worst[0]['stride']} "
-        f"{worst[1]}); the route's error against f64 at most "
-        f"{out['worst_route_err']:.3g}; {len(out['pinned_tf32_off'])} "
-        f"of {len(kinds)} pinned TF32 off")
+        f"{worst[1]}, {worst[0][worst[1]]['route']}), bound "
+        f"{MXU_BOUND:g}; TF32 off's at most {out['worst_f32_err']:.3g}; "
+        f"TF32 vs TF32 "
+        f"off at most {out['worst_tf32_vs_off']:.3g}; "
+        f"{len(out['pinned_tf32_off'])} of {len(kinds)} pinned TF32 off")
     if out["failed"]:
         raise AssertionError(f"mxu_conv's route is not exact: "
                              f"{out['failed']}")

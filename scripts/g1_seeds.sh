@@ -6,10 +6,6 @@
 #   f32         f32 with TF32 off
 #   bf16chain   the probe's --f32_chain 1
 #   mxu         the probe's --mxu 1 (the TPU MXU's arithmetic)
-#   mxubwd32    --mxu 1 --mxu_f32_backward 1
-#   mxuheads    --mxu 1 --bf16_heads 1
-#   mxucot      --mxu 1 --bf16_cotangents 1
-#   mxures      --mxu 1 --bf16_residuals 1
 # A run that spiked and stayed above loss 10 for 1000 steps is cut.
 # Logs and outputs go to chiprun_out/g1/; each run's last lines (its
 # probe summary and the gate's result) are printed at the end. The exit
@@ -31,10 +27,6 @@ for name in "$@"; do
     bf16_seed*) extra=() ;;
     bf16chain_seed*) extra=(--f32_chain 1) ;;
     mxu_seed*) extra=(--mxu 1) ;;
-    mxubwd32_seed*) extra=(--mxu 1 --mxu_f32_backward 1) ;;
-    mxuheads_seed*) extra=(--mxu 1 --bf16_heads 1) ;;
-    mxucot_seed*) extra=(--mxu 1 --bf16_cotangents 1) ;;
-    mxures_seed*) extra=(--mxu 1 --bf16_residuals 1) ;;
     f32_seed*) extra=(--tf32 0 --compute_dtype float32) ;;
     *) echo "unknown run $name"; exit 2 ;;
   esac

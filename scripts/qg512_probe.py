@@ -7,9 +7,7 @@ BatchNorm running variance and the parameters whose gradient is not
 finite, and the largest |wh logit| of the cells with an object.
 
     python3 scripts/qg512_probe.py [--steps 8000] [--every 50] \
-        [--plain_region 1] [--f32_chain 1] [--mxu 1 [--mxu_f32_backward 1]
-        [--bf16_heads 1] [--bf16_cotangents 1] [--bf16_residuals 1]] \
-        [--seed 0] [--tf32 1] [--cut_after 1000] [--log FILE] \
+        [--plain_region 1] [--f32_chain 1] [--mxu 1] [--seed 0] [--tf32 1] [--cut_after 1000] [--log FILE] \
         [gate arguments]
 
 `--plain_region 1` trains the space-to-depth region's blocks in the
@@ -29,14 +27,6 @@ training, every op in bf16, fails the gate), not the port's arithmetic:
   the bias, Flax's LeakyReLU (`where(y >= 0, y, a * y)`), BatchNorm
   (`forward_affine` in the region's blocks), the residual sums and the
   heads. The QAT blocks keep their STE arithmetic.
-- `--mxu_f32_backward 1` (with `--mxu 1`): the convs' VJP in f32 too,
-  on the unrounded cotangent (TF32 off).
-- With `--mxu 1`, each of these puts one bf16 rounding back:
-  `--bf16_heads 1` the heads' output; `--bf16_cotangents 1` each conv's
-  output and each block's output (autograd through bf16 values, the ops
-  between them in f32); `--bf16_residuals 1` a FeatureBlock's residual
-  sums. Each rounding is a round trip through bf16, whose VJP rounds the
-  cotangent too.
 `--seed` is the init seed of `init_train_params`; `--tf32 0` turns TF32
 off in cuDNN's convolutions and in matmuls (for `--compute_dtype
 float32`, a gate argument). Every step is one JSON line in `--log`;
@@ -132,14 +122,14 @@ def mxu_route(key, fn):
 
 class MxuConv(torch.autograd.Function):
     """The MXU's conv: bf16 operands, f32 sums, an f32 result; the
-    backward rounds the cotangent to bf16 (`f32_backward`: keeps it f32,
-    TF32 off) and returns f32 gradients in the inputs' dtypes."""
+    backward rounds the cotangent to bf16 and returns f32 gradients in
+    the inputs' dtypes."""
 
     @staticmethod
-    def forward(ctx, x, w, stride, f32_backward):
+    def forward(ctx, x, w, stride):
         xb, wb = x.to(BF16), w.to(BF16)
         ctx.save_for_backward(xb, wb)
-        ctx.stride, ctx.f32_backward = stride, f32_backward
+        ctx.stride = stride
         ctx.dtypes = (x.dtype, w.dtype)
         key = ("fwd", x.device, tuple(x.shape), tuple(w.shape), stride)
         return mxu_route(key, lambda dt: (yolo.conv2d_same(
@@ -148,35 +138,25 @@ class MxuConv(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         xb, wb = ctx.saved_tensors
-        if ctx.f32_backward:
-            with cudnn_tf32(False):
-                dx, dw = yolo._conv_vjp(xb.float(), wb.float(), dy.float(),
-                                        ctx.stride)
-        else:
-            dyb = dy.to(BF16)
-            key = ("bwd", dy.device, tuple(xb.shape), tuple(wb.shape),
-                   ctx.stride)
-            dx, dw = mxu_route(key, lambda dt: yolo._conv_vjp(
-                xb.to(dt), wb.to(dt), dyb.to(dt), ctx.stride))
-        return dx.to(ctx.dtypes[0]), dw.to(ctx.dtypes[1]), None, None
+        dyb = dy.to(BF16)
+        key = ("bwd", dy.device, tuple(xb.shape), tuple(wb.shape),
+               ctx.stride)
+        dx, dw = mxu_route(key, lambda dt: yolo._conv_vjp(
+            xb.to(dt), wb.to(dt), dyb.to(dt), ctx.stride))
+        return dx.to(ctx.dtypes[0]), dw.to(ctx.dtypes[1]), None
 
 
-def mxu_conv(x, w, stride: int, f32_backward: bool = False):
+def mxu_conv(x, w, stride: int):
     """SAME conv (x NHWC, w OIHW, no bias) as a TPU computes a bf16
     `nn.Conv` with XLA's excess precision (see `MxuConv`)."""
-    return MxuConv.apply(x, w, stride, f32_backward)
+    return MxuConv.apply(x, w, stride)
 
 
-def arithmetic_patches(f32_chain=False, mxu=False, mxu_f32_backward=False,
-                       bf16_heads=False, bf16_cotangents=False,
-                       bf16_residuals=False):
+def arithmetic_patches(f32_chain=False, mxu=False):
     """The experiments' bf16 train arithmetic as (class, attribute,
     function) patches of `models/yolo.py` (see the docstring)."""
     conv_forward = yolo.ConvBlock.forward
     head_forward = yolo.DetectionHead.forward
-
-    def rnd(t, on=True):
-        return t.to(BF16).float() if on else t
 
     def plain(block):
         return (not block.training or block.int8_ste
@@ -194,24 +174,15 @@ def arithmetic_patches(f32_chain=False, mxu=False, mxu_f32_backward=False,
     def mxu_forward(self, x):
         if plain(self):
             return conv_forward(self, x)
-        y = rnd(mxu_conv(x, self.conv.weight, self.stride, mxu_f32_backward),
-                bf16_cotangents) + self.conv.bias
+        y = mxu_conv(x, self.conv.weight, self.stride) + self.conv.bias
         y = torch.where(y >= 0, y, self.alpha * y)
         bn = self.bn.forward_affine if self.affine_bn else self.bn.forward_train
-        return rnd(bn(y), bf16_cotangents)
+        return bn(y)
 
     def mxu_head_forward(self, x):
         if not self.training or self.dtype != BF16:
             return head_forward(self, x)
-        y = mxu_conv(x, self.conv.weight, 1, mxu_f32_backward) + self.conv.bias
-        return rnd(y, bf16_heads)
-
-    def bf16_residual_forward(self, x):
-        inputs = x
-        for i in range(0, len(self.convs), 2):
-            y = self.convs[i + 1](self.convs[i](x))
-            x = rnd(rnd(inputs) + rnd(y))
-        return x
+        return mxu_conv(x, self.conv.weight, 1) + self.conv.bias
 
     patches = []
     if f32_chain:
@@ -219,9 +190,6 @@ def arithmetic_patches(f32_chain=False, mxu=False, mxu_f32_backward=False,
     if mxu:
         patches += [(yolo.ConvBlock, "forward", mxu_forward),
                     (yolo.DetectionHead, "forward", mxu_head_forward)]
-        if bf16_residuals:
-            patches.append((yolo.FeatureBlock, "forward",
-                            bf16_residual_forward))
     return patches
 
 
@@ -260,10 +228,6 @@ def main(argv=None):
     p.add_argument("--plain_region", type=int, default=0)
     p.add_argument("--f32_chain", type=int, default=0)
     p.add_argument("--mxu", type=int, default=0)
-    p.add_argument("--mxu_f32_backward", type=int, default=0)
-    p.add_argument("--bf16_heads", type=int, default=0)
-    p.add_argument("--bf16_cotangents", type=int, default=0)
-    p.add_argument("--bf16_residuals", type=int, default=0)
     p.add_argument("--cut_after", type=int, default=1000)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--tf32", type=int, default=1)
@@ -278,11 +242,8 @@ def main(argv=None):
     from yolov3_tpu_torch.models.yolo import BatchNorm, ConvBlock
     from yolov3_tpu_torch.parallel import train_step as T
 
-    for cls, name, fn in arithmetic_patches(
-            f32_chain=args.f32_chain, mxu=args.mxu,
-            mxu_f32_backward=args.mxu_f32_backward,
-            bf16_heads=args.bf16_heads, bf16_cotangents=args.bf16_cotangents,
-            bf16_residuals=args.bf16_residuals):
+    for cls, name, fn in arithmetic_patches(f32_chain=args.f32_chain,
+                                            mxu=args.mxu):
         setattr(cls, name, fn)
 
     make_state, make_step = T.create_train_state, T.make_train_step
@@ -367,10 +328,7 @@ def main(argv=None):
     print("probe summary " + json.dumps({
         "plain_region": bool(args.plain_region),
         "f32_chain": bool(args.f32_chain), "mxu": bool(args.mxu),
-        "mxu_f32_backward": bool(args.mxu_f32_backward),
-        "bf16_heads": bool(args.bf16_heads),
-        "bf16_cotangents": bool(args.bf16_cotangents),
-        "bf16_residuals": bool(args.bf16_residuals), "seed": args.seed,
+        "seed": args.seed,
         "tf32": bool(args.tf32), "steps": len(rows), "lowest_loss": lowest,
         "first_spike_step": spike, "error": error,
         "first_step_wh_logit_over_80": first_80,

@@ -11,6 +11,7 @@ so within atol 2e-4 after them.
 """
 
 import os
+import shutil
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,7 +22,6 @@ from yolov3_tpu.data import augment as jaug
 from yolov3_tpu.data import isg_ai_pb2
 from yolov3_tpu.data import records as jrec
 from yolov3_tpu.data import store as jstore
-from yolov3_tpu.data import store_native as j_store_native
 from yolov3_tpu.data.device_pipeline import zscore_image as j_zscore_image
 from yolov3_tpu.data.encoder import decode_label_grid as j_decode_label_grid
 from yolov3_tpu.data.encoder import encode_boxes as j_encode_boxes
@@ -192,8 +192,26 @@ def test_image_helpers_match_jax(shape, dtype):
         np.testing.assert_allclose(z, jz, rtol=1e-5, atol=1e-5)
 
 
-def test_native_store_available_matches_jax():
-    assert t_store_native.available() == j_store_native.available()
+@pytest.mark.parametrize("compiler", ["g++", "false"])
+def test_native_store_available(tmp_path, monkeypatch, compiler):
+    """`available()` is whether the port's own library builds and loads
+    (so whether `store.open_reader` takes the native reader): True with a
+    compiler, the library then at `library_path()`; False when the build
+    fails, and still False on a later call, which does not retry. The
+    JAX package's `available` asks whether a prebuilt
+    `native/build/libyolodb.so` exists, which depends on what was built
+    before, so the two are not compared."""
+    if compiler == "g++" and shutil.which("g++") is None:
+        pytest.skip("no C++ compiler here")
+    monkeypatch.setattr(t_store_native, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(t_store_native, "_LIB", None)
+    monkeypatch.setattr(t_store_native, "_LOAD_ERROR", None)
+    monkeypatch.setenv("CXX", compiler)
+    builds = compiler != "false"
+    assert t_store_native.available() is builds
+    assert os.path.exists(t_store_native.library_path()) is builds
+    monkeypatch.setenv("CXX", "g++")
+    assert t_store_native.available() is builds
 
 
 def augment_inputs(seed):

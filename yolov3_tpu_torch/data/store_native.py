@@ -118,7 +118,10 @@ def load() -> ctypes.CDLL:
 
 
 def available() -> bool:
-    """Whether the engine's library builds and loads here."""
+    """Whether the engine's library builds and loads here, so whether
+    `store.open_reader` takes the native reader. (The JAX package's
+    asks whether its prebuilt library exists: the port builds its own at
+    first use.)"""
     try:
         load()
     except (OSError, RuntimeError):
