@@ -521,12 +521,17 @@ def region_mode_case(rng, n, h1, w1, c1, c, cm, co, cuda, kind, fast,
 def test_s2d_region_modes_equal_plain(cuda, n, h1, w1, c1, c, cm, co, ci,
                                       kind, cast, fast, affine2, rawimg):
     """The region kernel's affine2 and rawimg modes (rows 10a, 10b), alone
-    and together, equal their plain version code for code: the affine2
-    epilogue rounds each product and add on its own as the plain version
-    does, and stem1 sums its taps in the plain version's order (a bf16
+    and together, against their plain version: the affine2 epilogue rounds
+    each product and add on its own as the plain version does, and on an
+    f32 image stem1 sums its taps in the plain version's order, code for
+    code. On a bf16 image stem1 runs on the tensor cores, whose sums run
+    in the hardware's order, those whose code that order could change
+    taken again in the plain order: held to the TPU kernel's class
+    against its reference (test_s2d_region_kernel.py:339-343, <= 1 code
+    on <= 10%); its twin with stem1 on CUDA cores (`_cores`: a bf16
     image's FMA equals its separately rounded product and add, the
-    product of two bf16 values being exact in f32). Each launch is counted
-    under its mode."""
+    product of two bf16 values being exact in f32) is code for code. Each
+    launch is counted under its mode."""
     from yolov3_tpu_torch.ops.kernels import s2d_region_q as K
     x, ws, epi, extra = region_mode_case(
         np.random.RandomState(h1 + w1 + c + ci), n, h1, w1, c1, c, cm, co,
@@ -539,7 +544,16 @@ def test_s2d_region_modes_equal_plain(cuda, n, h1, w1, c1, c, cm, co, ci,
     torch.cuda.synchronize()
     assert _build.launch_counts[name] == before + 1
     assert got.shape == (n, h1 // 4, w1 // 4, co)
-    assert_int8_equal(got, K.s2d_region_block_q_plain(x, *ws, epi, **kw))
+    want = K.s2d_region_block_q_plain(x, *ws, epi, **kw)
+    if not (rawimg and kind == "bf16"):
+        assert_int8_equal(got, want)
+        return
+    d = (got.int() - want.int()).abs()
+    assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= 0.10
+    twin = K.s2d_region_block_q_cores(x, *ws, epi, **kw)
+    torch.cuda.synchronize()
+    assert _build.launch_counts[name + K.CORES] >= 1
+    assert_int8_equal(twin, want)
 
 
 def test_s2d_region_modes_refuse_what_they_do_not_take(cuda):

@@ -143,9 +143,11 @@ def test_rawimg_contract():
 
 
 def test_rawimg_plan():
-    """The rawimg layout (`layout90` with ci): stem1's f32 weights, q2, one
+    """The rawimg layout with stem1 on CUDA cores (`layout90` with ci, an
+    f32 image's and the `_cores` twin's): stem1's f32 weights, q2, one
     buffer for the x tile with the f32 image patch, then q3 and q4; 21 epi
-    rows. The flagship keeps T = 8."""
+    rows. The flagship keeps T = 8, as it does on tensor cores (a bf16
+    image's layout, tests/test_torch_region_stem1.py)."""
     t, c1, c, cm, co, ci = 8, 32, 64, 32, 128, 3
     xw, qw, q4w = 4 * t + 7, 2 * t + 3, 2 * t + 1
     weights = 9 * c * c1 + cm * c + 9 * c * cm + 9 * co * c
@@ -153,7 +155,9 @@ def test_rawimg_plan():
                  qw * qw * cm + q4w * q4w * c)
     want = (1024 + weights + 9 * ci * c1 * 4 + qw * qw * c
             + -(-shared // 16) * 16 + 21 * co * 4)
-    assert R.smem_bytes(t, c1, c, cm, co, True, ci=ci) == want == 219824
+    assert R.smem_bytes(t, c1, c, cm, co, True, ci=ci,
+                        cores=True) == want == 219824
+    assert R.plan_tile(c1, c, cm, co, ci=ci, cores=True) == 8
     assert R.plan_tile(c1, c, cm, co, ci=ci) == 8
     assert R.plan_tile(c1, c, cm, co, ci=R.MAX_IMAGE_CHANNELS + 1) == 0
     assert R.plan_tile(c1, c, cm, co, ci=ci, twin=True) == 0

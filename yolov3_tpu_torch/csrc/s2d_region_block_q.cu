@@ -35,18 +35,27 @@
 // rawimg (s2d_region_kernel.py:330-363, :604-615): x is the z-scored image
 // [n, 2h2, 2w2, ci] (bf16 or f32) and each tile first computes its x tile,
 // stem1 (3x3, SAME, weights [9, c1, ci]) and its epilogue (bias, LeakyReLU,
-// BatchNorm; exact or fast by `fast`) and the quantize to s1, on CUDA
-// cores from an f32 image patch in shared memory, summed tap by tap in the
-// plain version's order (stem1_tile). Off-image stem1 pixels are code 0:
-// they are stem2's SAME padding, not stem1 on the image's zero padding.
+// BatchNorm; exact or fast by `fast`) and the quantize to s1. Off-image
+// stem1 pixels are code 0: they are stem2's SAME padding, not stem1 on the
+// image's zero padding. A bf16 image runs stem1 on the tensor cores, as the
+// TPU kernel runs it on its MXU (stem1_tc: wgmma m64nNSk16 bf16 -> f32, the
+// products exact, the sum in the hardware's order, and the few sums whose
+// code that order could change taken again in the plain version's; the
+// image patch copied with cp.async while the previous tile's stages run).
+// An f32 image, and a bf16 one through `s2d_region_block_q_cores` (the
+// mode's first design, kept for A/B timing only), run it on CUDA cores
+// from an f32 patch loaded at the start of each tile, summed tap by tap in
+// the plain version's order (stem1_tile). Both are code for code the plain
+// version's.
 //
 // What bounds it: at the flagship (b8, stem1 out 8x512x512x32) 30.1 G MACs
 // (60.1 G int8 operations, 0.030 ms at 1979 TOP/s) against 134 MB in
 // (bf16) and 17 MB out (0.045 ms at 3.35 TB/s): neither, by much; the four
 // unfused launches it replaces move 0.42 GB between stages. With rawimg
 // it reads the 12.6 MB bf16 image instead of stem1's 134 MB output, and
-// adds stem1's 1.8 G f32 MACs (3.6 G operations on CUDA cores, 0.054 ms
-// at 67 TFLOP/s), recomputed on the halo of each tile.
+// adds stem1's 1.8 G MACs (3.6 G operations: 0.004 ms on the bf16 tensor
+// cores, 0.054 ms on CUDA cores at 67 TFLOP/s for an f32 image),
+// recomputed on the halo of each tile.
 //
 // Where the time went (clock64 stamps per phase of the first design, on
 // the H100 at the flagship, fast epilogue, bf16 input; PERF.md): ~47 us a
@@ -79,9 +88,38 @@
 // the stage). The epilogues are the first design's op for op, from the
 // accumulator registers, with the final rounding on the FMA pipe (the
 // same codes) and each row's tile coordinates derived once an item. T = 8
-// at the flagship: 219 KB of shared memory, one block an SM (rawimg: 215
-// KB, its x tile and image patch sharing q3's and q4's buffer; the
-// image patch is loaded at the start of each tile, not ahead).
+// at the flagship: 219 KB of shared memory, one block an SM (rawimg on a
+// bf16 image: 213 KB, its x tile sharing q3's and q4's buffer, the image
+// patch in a buffer of its own, filled for the next tile while this one's
+// stages run, then a queue of the stem1 sums taken again in order (4 KB);
+// on CUDA cores: 215 KB, the x tile and the f32 patch sharing
+// q3's and q4's buffer, the patch loaded at the start of each tile).
+//
+// stem1 on tensor cores (stem1_tc): the patch holds the image's bytes row
+// by row, each row copied as the 16-byte chunks that cover it and placed at
+// its first byte's offset within its chunk, so a pixel's channels and its
+// right-hand neighbours' follow one another. For tap row u, pixel (i, j)'s
+// A row is then 16 consecutive bf16 from pixel j of patch row i + u: three
+// columns of ci channels, and beyond them elements that the packed
+// weights' zero rows cancel; K = 3 x 16, three wgmma k16 steps. The A
+// fragments are loaded as bf16 pairs (a row is 2-byte aligned) into
+// registers; B, stem1's weights packed [3][c1][16] in the 32B swizzle,
+// stays resident. A tile whose patch runs off the image has the off-image
+// bytes zeroed after the copy lands (fix_patch): stem1's SAME padding.
+// The tensor cores' sums alone differ from the plain version's order in
+// their bf16 rounding often enough that, at the flagship, the region's
+// codes moved by up to 2; so each sum also gets the sum of its products'
+// magnitudes S from a second GEMM, and those within 2^-21 S of a bf16
+// rounding midpoint whose code the rounding changes are taken again in
+// order (stem1_wg). At the flagship (bf16 image, fast epilogue; clock64,
+// PERF.md) 0.39% of the sums are in doubt and 0.09% taken again; a tile
+// takes 75.3 k cycles against 86.7 k on CUDA cores: stem1 45% of it (most
+// of that its epilogue and the check), against 45% and the patch's load
+// 9.4%; the patch's wait is 2.0%. Without the check a tile took 56.3 k
+// cycles, stem1 27% of it. Two items in flight a warpgroup (the next
+// one's products during this one's epilogue) need more than the 128
+// registers a thread has at 512 threads: they spilled, and ptxas then
+// serialized the wgmma.
 //
 // `s2d_region_block_q_mma` / `s2d_tail_block_q_mma` are the first
 // design, kept for A/B timing only: no serving path calls them. One block
@@ -636,31 +674,64 @@ __host__ __device__ inline size_t wbytes(int taps, int n, int k) {
 // the epi table. The activation tiles hold each pixel's channels without
 // padding, swizzled (act_off); the input tile has a buffer of its own, so
 // the next tile's input is copied in while this tile's later stages run.
-// The rawimg kernel (ci > 0) computes its input tile: stem1's f32 weights
-// follow the others, and the x tile and the f32 image patch it is made
-// from ((4T+9)^2 pixels) share one buffer with q3 and q4, which are
-// written only after stem2 has read x.
+// The rawimg kernel (ci > 0) computes its input tile: stem1's weights
+// follow the others, and the x tile shares one buffer with q3 and q4,
+// which are written only after stem2 has read x. On tensor cores (tc) the
+// weights are packed bf16 ([3][c1][32 bytes], then their magnitudes) and
+// the image patch, (4T+9) rows of patch_pitch bytes, has a buffer of its
+// own after that one, then the queue of the sums stem1 takes again; on
+// CUDA cores they are f32 ([9 * ci][c1]) and the f32 patch ((4T+9)^2
+// pixels) follows the x tile in the shared buffer.
 struct Layout90 {
-  size_t ws2, wpw, wfb, wex, w1, q2, x, img, q3, q4, epi, total;
+  size_t ws2, wpw, wfb, wex, w1, q2, x, img, redo, q3, q4, epi, total;
 };
+
+// the stem1 sums a tile's queue holds (stem1_wg), in place of taking each
+// where it is found
+constexpr int kRedo = 1024;
+
+// the elements of a bf16 patch row that stem1_tc reads (side pixels of ci
+// channels; the last A row runs 16 elements from pixel side - 3)
+__host__ __device__ inline int patch_reads(int side, int ci) {
+  const int last = (side - 3) * ci + 16;
+  return side * ci > last ? side * ci : last;
+}
+
+// bytes of a bf16 patch row: its first byte's offset in its 16-byte chunk
+// (< 16) and the elements read, in whole chunks
+__host__ __device__ inline int patch_pitch(int side, int ci) {
+  return (15 + 2 * patch_reads(side, ci) + 15) / 16 * 16;
+}
 
 __host__ __device__ inline Layout90 layout90(bool region, int tile, int c1,
                                              int c, int cm, int co, int rows,
-                                             int e, int ci = 0) {
+                                             int e, int ci = 0,
+                                             bool tc = false) {
   const size_t xw = 4 * tile + 7, qw = 2 * tile + 3, q4w = 2 * tile + 1;
   Layout90 l;
   l.ws2 = 0;
+  l.redo = 0;
   l.wpw = l.ws2 + (region ? wbytes(9, c, c1) : 0);
   l.wfb = l.wpw + wbytes(1, cm, c);
   l.wex = l.wfb + wbytes(9, c, cm);
   l.w1 = l.wex + wbytes(9, co, c);
-  l.q2 = l.w1 + static_cast<size_t>(9) * ci * c1 * 4;
+  l.q2 = l.w1 + (tc ? 2 * wbytes(3, c1, 32)
+                    : static_cast<size_t>(9) * ci * c1 * 4);
   l.x = l.q2 + qw * qw * c;
   if (ci == 0) {
     l.img = l.x;
     l.q3 = l.x + (region ? xw * xw * c1 : 0);
     l.q4 = l.q3 + qw * qw * cm;
     l.epi = l.q4 + q4w * q4w * c;
+  } else if (tc) {
+    l.q3 = l.x;
+    l.q4 = l.q3 + qw * qw * cm;
+    const size_t a = xw * xw * c1;
+    const size_t b = qw * qw * cm + q4w * q4w * c;
+    l.img = l.x + ((a > b ? a : b) + 15) / 16 * 16;
+    // the queue: its count, then its entries
+    l.redo = l.img + (xw + 2) * patch_pitch(static_cast<int>(xw) + 2, ci);
+    l.epi = l.redo + 16 + 4 * kRedo;
   } else {
     l.img = l.x + xw * xw * c1;
     l.q3 = l.x;
@@ -972,21 +1043,24 @@ __device__ __forceinline__ void load_stem1_weights(float* dst,
 }
 
 // stem1's epilogue on its f32 sum: bias, LeakyReLU, BatchNorm and the
-// quantize to ConvBlock_1's scale, a stage's exact or fast epilogue (by
-// p.fast; rows 17-20: b, mul, add, 1/s1, the 1/s folded into mul and add
-// under fast)
+// quantize to ConvBlock_1's scale, a stage's exact or fast epilogue (rows
+// 17-20: b, mul, add, 1/s1, the 1/s folded into mul and add under fast).
+// FAST and CAST: fast and cast_bf16, or p's (-1).
+template <int FAST = -1, int CAST = -1>
 __device__ __forceinline__ int8_t stem1_q(float acc, float b, float m,
                                           float a, float inv,
                                           const Params& p) {
-  if (p.cast_bf16) acc = bf16_round(acc);
+  const bool fast = FAST < 0 ? p.fast : FAST;
+  const bool cast = CAST < 0 ? p.cast_bf16 : CAST;
+  if (cast) acc = bf16_round(acc);
   float y = __fadd_rn(acc, b);
-  if (p.fast) {
+  if (fast) {
     y = fmaxf(y, __fmul_rn(p.alpha, y));
     return clip_round<true>(__fadd_rn(__fmul_rn(y, m), a));
   }
   y = y >= 0.0f ? y : __fmul_rn(p.alpha, y);
   y = __fadd_rn(__fmul_rn(y, m), a);
-  if (p.cast_bf16) y = bf16_round(y);
+  if (cast) y = bf16_round(y);
   return clip_round<true>(__fmul_rn(y, inv));
 }
 
@@ -1053,6 +1127,430 @@ __device__ __forceinline__ void stem1_tile(const Act& x, const float* img,
                             E[19 * e + o + k], E[20 * e + o + k], p);
     }
     *reinterpret_cast<uint4*>(x.base + act_off(x, pix, vec * 16)) = out.u;
+  }
+}
+
+// --- stem1 on tensor cores (a bf16 image) ----------------------------------
+
+// A tile's bf16 image patch: side x side pixels of ci channels from image
+// row r0, column c0; `edge` when some of them lie off the image.
+struct ImagePatch {
+  const uint8_t* src;  // the image [h, w, ci] bf16, 16-byte aligned
+  int h, w, ci, side, pitch, r0, c0;
+  bool edge;
+};
+
+__device__ __forceinline__ ImagePatch image_patch(const Params& p, int ci,
+                                                  int img, int r0, int c0,
+                                                  int side) {
+  const int h = 2 * p.h2, w = 2 * p.w2;
+  ImagePatch q;
+  q.src = static_cast<const uint8_t*>(p.x) +
+          static_cast<size_t>(img) * h * w * ci * 2;
+  q.h = h;
+  q.w = w;
+  q.ci = ci;
+  q.side = side;
+  q.pitch = patch_pitch(side, ci);
+  q.r0 = r0;
+  q.c0 = c0;
+  q.edge = r0 < 0 || c0 < 0 || r0 + side > h || c0 + side > w;
+  return q;
+}
+
+// the byte of patch row i where its pixel 0 starts: the row's place, then
+// that pixel's offset in its 16-byte chunk of the image (the low bits of a
+// two's-complement byte offset, so also off the image)
+__device__ __forceinline__ int patch_row(const ImagePatch& q, int i) {
+  return i * q.pitch +
+         static_cast<int>((static_cast<unsigned>((q.r0 + i) * q.w + q.c0) *
+                           static_cast<unsigned>(q.ci) * 2u) & 15u);
+}
+
+// Copy the patch with cp.async (the caller waits): each image row as the
+// 16-byte chunks that cover it. A patch inside the image copies the
+// elements stem1_tc reads (the row's tail runs on into the image's next
+// pixels, which the zero weights cancel: rows below exist, since the
+// patch's last row is at most h - 3); one that runs off it copies its
+// on-image pixels, and fix_patch zeroes the rest.
+__device__ __forceinline__ void copy_patch(int8_t* dst, const ImagePatch& q) {
+  const int chunks = q.pitch / 16;
+  const int ci2 = 2 * q.ci;
+  for (int idx = threadIdx.x; idx < q.side * chunks; idx += kThreads) {
+    const int i = idx / chunks, k = idx - i * chunks;
+    const int gr = q.r0 + i;
+    if (gr < 0 || gr >= q.h) continue;
+    const long long s = (static_cast<long long>(gr) * q.w + q.c0) * ci2;
+    long long lo = s, hi = s + 2LL * patch_reads(q.side, q.ci);
+    if (q.edge) {
+      lo = s + static_cast<long long>(ci2) * max(0, -q.c0);
+      hi = s + static_cast<long long>(ci2) * min(q.side, q.w - q.c0);
+    }
+    const long long g = (lo & ~15LL) + 16LL * k;
+    if (g < hi)
+      cp_async16(dst + i * q.pitch + (g - (s & ~15LL)), q.src + g, 16);
+  }
+}
+
+// A patch that runs off the image: every byte of a row outside its
+// on-image pixels to zero (the chunks brought neighbouring bytes; the
+// rest still holds an earlier tile's).
+__device__ __forceinline__ void fix_patch(int8_t* dst, const ImagePatch& q) {
+  const int units = q.pitch / 2;
+  const int ci2 = 2 * q.ci;
+  for (int idx = threadIdx.x; idx < q.side * units; idx += kThreads) {
+    const int i = idx / units, b = 2 * (idx - i * units);
+    const int gr = q.r0 + i;
+    const int first = patch_row(q, i) - i * q.pitch;
+    const int lo = first + ci2 * max(0, -q.c0);
+    const int hi = first + ci2 * min(q.side, q.w - q.c0);
+    if (gr < 0 || gr >= q.h || b < lo || b >= hi)
+      *reinterpret_cast<uint16_t*>(dst + i * q.pitch + b) = 0;
+  }
+}
+
+// stem1's bf16 weights [9, c1, ci] as B of its three tap rows: [3][c1][16
+// bf16] in the 32B swizzle, row o of tap row u holding w[3u + v][o][cc] at
+// k = v * ci + cc, zeros from k = 3 ci on (where the A row runs on into the
+// next pixels); then their magnitudes in the same layout (the B of the sums
+// of |products|). Written by the generic proxy, read by wgmma's.
+__device__ __forceinline__ void pack_stem1(int8_t* dst, const ImageParams& p) {
+  const uint16_t* w = static_cast<const uint16_t*>(p.w_s1);
+  const int abs = 3 * p.c1 * 32;
+  for (int idx = threadIdx.x; idx < 3 * p.c1 * 16; idx += kThreads) {
+    const int k = idx & 15, row = idx >> 4;  // row = u * c1 + o
+    const int u = row / p.c1, o = row - u * p.c1;
+    const int v = k / p.ci, cc = k - v * p.ci;
+    const uint16_t b =
+        v < 3 ? w[((3 * u + v) * p.c1 + o) * p.ci + cc] : uint16_t{0};
+    const uint32_t at = swizzle(row * 32 + 2 * k, 1);
+    *reinterpret_cast<uint16_t*>(dst + at) = b;
+    *reinterpret_cast<uint16_t*>(dst + abs + at) = b & 0x7fffu;
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// d[NS/2] += A (64 pixels x 16 bf16, in registers: each warp's 16 rows as
+// mma.m16n8k16's A fragment) * B (NS channels x 16 bf16, K-major in shared
+// memory)^T, bf16 x bf16 -> f32 (the sums' bits in d)
+template <int NS>
+struct WgmmaBF16;
+
+template <>
+struct WgmmaBF16<32> {
+  __device__ __forceinline__ static void run(uint32_t (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+          "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+          "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+          "+r"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaBF16<16> {
+  __device__ __forceinline__ static void run(uint32_t (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, "
+        "0;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+          "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+// the bf16 pair at elements k, k + 1 of a patch row (2-byte aligned)
+__device__ __forceinline__ uint32_t bf16_pair(const uint16_t* row, int k) {
+  return static_cast<uint32_t>(row[k]) |
+         (static_cast<uint32_t>(row[k + 1]) << 16);
+}
+
+// stem1's sum at pixel (i, j) of the x tile and channel o as the plain
+// version takes it: over the taps (u, v, channel) in that order, each
+// product (of two bf16: exact in f32) and add rounded on its own, from the
+// patch and the packed weights `w` (pack_stem1)
+__device__ __forceinline__ float stem1_sum(const int8_t* patch,
+                                           const ImagePatch& q,
+                                           const int8_t* w, int c1, int i,
+                                           int j, int o) {
+  float s = 0.0f;
+#pragma unroll
+  for (int u = 0; u < 3; ++u) {
+    const uint16_t* row = reinterpret_cast<const uint16_t*>(
+                              patch + patch_row(q, i + u)) + q.ci * j;
+    // the weights' row: 32 bytes, whose 16-byte halves the swizzle swaps
+    // where bit 7 of its offset is set
+    const int base = (u * c1 + o) * 32;
+    const int flip = (base >> 3) & 16;
+#pragma unroll
+    for (int k = 0; k < 3 * kMaxImageChannels; ++k)
+      if (k < 3 * q.ci)
+        s = __fmaf_rn(
+            __uint_as_float(static_cast<uint32_t>(row[k]) << 16),
+            __uint_as_float(static_cast<uint32_t>(
+                                *reinterpret_cast<const uint16_t*>(
+                                    w + base + ((2 * k) ^ flip)))
+                            << 16),
+            s);
+  }
+  return s;
+}
+
+// Whether the plain version's sum, at most `delta` from the tensor cores'
+// sum v, could round to another bf16: v lies within delta of the midpoint
+// between lo and hi, the bf16 values around it, or (`far`) delta reaches a
+// quarter of their distance, so that the plain sum could round past them
+// (below a power of two the next step down is half as wide). Otherwise
+// the plain sum rounds to lo or hi.
+__device__ __forceinline__ bool bf16_in_doubt(float v, float delta,
+                                              float& lo, float& hi,
+                                              bool& far) {
+  const uint32_t t = __float_as_uint(v) & 0xffff0000u;  // toward zero
+  const float mid = __uint_as_float(t | 0x8000u);
+  lo = __uint_as_float(t);
+  hi = __uint_as_float(t + 0x10000u);
+  far = fabsf(mid - lo) <= 2.0f * delta;
+  return far || fabsf(v - mid) <= delta;
+}
+
+// The rawimg kernel's input tile on tensor cores: stem1 at stem1 pixels
+// 4R0-2 .. 4R0+4T+4 (rows and columns) as an XW^2 x c1 GEMM over K = 3 tap
+// rows x 16 from the patch at origin 4R0-3, its epilogue (stem1_q) from
+// the accumulator registers, quantized into the activation tile x; code 0
+// off the image. Warpgroup g takes items g, g + 4, ...: 64 pixels x NS
+// channels; a thread's A rows are its pixels m0 + lane/4 and that + 8
+// (rows past M repeat M - 1 and their sums are dropped). FAST and CAST
+// are p.fast and p.cast_bf16, so the epilogue has no branch: a thread's 16
+// codes are independent chains that the compiler interleaves.
+//
+// The codes are the plain version's. The tensor cores sum in their own
+// order, so a second GEMM of the products' magnitudes gives each sum's
+// S = sum |products|, and the plain version's sum (in order, in f32) is
+// within kDoubt * S of the tensor cores' (on the H100, at the flagship,
+// 78% of the sums are equal and none lies 2^-21 S apart; the in-order
+// sum's own worst case is 26 * 2^-24 S; scripts/stem1_sum_order.py).
+// Where that can change the sum's
+// bf16 rounding (bf16_in_doubt) and the code with it, the sum is taken
+// again in the plain version's order (stem1_sum): queued in `redo` (its
+// count, then the entries pixel << 8 | channel), for the block to take
+// after stem1_wg (redo_stem1), or here when the queue is full. Without
+// the cast every sum is taken so.
+constexpr float kDoubt = 4.76837158203125e-07f;  // 2^-21
+template <int NS, bool FAST, bool CAST>
+__device__ __forceinline__ void stem1_wg(const Act& x, const int8_t* patch,
+                                         const ImagePatch& q, const int8_t* w,
+                                         int* redo, const float* E, int e,
+                                         const ImageParams& p, int R0, int C0,
+                                         int XW) {
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31, t = lane & 3;
+  const int M = XW * XW, nsl = p.c1 / NS;
+  const int items = (M + 63) / 64 * nsl;
+  const int h1 = 2 * p.h2, w1 = 2 * p.w2;
+  const uint32_t wb = smem_u32(w), wb_abs = wb + 3 * p.c1 * 32;
+  // r / XW as a multiply-high: exact for r, XW < 2^16
+  const uint32_t xw_div = 0xffffffffu / XW + 1;
+  // The sums start from a zero the compiler cannot see (tile > 0). From a
+  // literal zero, ptxas turns the first wgmma into one that ignores its
+  // input, and has been seen to go on treating the sums as that zero in
+  // the integer operations after the wait (an f32 -> bf16 rounding done
+  // in the sums' bits then read 0 for every sum).
+  const uint32_t zero = static_cast<uint32_t>(p.tile) >> 31;
+  for (int item = wg; item < items; item += kWarps / 4) {
+    const int mi = item / nsl;
+    const int n0 = (item - mi * nsl) * NS;
+    const int m0 = mi * 64 + 16 * warp;
+    // this thread's pixels m0 + lane/4 and that + 8: their A rows, their
+    // place in the tile, and where their codes go (none past M; off the
+    // image, code 0)
+    uint32_t a[3][4];
+    int pi[2], pj[2], at[2];
+    bool on[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = m0 + (lane >> 2) + 8 * h;
+      const int rc = min(r, M - 1);
+      const int i = static_cast<int>(__umulhi(rc, xw_div)), j = rc - i * XW;
+#pragma unroll
+      for (int u = 0; u < 3; ++u) {
+        const uint16_t* row = reinterpret_cast<const uint16_t*>(
+                                  patch + patch_row(q, i + u)) + p.ci * j;
+        a[u][h] = bf16_pair(row, 2 * t);
+        a[u][h + 2] = bf16_pair(row, 2 * t + 8);
+      }
+      const int gr = 4 * R0 - 2 + i, gc = 4 * C0 - 2 + j;
+      pi[h] = i;
+      pj[h] = j;
+      at[h] = r < M ? r * x.rb : -1;
+      on[h] = r < M && gr >= 0 && gr < h1 && gc >= 0 && gc < w1;
+    }
+    // accumulator layout: acc[4j + e] is row m0 + lane/4 (+8 for e >= 2),
+    // channel n0 + 8j + 2 (lane % 4) + (e & 1)
+    // the sums and the sums of the products' magnitudes, A and the
+    // accumulators written before wgmma.fence (the A pairs are plain
+    // arithmetic, which the compiler could otherwise move past its asm)
+    uint32_t acc[NS / 2], mag[NS / 2], a_abs[3][4];
+#pragma unroll
+    for (int u = 0; u < 3; ++u)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) a_abs[u][k] = a[u][k] & 0x7fff7fffu;
+#pragma unroll
+    for (int k = 0; k < NS / 2; ++k) acc[k] = mag[k] = zero;
+#pragma unroll
+    for (int u = 0; u < 3; ++u) {
+      fence_regs(a[u]);
+      fence_regs(a_abs[u]);
+    }
+    fence_regs(acc);
+    fence_regs(mag);
+    __syncwarp();  // wgmma's .aligned: the warp converged after the epilogue
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int u = 0; u < 3; ++u)
+      WgmmaBF16<NS>::run(acc, a[u], desc32(wb + (u * p.c1 + n0) * 32));
+#pragma unroll
+    for (int u = 0; u < 3; ++u)
+      WgmmaBF16<NS>::run(mag, a_abs[u],
+                         desc32(wb_abs + (u * p.c1 + n0) * 32));
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_regs(acc);
+    fence_regs(mag);
+    // The sums in doubt: a bit each. bf16_in_doubt works on a sum's bits
+    // through an f32 add of +0 (the same sum; -0 becomes +0, which rounds
+    // alike): with integer operations straight on the accumulator
+    // registers after the wait, ptxas has been seen to read one of the
+    // sixteen as its value before the products (a sixteenth of the sums
+    // then in doubt).
+    uint32_t doubt = 0;
+#pragma unroll
+    for (int k = 0; k < NS / 2; ++k) {
+      float lo, hi;
+      bool far;
+      const bool d =
+          !CAST || bf16_in_doubt(__fadd_rn(__uint_as_float(acc[k]), 0.0f),
+                                 __fmul_rn(__uint_as_float(mag[k]), kDoubt),
+                                 lo, hi, far);
+      doubt |= static_cast<uint32_t>(d && on[(k >> 1) & 1]) << k;
+    }
+    // each taken again in order unless its code is the same from lo and hi
+    while (doubt) {
+      const int k = __ffs(doubt) - 1;
+      doubt &= doubt - 1;
+      const int h = (k >> 1) & 1, o = n0 + 8 * (k >> 2) + 2 * t + (k & 1);
+      const Cols c = cols_at(E, e, 17, o & ~1, false);
+      float v = 0.0f, sv = 0.0f;
+#pragma unroll
+      for (int s = 0; s < NS / 2; ++s)
+        if (s == k) {
+          v = __uint_as_float(acc[s]);
+          sv = __uint_as_float(mag[s]);
+        }
+      float lo = v, hi = v;
+      bool far = true;
+      if (CAST)
+        bf16_in_doubt(__fadd_rn(v, 0.0f), __fmul_rn(sv, kDoubt), lo, hi, far);
+      const bool odd = k & 1;
+      const float b = odd ? c.b.y : c.b.x, m = odd ? c.m.y : c.m.x;
+      const float aa = odd ? c.a.y : c.a.x, inv = odd ? c.inv.y : c.inv.x;
+      if (!CAST || far ||
+          stem1_q<FAST, CAST>(lo, b, m, aa, inv, p) !=
+              stem1_q<FAST, CAST>(hi, b, m, aa, inv, p)) {
+        const int i = h ? pi[1] : pi[0], j = h ? pj[1] : pj[0];
+        const int slot = atomicAdd(redo, 1);
+        if (slot < kRedo) {
+          redo[4 + slot] = (i * XW + j) << 8 | o;
+        } else {
+          const float sum = stem1_sum(patch, q, w, p.c1, i, j, o);
+#pragma unroll
+          for (int s = 0; s < NS / 2; ++s)
+            if (s == k) acc[s] = __float_as_uint(sum);
+        }
+      }
+    }
+    char2 out[NS / 8][2];
+#pragma unroll
+    for (int jn = 0; jn < NS / 8; ++jn) {
+      const Cols c = cols_at(E, e, 17, n0 + 8 * jn + 2 * t, false);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const char2 v = make_char2(
+            stem1_q<FAST, CAST>(__uint_as_float(acc[4 * jn + 2 * h]),
+                                c.b.x, c.m.x, c.a.x, c.inv.x, p),
+            stem1_q<FAST, CAST>(__uint_as_float(acc[4 * jn + 2 * h + 1]),
+                                c.b.y, c.m.y, c.a.y, c.inv.y, p));
+        out[jn][h] = on[h] ? v : make_char2(0, 0);
+      }
+    }
+#pragma unroll
+    for (int jn = 0; jn < NS / 8; ++jn)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (at[h] >= 0)
+          *reinterpret_cast<char2*>(
+              x.base + swizzle(at[h] + n0 + 8 * jn + 2 * t, x.mask)) =
+              out[jn][h];
+  }
+}
+
+// stem1_wg with 32-channel slices where c1 allows, else 16, and p's
+// epilogue flags
+template <int NS>
+__device__ __forceinline__ void stem1_ns(const Act& x, const int8_t* patch,
+                                         const ImagePatch& q, const int8_t* w,
+                                         int* redo, const float* E, int e,
+                                         const ImageParams& p, int R0, int C0,
+                                         int XW) {
+  if (p.fast) {
+    if (p.cast_bf16)
+      stem1_wg<NS, true, true>(x, patch, q, w, redo, E, e, p, R0, C0, XW);
+    else
+      stem1_wg<NS, true, false>(x, patch, q, w, redo, E, e, p, R0, C0, XW);
+  } else {
+    if (p.cast_bf16)
+      stem1_wg<NS, false, true>(x, patch, q, w, redo, E, e, p, R0, C0, XW);
+    else
+      stem1_wg<NS, false, false>(x, patch, q, w, redo, E, e, p, R0, C0, XW);
+  }
+}
+
+__device__ __forceinline__ void stem1_tc(const Act& x, const int8_t* patch,
+                                         const ImagePatch& q, const int8_t* w,
+                                         int* redo, const float* E, int e,
+                                         const ImageParams& p, int R0, int C0,
+                                         int XW) {
+  if (p.c1 % 32 == 0)
+    stem1_ns<32>(x, patch, q, w, redo, E, e, p, R0, C0, XW);
+  else
+    stem1_ns<16>(x, patch, q, w, redo, E, e, p, R0, C0, XW);
+}
+
+// The sums stem1_tc queued: each taken in the plain version's order by a
+// thread of the block, its code into x (stem1_q on p's flags: the same
+// operations as stem1_wg's)
+__device__ __forceinline__ void redo_stem1(const Act& x, const int8_t* patch,
+                                           const ImagePatch& q,
+                                           const int8_t* w, const int* redo,
+                                           const float* E, int e,
+                                           const ImageParams& p, int XW) {
+  const int n = min(redo[0], kRedo);
+  for (int idx = threadIdx.x; idx < n; idx += kThreads) {
+    const int r = redo[4 + idx] >> 8, o = redo[4 + idx] & 255;
+    const int i = r / XW, j = r - i * XW;
+    x.base[act_off(x, r, o)] = stem1_q(
+        stem1_sum(patch, q, w, p.c1, i, j, o), E[17 * e + o],
+        E[18 * e + o], E[19 * e + o], E[20 * e + o], p);
   }
 }
 
@@ -1142,13 +1640,17 @@ __device__ __forceinline__ void stage90(const Act& in, int inw, int gh,
 
 // The region (kRegion) or the tail, one persistent block walking tiles
 // blockIdx.x, + gridDim.x, ...; KIND is x's (the tail's is s8; an image
-// kind runs stem1 on each tile's image patch first), kFast the epilogue's
+// kind runs stem1 on each tile's image patch first: on tensor cores with
+// kTC, a bf16 image only, else on CUDA cores), kFast the epilogue's
 // variant (0 exact, 1 fast, 2 affine2, whose exit runs the fast one).
-template <bool kRegion, int KIND, int kFast>
+template <bool kRegion, int KIND, int kFast, bool kTC = false>
 __global__ void __launch_bounds__(kThreads, 1)
 region_kernel90(const KernelParams<KIND> p, int tiles_h, int tiles_w,
                 int tiles) {
   constexpr bool kImg = kRegion && (KIND == kImgBF16 || KIND == kImgF32);
+  static_assert(!kTC || (kRegion && KIND == kImgBF16),
+                "stem1 runs on tensor cores for a bf16 image only");
+  constexpr bool kCores = kImg && !kTC;
   constexpr int kExit = kFast == 2 ? 1 : kFast;
   extern __shared__ uint8_t smem_raw90[];
   const uint32_t raw = smem_u32(smem_raw90);
@@ -1160,7 +1662,7 @@ region_kernel90(const KernelParams<KIND> p, int tiles_h, int tiles_w,
   const int rows = kImg ? 21 : kRegion ? 17 : 13;
   const int e = p.e;
   const Layout90 L = layout90(kRegion, T, p.c1, p.c, p.cm, p.co, rows, e,
-                              image_channels(p));
+                              image_channels(p), kTC);
   const Act x = act(smem + L.x, p.c1), q2 = act(smem + L.q2, p.c);
   const Act q3 = act(smem + L.q3, p.cm), q4 = act(smem + L.q4, p.c);
   float* E = reinterpret_cast<float*>(smem + L.epi);
@@ -1176,8 +1678,23 @@ region_kernel90(const KernelParams<KIND> p, int tiles_h, int tiles_w,
     cp_async16(E + 4 * i, p.epi + 4 * i, 16);
   float* const patch = reinterpret_cast<float*>(smem + L.img);
   const float* const w1 = reinterpret_cast<const float*>(smem + L.w1);
-  if constexpr (kImg)
+  if constexpr (kCores)
     load_stem1_weights<KIND>(reinterpret_cast<float*>(smem + L.w1), p);
+  // tile t's bf16 image patch (stem1 rows/cols 4R0-2 .. 4R0+4T+4 read
+  // image rows/cols 4R0-3 .. 4R0+4T+5)
+  const auto patch_at = [&](int t) {
+    const int img = t / (tiles_h * tiles_w);
+    const int rem = t - img * tiles_h * tiles_w;
+    return image_patch(p, image_channels(p), img,
+                       4 * (rem / tiles_w) * T - 3,
+                       4 * (rem % tiles_w) * T - 3, XW + 2);
+  };
+  int* const redo = reinterpret_cast<int*>(smem + L.redo);
+  if constexpr (kTC) {
+    pack_stem1(smem + L.w1, p);
+    copy_patch(smem + L.img, patch_at(blockIdx.x));
+    if (threadIdx.x == 0) redo[0] = 0;
+  }
 
   // tile t's input: the region's x tile (stem1 rows/cols 4R0-2 ..
   // 4R0+4T+4 feed q2 rows 2R0-1 .. 2R0+2T+1), or the tail's q2 tile
@@ -1214,7 +1731,7 @@ region_kernel90(const KernelParams<KIND> p, int tiles_h, int tiles_w,
     const int rem = t - img * tiles_h * tiles_w;
     const int R0 = (rem / tiles_w) * T, C0 = (rem % tiles_w) * T;
     const int tn = t + gridDim.x;  // the block's next tile
-    if constexpr (kImg) {
+    if constexpr (kCores) {
       // stem1 rows/cols 4R0-2 .. 4R0+4T+4 read image rows/cols 4R0-3 ..
       // 4R0+4T+5
       load_image<KIND>(patch, p, img, 4 * R0 - 3, 4 * C0 - 3, XW + 2);
@@ -1222,9 +1739,26 @@ region_kernel90(const KernelParams<KIND> p, int tiles_h, int tiles_w,
       __syncthreads();
       stem1_tile<KIND>(x, patch, w1, E, e, p, R0, C0, XW);
     }
+    if constexpr (kTC) {
+      const ImagePatch q = patch_at(t);
+      cp_async_wait_all();  // the patch (and first the weights, the table)
+      __syncthreads();
+      if (q.edge) {
+        fix_patch(smem + L.img, q);
+        __syncthreads();
+      }
+      stem1_tc(x, smem + L.img, q, smem + L.w1, redo, E, e, p, R0, C0, XW);
+      __syncthreads();
+      redo_stem1(x, smem + L.img, q, smem + L.w1, redo, E, e, p, XW);
+    }
     if (kFloat) next.rest(x, input(t), landed, p.inv_in);
     cp_async_wait_all();
     __syncthreads();
+    if constexpr (kTC) {
+      if (threadIdx.x == 0) redo[0] = 0;  // the queue is taken
+      // the next tile's patch arrives while this tile's stages run
+      if (tn < tiles) copy_patch(smem + L.img, patch_at(tn));
+    }
     if (kRegion) {
       stage90<3, 2>(x, XW, QW, QW, ws2, p.c1, p.c,
                     [&](int o) { return cols_at(E, e, 13, o, false); },
@@ -1323,34 +1857,37 @@ int launch_blocks(void (*kernel)(const P, int, int, int), const P& p,
 
 // The kernel of x's kind and the epilogue's variant (the tail: s8,
 // exact); an image kind's with stem1's weights w_s1 and the image's ci
-// channels.
+// channels, stem1 on tensor cores for a bf16 image unless `cores`.
 template <bool kRegion>
 int launch90(const Params& p, int n, int affine2, const void* w_s1, int ci,
-             cudaStream_t stream) {
+             bool cores, cudaStream_t stream) {
   const bool image = p.x_kind == kImgBF16 || p.x_kind == kImgF32;
+  const bool tc = p.x_kind == kImgBF16 && !cores;
   const size_t smem = layout90(kRegion, p.tile, p.c1, p.c, p.cm, p.co,
                                image ? 21 : kRegion ? 17 : 13, p.e,
-                               image ? ci : 0).total;
+                               image ? ci : 0, tc).total;
   if (smem > static_cast<size_t>(kSmemMax))
     return static_cast<int>(cudaErrorInvalidValue);
   if constexpr (!kRegion) {
     return launch_blocks(region_kernel90<false, kS8, 0>, p, smem, n, stream);
   } else {
-#define REGION_MODES(K) \
-  {region_kernel90<true, K, 0>, region_kernel90<true, K, 1>, \
-   region_kernel90<true, K, 2>}
+#define REGION_MODES(K, TC) \
+  {region_kernel90<true, K, 0, TC>, region_kernel90<true, K, 1, TC>, \
+   region_kernel90<true, K, 2, TC>}
     const int mode = affine2 ? 2 : p.fast ? 1 : 0;
     if (image) {
       using Kernel = void (*)(const ImageParams, int, int, int);
-      const Kernel table[2][3] = {REGION_MODES(kImgBF16),
-                                  REGION_MODES(kImgF32)};
+      const Kernel table[3][3] = {REGION_MODES(kImgBF16, true),
+                                  REGION_MODES(kImgBF16, false),
+                                  REGION_MODES(kImgF32, false)};
       const ImageParams ip{p, w_s1, ci};
-      return launch_blocks(table[p.x_kind - kImgBF16][mode], ip, smem, n,
-                           stream);
+      return launch_blocks(table[tc ? 0 : p.x_kind - kImgBF16 + 1][mode], ip,
+                           smem, n, stream);
     }
     using Kernel = void (*)(const Params, int, int, int);
-    const Kernel table[3][3] = {REGION_MODES(kS8), REGION_MODES(kBF16),
-                                REGION_MODES(kF32)};
+    const Kernel table[3][3] = {REGION_MODES(kS8, false),
+                                REGION_MODES(kBF16, false),
+                                REGION_MODES(kF32, false)};
 #undef REGION_MODES
     return launch_blocks(table[p.x_kind][mode], p, smem, n, stream);
   }
@@ -1367,14 +1904,16 @@ bool channels_ok(int c1, int c, int cm, int co) {
 // [17, e], e >= max(c, cm, co). x_kind 3 or 4: x is the bf16 or f32 image
 // [n, h1, w1, ci] (ci <= kMaxImageChannels), w_s1 stem1's weights [9, c1,
 // ci] of its type, epi [21, e] with stem1's rows, e >= c1 too. `affine2`:
-// the affine2 epilogue. `twin` runs the first design (neither mode).
+// the affine2 epilogue. `twin` runs the first design (neither mode);
+// `cores` an image's stem1 on CUDA cores (the rawimg mode's first design).
 // Returns a cudaError_t code.
 int region_entry(const void* x, int x_kind, float inv_in, const int8_t* w_s2,
                  const int8_t* w_pw, const int8_t* w_fb0, const int8_t* w_ex,
                  const float* epi, int epi_rows, int e, int8_t* out, int n,
                  int h1, int w1, int c1, int c, int cm, int co, int tile,
                  float alpha, int cast_bf16, int fast, const void* w_s1,
-                 int ci, int affine2, bool twin, cudaStream_t stream) {
+                 int ci, int affine2, bool twin, bool cores,
+                 cudaStream_t stream) {
   const bool image = x_kind == kImgBF16 || x_kind == kImgF32;
   if (h1 % 4 || w1 % 4 || !channels_ok(c1, c, cm, co) ||
       epi_rows != (image ? 21 : 17) || e < c || e < cm || e < co ||
@@ -1383,14 +1922,14 @@ int region_entry(const void* x, int x_kind, float inv_in, const int8_t* w_s2,
       (image && (w_s1 == nullptr || ci < 1 || ci > kMaxImageChannels ||
                  (4 * tile + 9) * (4 * tile + 9) * ci >
                      kImageLoads * kThreads)) ||
-      (twin && (image || affine2)))
+      (twin && (image || affine2)) || (cores && !image))
     return static_cast<int>(cudaErrorInvalidValue);
   const Params p{x,      w_s2,   w_pw,   w_fb0,  w_ex,  epi,   out,
                  h1 / 2, w1 / 2, h1 / 4, w1 / 4, c1,    c,     cm,
                  co,     e,      tile,   alpha,  cast_bf16, fast, x_kind,
                  inv_in};
   return twin ? launch_mma<true>(p, n, stream)
-              : launch90<true>(p, n, affine2, w_s1, ci, stream);
+              : launch90<true>(p, n, affine2, w_s1, ci, cores, stream);
 }
 
 // x s8 [n, h2, w2, c] (stem2's output; h2, w2 even) -> out s8
@@ -1407,7 +1946,7 @@ int tail_entry(const int8_t* x, const int8_t* w_pw, const int8_t* w_fb0,
                  h2, w2,      h2 / 2, w2 / 2, 0,    c,     cm,
                  co, e,       tile,   alpha,  cast_bf16, 0, kS8, 1.0f};
   return twin ? launch_mma<false>(p, n, stream)
-              : launch90<false>(p, n, 0, nullptr, 0, stream);
+              : launch90<false>(p, n, 0, nullptr, 0, false, stream);
 }
 
 }  // namespace
@@ -1432,10 +1971,13 @@ int tail_entry(const int8_t* x, const int8_t* w_pw, const int8_t* w_fb0,
       alpha, cast_bf16
 
 extern "C" int s2d_region_block_q(REGION_ARGS) {
-  return region_entry(REGION_PASS, false, stream);
+  return region_entry(REGION_PASS, false, false, stream);
 }
 extern "C" int s2d_region_block_q_mma(REGION_ARGS) {
-  return region_entry(REGION_PASS, true, stream);
+  return region_entry(REGION_PASS, true, false, stream);
+}
+extern "C" int s2d_region_block_q_cores(REGION_ARGS) {
+  return region_entry(REGION_PASS, false, true, stream);
 }
 extern "C" int s2d_tail_block_q(TAIL_ARGS) {
   return tail_entry(TAIL_PASS, false, stream);

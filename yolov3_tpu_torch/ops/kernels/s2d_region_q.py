@@ -33,7 +33,12 @@ the kernel: its sums in f32 over the taps (u, v, channel) in that order,
 each product and add rounded on its own (a bf16 product is exact in f32),
 rounded to bf16 with `cast_bf16`, then bias, LeakyReLU, BatchNorm and the
 quantize to ConvBlock_1's scale with epi rows 17-20 (a stage's exact or
-`fast` epilogue, by `fast`; `ops/quant.py::with_stem1`).
+`fast` epilogue, by `fast`; `ops/quant.py::with_stem1`). For a bf16 image
+the kernel sums stem1 on the tensor cores, in their own order, and takes
+again in the plain order the few sums whose bf16 rounding, and code, that
+order could change (`stem1_gemm_plain` is this route in plain PyTorch);
+for an f32 image, and on `s2d_region_block_q_cores`, on CUDA cores in the
+plain order.
 
 Off-image pixels of q3 are zero (FB0's zero padding) and so is the exit's
 bottom/right pad of q4: in the plain layout both are the convolutions' own
@@ -48,8 +53,10 @@ tensor goes through it or the wrapper raises, a CPU tensor goes through
 `s2d_region_block_q_plain`. `s2d_tail_q` is the same kernel entered at q2.
 `s2d_region_block_q_mma` is the same contract on the first design (one
 block a tile, mma.sync; the exact and `fast` epilogues on stem1's
-output only), for A/B timing only: no serving path calls it. A launch is
-counted under `variant(affine2, rawimg)`.
+output only), and `s2d_region_block_q_cores` the `rawimg` mode with stem1
+on CUDA cores (the mode's first design), both for A/B timing only: no
+serving path calls them. A launch is counted under `variant(affine2,
+rawimg)`, on `_cores` with CORES after it.
 """
 
 from __future__ import annotations
@@ -57,6 +64,7 @@ from __future__ import annotations
 import ctypes
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -64,9 +72,12 @@ from yolov3_tpu_torch.ops.kernels import _build, _conv_q
 
 NAME = "s2d_region_block_q"
 TWIN = "_mma"  # the first design's entries: NAME + TWIN, tail + TWIN
+CORES = "_cores"  # the rawimg mode with stem1 on CUDA cores: NAME + CORES
 F32 = torch.float32
 # shared memory a block may use on the H100 (227 KB)
 SMEM_LIMIT = 232448
+# the stem1 sums a tile's queue holds on tensor cores (csrc kRedo)
+REDO = 1024
 # bytes after each pixel's channels and each weight row in the first
 # design's shared memory (csrc kPad)
 _PAD = 16
@@ -79,22 +90,41 @@ def weight_bytes(taps: int, n: int, k: int) -> int:
     return taps * -(-k // 32) * n * 32
 
 
+def patch_reads(side: int, ci: int) -> int:
+    """The elements of a bf16 image patch row that stem1 on tensor cores
+    reads: `side` pixels of ci channels, and the last A row's 16 elements
+    from pixel side - 3 (csrc `patch_reads`)."""
+    return max(side * ci, (side - 3) * ci + 16)
+
+
+def patch_pitch(side: int, ci: int) -> int:
+    """Bytes of a bf16 image patch row in shared memory: its first byte's
+    offset in its 16-byte chunk (< 16) and the elements read, in whole
+    chunks (csrc `patch_pitch`)."""
+    return -(-(15 + 2 * patch_reads(side, ci)) // 16) * 16
+
+
 def smem_bytes(tile: int, c1: int, c: int, cm: int, co: int,
                region: bool, e: int = 0, twin: bool = False,
-               ci: int = 0) -> int:
+               ci: int = 0, cores: bool = False) -> int:
     """Shared memory of one block at output tile `tile` x `tile` (e: the
     epi table's width, default the widest stage; ci > 0: the image's
-    channels of the `rawimg` kernel).
+    channels of the `rawimg` kernel, stem1 on tensor cores unless
+    `cores`).
 
     The kernel (`csrc/s2d_region_block_q.cu::layout90`): 1 KB of
     alignment slack; the four stages' weights (stem2's for the region
     only), resident for all of the block's tiles; q2, the input tile with
     its halo (region only), q3 and q4, each pixel's channels unpadded; the
-    epi table. With `ci`: stem1's f32 weights after the others, and one
-    buffer that holds the x tile and the f32 image patch ((4T+9)^2 pixels)
-    while stem1 and stem2 run, then q3 and q4; the table has 21 rows.
-    With `twin`, the first design's (`layout`): one buffer that first
-    holds the input tile and stem2's weights (region only), then FB0's
+    epi table. With `ci`: stem1's weights after the others (bf16 packed
+    [3][c1][16], then their magnitudes, or f32 with `cores`); one buffer that holds the x tile
+    while stem1 and stem2 run, then q3 and q4; then the bf16 image patch,
+    (4T+9) rows of `patch_pitch` bytes, which the next tile's copy fills
+    while this one's stages run, and the queue of the stem1 sums taken
+    again (16 + 4 REDO bytes); with `cores` the f32 patch ((4T+9)^2
+    pixels) shares the first buffer with the x tile instead. The table has
+    21 rows. With `twin`, the first design's (`layout`): one buffer that
+    first holds the input tile and stem2's weights (region only), then FB0's
     3x3 and the exit's weights; the 1x1's weights; q2, q3 and q4 with 16
     bytes after each pixel's channels; the epi table."""
     xw, qw, q4w = 4 * tile + 7, 2 * tile + 3, 2 * tile + 1
@@ -110,28 +140,33 @@ def smem_bytes(tile: int, c1: int, c: int, cm: int, co: int,
                + weight_bytes(1, cm, c) + weight_bytes(9, c, cm)
                + weight_bytes(9, co, c))
     if ci:
-        stem1 = 9 * ci * c1 * 4
-        shared = max(xw * xw * c1 + (xw + 2) ** 2 * ci * 4,
-                     qw * qw * cm + q4w * q4w * c)
-        return 1024 + weights + stem1 + qw * qw * c + -(-shared // 16) * 16 \
-            + epi
+        stem1 = 9 * ci * c1 * 4 if cores else 2 * weight_bytes(3, c1, 32)
+        x = xw * xw * c1 + ((xw + 2) ** 2 * ci * 4 if cores else 0)
+        shared = -(-max(x, qw * qw * cm + q4w * q4w * c) // 16) * 16
+        # the patch and the queue of stem1 sums taken again
+        patch = 0 if cores else ((xw + 2) * patch_pitch(xw + 2, ci)
+                                 + 16 + 4 * REDO)
+        return 1024 + weights + stem1 + qw * qw * c + shared + patch + epi
     acts = (qw * qw * c + (xw * xw * c1 if region else 0) + qw * qw * cm
             + q4w * q4w * c)
     return 1024 + weights + acts + epi
 
 
 def plan_tile(c1: int, c: int, cm: int, co: int, region: bool = True,
-              e: int = 0, twin: bool = False, ci: int = 0) -> int:
+              e: int = 0, twin: bool = False, ci: int = 0,
+              cores: bool = False) -> int:
     """The largest output tile whose block fits in shared memory (the
-    kernel's layout, the `rawimg` kernel's with `ci`, or the first
-    design's with `twin`), or 0 when the channels are not what the kernel
-    takes (multiples of 16; the image's 1 to 4)."""
+    kernel's layout, the `rawimg` kernel's with `ci`, stem1 on CUDA cores
+    with `cores`, or the first design's with `twin`), or 0 when the
+    channels are not what the kernel takes (multiples of 16; the image's
+    1 to 4)."""
     if any(ch <= 0 or ch % 16 for ch in (c1 if region else 16, c, cm, co)):
         return 0
     if ci and (twin or not region or ci > MAX_IMAGE_CHANNELS):
         return 0
     for tile in TILES:
-        if smem_bytes(tile, c1, c, cm, co, region, e, twin, ci) <= SMEM_LIMIT:
+        if smem_bytes(tile, c1, c, cm, co, region, e, twin, ci,
+                      cores) <= SMEM_LIMIT:
             return tile
     return 0
 
@@ -192,14 +227,10 @@ def tail_plain(q2: torch.Tensor, w_pw: torch.Tensor, w_fb0: torch.Tensor,
                        **dict(kw, fast=fast or affine2))
 
 
-def stem1_plain(img: torch.Tensor, w_s1: torch.Tensor, rows: torch.Tensor,
-                *, alpha: float, cast_bf16: bool,
-                fast: bool) -> torch.Tensor:
-    """stem1 as the `rawimg` kernel computes it: the 3x3 SAME conv of the
-    image [N, H, W, ci] with w_s1 [9, c1, ci], summed in f32 over (u, v,
-    channel) in that order, each product and add rounded on its own;
-    [cast_bf16] bf16; then rows 17-20 (b, m, a, inv) as a stage's exact
-    or fast epilogue. Returns s8 [N, H, W, c1]."""
+def stem1_sums(img: torch.Tensor, w_s1: torch.Tensor) -> torch.Tensor:
+    """stem1's f32 sums [N, H, W, c1] as the plain version takes them: the
+    3x3 SAME conv of the image with w_s1 [9, c1, ci] over (u, v, channel)
+    in that order, each product and add rounded on its own."""
     n, h, w, ci = img.shape
     x = F.pad(img.to(F32), (0, 0, 1, 1, 1, 1))
     wf = w_s1.to(F32)
@@ -209,10 +240,152 @@ def stem1_plain(img: torch.Tensor, w_s1: torch.Tensor, rows: torch.Tensor,
             for k in range(ci):
                 acc = acc + x[:, u:u + h, v:v + w, k:k + 1] * wf[3 * u + v,
                                                                  :, k]
+    return acc
+
+
+def stem1_plain(img: torch.Tensor, w_s1: torch.Tensor, rows: torch.Tensor,
+                *, alpha: float, cast_bf16: bool,
+                fast: bool) -> torch.Tensor:
+    """stem1 as the `rawimg` kernel computes it: the 3x3 SAME conv of the
+    image [N, H, W, ci] with w_s1 [9, c1, ci], summed in f32 over (u, v,
+    channel) in that order, each product and add rounded on its own;
+    [cast_bf16] bf16; then rows 17-20 (b, m, a, inv) as a stage's exact
+    or fast epilogue. Returns s8 [N, H, W, c1]."""
+    acc = stem1_sums(img, w_s1)
     if cast_bf16:
         acc = _conv_q._bf16_round(acc)
     return stage_plain(acc, rows, alpha=alpha, cast_bf16=cast_bf16,
                        fast=fast)
+
+
+def pack_stem1(w_s1: torch.Tensor) -> torch.Tensor:
+    """stem1's weights [9, c1, ci] as the tensor-core route's B operand
+    [3, c1, 16]: tap row u's row o holds w_s1[3u + v, o, cc] at k = v * ci
+    + cc and zeros from k = 3 ci on, where a pixel's A row runs on into the
+    next pixels (csrc `pack_stem1`, before its swizzle)."""
+    _, c1, ci = w_s1.shape
+    b = w_s1.new_zeros((3, c1, 16))
+    for u in range(3):
+        for v in range(3):
+            b[u, :, v * ci:(v + 1) * ci] = w_s1[3 * u + v]
+    return b
+
+
+# the tensor cores' stem1 sum and the plain version's lie within this
+# fraction of the sum of the products' magnitudes (csrc kDoubt)
+STEM1_DOUBT = 2.0 ** -21
+
+
+def stem1_gemm_plain(img: torch.Tensor, w_s1: torch.Tensor,
+                     rows: torch.Tensor, *, alpha: float, cast_bf16: bool,
+                     fast: bool, tile: int) -> torch.Tensor:
+    """stem1 as the kernel runs it on tensor cores (`csrc/
+    s2d_region_block_q.cu::stem1_tc`), in plain PyTorch, output tile by
+    output tile (`tile` x `tile`; stem1 pixels 4R0-2 .. 4R0+4T+4):
+
+    - the image patch (rows 4R0-3 .. 4R0+4T+5) in a buffer of (4T+9)
+      rows of `patch_pitch` bytes, each image row copied as the 16-byte
+      chunks of the image's bytes that cover it (`copy_patch`), placed at
+      the row's first byte's offset in its chunk; a patch that runs off
+      the image has every byte outside its on-image pixels zeroed
+      (`fix_patch`);
+    - pixel (i, j)'s A row for tap row u: the 16 elements from pixel j of
+      patch row i + u; K = 3 x 16 against `pack_stem1`'s weights, summed
+      in f32 in matmul's order, and the products' magnitudes summed too;
+    - with `cast_bf16`, a sum whose bf16 rounding the plain order could
+      change (within STEM1_DOUBT of the magnitudes' sum from the midpoint
+      between its two bf16 neighbours lo and hi, or that far from a
+      quarter of their step) and whose code differs from lo to hi is
+      taken in the plain order instead (the sums `stem1_plain` takes);
+      without the cast every sum is;
+    - the epilogue as `stem1_plain`'s.
+
+    So its codes are `stem1_plain`'s.
+
+    The buffer starts each tile, and the image's last 16-byte block ends,
+    with NaN bytes, so a read of bytes the tile did not copy or zero (the
+    kernel's buffer holds an earlier tile's there) shows; every chunk is
+    checked to lie in the image's 16-byte blocks. The kernel takes a bf16
+    image; the same index arithmetic runs here at the image's element
+    size. Returns s8 [N, H, W, c1]."""
+    n, h, w, ci = img.shape
+    c1 = w_s1.shape[1]
+    es = img.element_size()
+    side = 4 * tile + 9
+    reads = patch_reads(side, ci)
+    pitch = -(-(15 + es * reads) // 16) * 16
+    mem = img.contiguous().view(torch.uint8).reshape(-1).numpy()
+    mem = np.concatenate([mem, np.full(-mem.size % 16, 255, np.uint8)])
+    buf = np.full((side, pitch), 255, np.uint8)
+    b = pack_stem1(w_s1.to(F32)).permute(0, 2, 1).reshape(48, c1)
+    out = torch.zeros((n, h, w, c1), dtype=torch.int8)
+    kw = dict(alpha=alpha, cast_bf16=cast_bf16, fast=fast)
+    plain = stem1_sums(img, w_s1)
+    row_i, col_j = np.divmod(np.arange((side - 2) ** 2), side - 2)
+    k16 = np.arange(16)
+    finite = bool(torch.isfinite(img).all())
+    for im in range(n):
+        base = im * h * w * ci * es
+        for r0 in range(-3, h // 4 * 4 - 3, 4 * tile):
+            for c0 in range(-3, w // 4 * 4 - 3, 4 * tile):
+                edge = r0 < 0 or c0 < 0 or r0 + side > h or c0 + side > w
+                buf[:] = 255  # an earlier tile's bytes: read none
+                first = np.zeros(side, np.int64)
+                for i in range(side):
+                    s = ((r0 + i) * w + c0) * ci * es
+                    first[i] = s % 16
+                    if not 0 <= r0 + i < h:
+                        continue
+                    lo, hi = s, s + es * reads
+                    if edge:
+                        lo = s + ci * es * max(0, -c0)
+                        hi = s + ci * es * min(side, w - c0)
+                    for g in range(lo // 16 * 16, hi, 16):
+                        dst = g - s // 16 * 16
+                        if not (0 <= base + g and base + g + 16 <= mem.size
+                                and 0 <= dst and dst + 16 <= pitch):
+                            raise AssertionError(f"chunk {g} of row {i}")
+                        buf[i, dst:dst + 16] = mem[base + g:base + g + 16]
+                if edge:
+                    for i in range(side):
+                        lo = first[i] + ci * es * max(0, -c0)
+                        hi = first[i] + ci * es * min(side, w - c0)
+                        if not 0 <= r0 + i < h:
+                            lo = hi = pitch
+                        buf[i, :lo] = 0
+                        buf[i, hi:] = 0
+                flat = torch.from_numpy(buf.reshape(-1).copy()).view(
+                    img.dtype)
+                start = ((row_i[:, None] + np.arange(3)) * pitch
+                         + first[row_i[:, None] + np.arange(3)]) // es \
+                    + (ci * col_j)[:, None]
+                idx = torch.from_numpy(start[:, :, None] + k16)
+                a = flat[idx].reshape(-1, 48).to(F32)
+                acc, mag = a @ b, a.abs() @ b.abs()
+                if finite and not bool(torch.isfinite(acc).all()):
+                    raise AssertionError("a read the zero weights do not "
+                                         "cancel")
+                gr, gc = r0 + 1 + row_i, c0 + 1 + col_j
+                on = (gr >= 0) & (gr < h) & (gc >= 0) & (gc < w)
+                redo = torch.ones_like(acc, dtype=torch.bool)
+                if cast_bf16:
+                    t = acc.view(torch.int32) & -65536
+                    mid = (t | 0x8000).view(F32)
+                    lo, hi = t.view(F32), (t + 0x10000).view(F32)
+                    delta = mag * STEM1_DOUBT
+                    far = (mid - lo).abs() <= 2 * delta
+                    redo = (far | ((acc - mid).abs() <= delta)) & (
+                        far | (stage_plain(lo, rows, **kw)
+                               != stage_plain(hi, rows, **kw)))
+                seq = plain[im, torch.from_numpy(gr.clip(0, h - 1)),
+                            torch.from_numpy(gc.clip(0, w - 1))]
+                acc = torch.where(redo, seq, acc)
+                if cast_bf16:
+                    acc = _conv_q._bf16_round(acc)
+                q = stage_plain(acc, rows, **kw)
+                out[im, torch.from_numpy(gr[on]),
+                    torch.from_numpy(gc[on])] = q[torch.from_numpy(on)]
+    return out
 
 
 def s2d_region_block_q_plain(x: torch.Tensor, w_s2: torch.Tensor,
@@ -290,16 +463,20 @@ def check(x: torch.Tensor, weights, epi: torch.Tensor, rows: int,
 def launch(name: str, x: torch.Tensor, weights, epi: torch.Tensor, *,
            alpha: float, cast_bf16: bool, fast: bool = False,
            inv_in: Optional[float] = None, twin: bool = False,
-           affine2: bool = False, w_s1: Optional[torch.Tensor] = None
-           ) -> torch.Tensor:
+           affine2: bool = False, w_s1: Optional[torch.Tensor] = None,
+           cores: bool = False) -> torch.Tensor:
     """Launch the region (4 weights) or the tail (3) on CUDA tensors, on
-    the first design's entry (name + TWIN, counted under it) with `twin`;
+    the first design's entry (name + TWIN, counted under it) with `twin`,
+    on the entry with stem1 on CUDA cores (name + CORES) with `cores`;
     raises on what the kernel does not take."""
     region = len(weights) == 4
     rawimg = w_s1 is not None
     if (affine2 or rawimg) and (twin or not region):
         raise ValueError(f"{name}: affine2 and rawimg are modes of the "
                          f"region's kernel only")
+    if cores and not rawimg:
+        raise ValueError(f"{name}: stem1 on CUDA cores is the rawimg "
+                         f"mode's")
     tensors = (x, *weights, epi) + ((w_s1,) if rawimg else ())
     if any(t.device != x.device for t in tensors):
         raise ValueError(f"{name}: all operands must be on one device")
@@ -316,7 +493,10 @@ def launch(name: str, x: torch.Tensor, weights, epi: torch.Tensor, *,
     c = weights[0].shape[1] if region else cin
     cm, co = weights[-3].shape[1], weights[-1].shape[1]
     ci = cin if rawimg else 0
-    tile = plan_tile(c1, c, cm, co, region, epi.shape[1], twin, ci)
+    # stem1 on tensor cores for a bf16 image, else on CUDA cores
+    stem1_cores = rawimg and (cores or x.dtype != torch.bfloat16)
+    tile = plan_tile(c1, c, cm, co, region, epi.shape[1], twin, ci,
+                     stem1_cores)
     if tile == 0:
         raise ValueError(f"{name}: channels {c1, c, cm, co} (image {ci}) "
                          f"must be multiples of 16 (1 to "
@@ -324,7 +504,7 @@ def launch(name: str, x: torch.Tensor, weights, epi: torch.Tensor, *,
     out = torch.empty((n, h // step, w // step, co), dtype=torch.int8,
                       device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    entry = name + TWIN if twin else name
+    entry = name + TWIN if twin else name + CORES if cores else name
     fn = _kernel_fn(entry, region)
     ptrs = [t.data_ptr() for t in (x, *weights, epi)]
     if region:
@@ -338,7 +518,8 @@ def launch(name: str, x: torch.Tensor, weights, epi: torch.Tensor, *,
         err = fn(*ptrs, epi.shape[0], epi.shape[1], out.data_ptr(), n, h, w,
                  c, cm, co, tile, float(alpha), int(cast_bf16), stream)
     _build.check(err, entry)
-    count = entry if not region or twin else variant(affine2, rawimg)
+    count = (entry if not region or twin
+             else variant(affine2, rawimg) + (CORES if cores else ""))
     _build.launch_counts[count] += 1
     return out
 
@@ -392,3 +573,20 @@ def s2d_region_block_q_mma(x: torch.Tensor, w_s2: torch.Tensor,
     check(x, (w_s2, w_pw, w_fb0, w_exit), epi, 17, inv_in)
     return launch(NAME, x, (w_s2, w_pw, w_fb0, w_exit), epi, alpha=alpha,
                   cast_bf16=cast_bf16, fast=fast, inv_in=inv_in, twin=True)
+
+
+def s2d_region_block_q_cores(x: torch.Tensor, w_s2: torch.Tensor,
+                             w_pw: torch.Tensor, w_fb0: torch.Tensor,
+                             w_exit: torch.Tensor, epi: torch.Tensor, *,
+                             alpha: float, cast_bf16: bool,
+                             w_s1: torch.Tensor, fast: bool = False,
+                             inv_in: Optional[float] = None,
+                             affine2: bool = False) -> torch.Tensor:
+    """`s2d_region_block_q`'s `rawimg` mode with stem1 on CUDA cores, summed
+    in the plain version's order (CUDA tensors only; the region's
+    arguments, an image taking no inv_in): the mode's first design, its
+    A/B twin, code for code `s2d_region_block_q_plain`."""
+    check(x, (w_s2, w_pw, w_fb0, w_exit), epi, 17, inv_in, w_s1)
+    return launch(NAME, x, (w_s2, w_pw, w_fb0, w_exit), epi, alpha=alpha,
+                  cast_bf16=cast_bf16, fast=fast, affine2=affine2, w_s1=w_s1,
+                  cores=True)
