@@ -1,0 +1,9 @@
+"""heads_device_ms.serve (ms): in the traced slice, the union of the
+device intervals of the kernels launched inside the program's
+`yolo.heads` spans, per `yolo.serve` call (`program_spans`)."""
+
+import program_spans as P
+
+
+def read(run):
+    return P.device_ms(run, P.SERVE, "yolo.heads", "yolo.serve")

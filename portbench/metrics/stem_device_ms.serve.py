@@ -1,0 +1,9 @@
+"""stem_device_ms.serve (ms): in the traced slice, the union of the
+device intervals of the kernels launched inside the program's
+`yolo.stem` spans, per `yolo.serve` call (`program_spans`)."""
+
+import program_spans as P
+
+
+def read(run):
+    return P.device_ms(run, P.SERVE, "yolo.stem", "yolo.serve")

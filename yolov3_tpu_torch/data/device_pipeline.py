@@ -29,6 +29,7 @@ import torch
 
 from yolov3_tpu_torch.config import AugmentConfig
 from yolov3_tpu_torch.data.augment import BOX_MIN_EXTENT
+from yolov3_tpu_torch.utils import tracing
 
 
 @dataclasses.dataclass
@@ -412,16 +413,17 @@ def preprocess_batch(images: torch.Tensor, boxes: torch.Tensor,
     images' device. With augmentation, its random values are `draws`
     when given, else drawn from `gen` (a generator on that device).
     """
-    images = images.to(torch.float32)
-    boxes = boxes.to(torch.float32)
-    valid = valid.to(torch.bool)
-    if use_augmentation:
-        if draws is None:
-            draws = draw_augment(gen, images.shape[0], images.shape[1:],
-                                 boxes.shape[1], cfg)
-        images, boxes, valid = augment_batch(images, boxes, valid, draws,
-                                             cfg)
-    images = zscore_images(images)
-    labels = encode_labels_device(boxes, valid, image_size, anchors,
-                                  number_classes)
-    return (images, *labels)
+    with tracing.span("yolo.feed"):
+        images = images.to(torch.float32)
+        boxes = boxes.to(torch.float32)
+        valid = valid.to(torch.bool)
+        if use_augmentation:
+            if draws is None:
+                draws = draw_augment(gen, images.shape[0], images.shape[1:],
+                                     boxes.shape[1], cfg)
+            images, boxes, valid = augment_batch(images, boxes, valid,
+                                                 draws, cfg)
+        images = zscore_images(images)
+        labels = encode_labels_device(boxes, valid, image_size, anchors,
+                                      number_classes)
+        return (images, *labels)

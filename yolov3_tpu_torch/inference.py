@@ -40,6 +40,7 @@ from yolov3_tpu_torch.ops import boxes as bbox
 from yolov3_tpu_torch.ops.nms import batched_nms_device, nms_to_host
 from yolov3_tpu_torch.parallel import distributed as D
 from yolov3_tpu_torch.utils import checkpoint as ckpt
+from yolov3_tpu_torch.utils import tracing
 
 
 def resolve_devices(num_devices: int, device: str,
@@ -99,22 +100,39 @@ def make_serving_fn(saved_model_filepath: str,
 
     @torch.inference_mode()
     def serve(images):
-        images = torch.as_tensor(images, device=device)
-        # clip to the served images' bounds, not cfg.img_size: the network
-        # is fully convolutional
-        img_h, img_w = images.shape[1], images.shape[2]
-        det = model(images)
+        with tracing.span("yolo.serve"):
+            images = torch.as_tensor(images, device=device)
+            return serving_tail(model(images), images, cfg.number_classes,
+                                icfg, min_box_size)
+
+    return serve, cfg
+
+
+def serving_tail(det: torch.Tensor, images: torch.Tensor, num_classes: int,
+                 icfg: InferenceConfig, min_box_size: float):
+    """The serving functions' tail: decoded detections [B, N, 4+1+C] ->
+    corners clipped to the served images' bounds (not cfg.img_size: the
+    network is fully convolutional) -> strict small-box filter ->
+    per-class NMS: (boxes [B,C,K,4] ltrb, scores [B,C,K], keep [B,C,K]).
+
+    While recording (`utils/tracing.py`), counts `nms.candidates`, the
+    candidates at or above the score threshold, and `nms.kept`; their
+    kernels run after the `yolo.nms` span."""
+    img_h, img_w = images.shape[1], images.shape[2]
+    with tracing.span("yolo.nms"):
         clipped = torch.cat([
             det[..., 0:1].clamp(0, img_w), det[..., 1:2].clamp(0, img_h),
             det[..., 2:3].clamp(0, img_w), det[..., 3:4].clamp(0, img_h),
             det[..., 4:]], dim=-1)
-        return batched_nms_device(clipped, cfg.number_classes,
-                                  iou_threshold=icfg.iou_threshold,
-                                  score_threshold=icfg.score_threshold,
-                                  max_boxes=icfg.max_boxes_per_class,
-                                  min_box_size=float(min_box_size))
-
-    return serve, cfg
+        out = batched_nms_device(clipped, num_classes,
+                                 iou_threshold=icfg.iou_threshold,
+                                 score_threshold=icfg.score_threshold,
+                                 max_boxes=icfg.max_boxes_per_class,
+                                 min_box_size=float(min_box_size))
+    if tracing.is_on():
+        tracing.count("nms.candidates", out[1] >= icfg.score_threshold)
+        tracing.count("nms.kept", out[2])
+    return out
 
 
 def detections_to_csv_rows(det: np.ndarray, img_hw, min_box_size: int,

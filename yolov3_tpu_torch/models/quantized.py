@@ -104,6 +104,7 @@ from yolov3_tpu_torch.ops.kernels.pointwise_q import pointwise_conv_block_q
 from yolov3_tpu_torch.ops.kernels.s2d_region_q import (plan_tile,
                                                        s2d_region_block_q)
 from yolov3_tpu_torch.ops.kernels.s2d_tail_q import s2d_tail_block_q
+from yolov3_tpu_torch.utils import tracing
 
 F32 = torch.float32
 BF16 = torch.bfloat16
@@ -506,40 +507,46 @@ class QuantizedYoloV3(YoloV3):
         cfg = self.config
         d = self.darknet
         y = x.to(cfg.dtype)
-        stages = list(zip(d.convs[1:], d.blocks))
-        routes = []
-        if self.int8 and cfg.stem_space_to_depth:
-            kernels = (self.kernels if self.kernels is not None
-                       else default_serving_kernels(y.device))
-            route = self.region_route(y.shape[1], y.shape[2], kernels)
-            if route != "rawimg":  # otherwise stem1 runs in the region
+        # the stem: stem1, stem2, FeatureBlock_0 and the down conv after it
+        with tracing.span("yolo.stem"):
+            if self.int8 and cfg.stem_space_to_depth:
+                kernels = (self.kernels if self.kernels is not None
+                           else default_serving_kernels(y.device))
+                route = self.region_route(y.shape[1], y.shape[2], kernels)
+                if route != "rawimg":  # otherwise stem1 runs in the region
+                    y = self._conv_block(d.convs[0], y)
+                y = self._stem_region(y, route)
+            else:
                 y = self._conv_block(d.convs[0], y)
-            y = self._stem_region(y, route)
-            routes.append(None)  # FeatureBlock_0's output stays inside
-            stages[:2] = [(None, d.blocks[1])]
-        else:
-            y = self._conv_block(d.convs[0], y)
-        for down, block in stages:
-            if down is not None:
-                y = self._down_block(down, y)
-            y = self._feature_block(block, y)
-            routes.append(y)
-        route_s8, route_s16, route_s32 = routes[2:]
+                y = self._feature_block(d.blocks[0],
+                                        self._down_block(d.convs[1], y))
+                y = self._down_block(d.convs[2], y)
+        routes = []
+        with tracing.span("yolo.backbone"):
+            y = self._feature_block(d.blocks[1], y)
+            for down, block in zip(d.convs[3:], d.blocks[2:]):
+                y = self._feature_block(block, self._down_block(down, y))
+                routes.append(y)
+        route_s8, route_s16, route_s32 = routes
 
         def up(t):
             return upsample_2x(t, cfg.upsample_channel_sum)
 
-        route, yb1 = self._yolo_block(self.yolo_blocks[0], route_s32)
-        y = self._conv_block(self.necks[0], route)
-        route, yb2 = self._yolo_block(self.yolo_blocks[1], up(y), route_s16)
-        y = self._conv_block(self.necks[1], route)
-        _, yb3 = self._yolo_block(self.yolo_blocks[2], up(y), route_s8)
+        with tracing.span("yolo.neck"):
+            route, yb1 = self._yolo_block(self.yolo_blocks[0], route_s32)
+            y = self._conv_block(self.necks[0], route)
+            route, yb2 = self._yolo_block(self.yolo_blocks[1], up(y),
+                                          route_s16)
+            y = self._conv_block(self.necks[1], route)
+            _, yb3 = self._yolo_block(self.yolo_blocks[2], up(y), route_s8)
         return [yb1, yb2, yb3]
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         matmul = bool(self.kernels and self.kernels.get("head_matmul"))
-        return [self._head(head, h, matmul)
-                for head, h in zip(self.heads, self.neck_outputs(x))]
+        necks = self.neck_outputs(x)
+        with tracing.span("yolo.heads"):
+            return [self._head(head, h, matmul)
+                    for head, h in zip(self.heads, necks)]
 
     @staticmethod
     def _head(head, h: torch.Tensor, matmul: bool) -> torch.Tensor:
@@ -702,7 +709,7 @@ def make_quantized_serving_fn(saved_model_filepath: str, calib_images,
 
     Returns (serve, cfg, scales)."""
     from yolov3_tpu_torch.data.device_pipeline import zscore_images
-    from yolov3_tpu_torch.ops.nms import batched_nms_device
+    from yolov3_tpu_torch.inference import serving_tail
 
     icfg = icfg or InferenceConfig()
     if min_box_size is None:
@@ -712,22 +719,12 @@ def make_quantized_serving_fn(saved_model_filepath: str, calib_images,
 
     @torch.inference_mode()
     def serve(images):
-        images = torch.as_tensor(images, device=device)
-        if raw_pixels:
-            images = zscore_images(images).to(cfg.dtype)
-        # clip to the served images' bounds: the network is fully
-        # convolutional
-        img_h, img_w = images.shape[1], images.shape[2]
-        det = model.forward_detections(images)
-        clipped = torch.cat([
-            det[..., 0:1].clamp(0, img_w), det[..., 1:2].clamp(0, img_h),
-            det[..., 2:3].clamp(0, img_w), det[..., 3:4].clamp(0, img_h),
-            det[..., 4:]], dim=-1)
-        return batched_nms_device(clipped, cfg.number_classes,
-                                  iou_threshold=icfg.iou_threshold,
-                                  score_threshold=icfg.score_threshold,
-                                  max_boxes=icfg.max_boxes_per_class,
-                                  min_box_size=float(min_box_size))
+        with tracing.span("yolo.serve"):
+            images = torch.as_tensor(images, device=device)
+            if raw_pixels:
+                images = zscore_images(images).to(cfg.dtype)
+            return serving_tail(model.forward_detections(images), images,
+                                cfg.number_classes, icfg, min_box_size)
 
     return serve, cfg, scales
 

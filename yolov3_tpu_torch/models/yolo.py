@@ -70,6 +70,7 @@ from yolov3_tpu_torch.config import ModelConfig
 from yolov3_tpu_torch.ops import quant
 from yolov3_tpu_torch.ops.decode import decode_detections
 from yolov3_tpu_torch.ops.kernels import conv_block
+from yolov3_tpu_torch.utils import tracing
 
 F32 = torch.float32
 
@@ -492,15 +493,24 @@ class Darknet53(nn.Module):
             FeatureBlock(r, k, wd, region_ck if i == 0 else ck)
             for i, (r, wd) in enumerate(zip(reps, widths[1:])))
 
+    def _block(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        block = self.blocks[i]
+        if self.remat_blocks and self.training:
+            return remat(block, x)
+        return block(x)
+
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
-        x = self.convs[0](x)
+        # the stem: what the int8 stem-region kernel replaces, with stem1
+        with tracing.span("yolo.stem"):
+            x = self._block(0, self.convs[1](self.convs[0](x)))
+            x = self.convs[2](x)
         routes = []
-        for down, block in zip(self.convs[1:], self.blocks):
-            x = down(x)
-            x = (remat(block, x) if self.remat_blocks and self.training
-                 else block(x))
-            routes.append(x)
-        return routes[2:]  # strides 8, 16, 32
+        with tracing.span("yolo.backbone"):
+            x = self._block(1, x)
+            for i in range(2, len(self.blocks)):
+                x = self._block(i, self.convs[i + 1](x))
+                routes.append(x)
+        return routes  # strides 8, 16, 32
 
 
 class YoloV3(nn.Module):
@@ -544,14 +554,19 @@ class YoloV3(nn.Module):
                 return remat(block, x)
             return block(x)
 
-        route, y = yolo_block(self.yolo_blocks[0], route_s32)
-        fms = [self.heads[0](y)]
+        # the heads interleave with the neck: each span opens three times
+        with tracing.span("yolo.neck"):
+            route, y = yolo_block(self.yolo_blocks[0], route_s32)
+        with tracing.span("yolo.heads"):
+            fms = [self.heads[0](y)]
         for neck, skip, block, head in zip(self.necks, (route_s16, route_s8),
                                            self.yolo_blocks[1:],
                                            self.heads[1:]):
-            y = upsample_2x(neck(route), cfg.upsample_channel_sum)
-            route, y = yolo_block(block, torch.cat([y, skip], dim=-1))
-            fms.append(head(y))
+            with tracing.span("yolo.neck"):
+                y = upsample_2x(neck(route), cfg.upsample_channel_sum)
+                route, y = yolo_block(block, torch.cat([y, skip], dim=-1))
+            with tracing.span("yolo.heads"):
+                fms.append(head(y))
         return fms
 
 

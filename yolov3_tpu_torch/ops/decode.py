@@ -11,6 +11,8 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from yolov3_tpu_torch.utils import tracing
+
 
 def reorg_feature_map(feature_map: torch.Tensor,
                       anchors: Sequence[Tuple[float, float]],
@@ -54,12 +56,14 @@ def decode_detections(feature_maps: Sequence[torch.Tensor],
     unclipped, ordered (scale, cell, anchor). Corners are c - 0.5*wh and
     c + 0.5*wh, the JAX decode's op order (decode.py:113-114).
     """
-    out = []
-    for fm, stride in zip(feature_maps, strides):
-        _, boxes, obj, cls = reorg_feature_map(fm, anchors, number_classes,
-                                               stride)
-        xy, wh = boxes[..., 0:2], boxes[..., 2:4]
-        rows = torch.cat([xy - 0.5 * wh, xy + 0.5 * wh, torch.sigmoid(obj),
-                          torch.sigmoid(cls)], dim=-1)
-        out.append(rows.reshape(fm.shape[0], -1, 5 + number_classes))
-    return torch.cat(out, dim=1)
+    with tracing.span("yolo.decode"):
+        out = []
+        for fm, stride in zip(feature_maps, strides):
+            _, boxes, obj, cls = reorg_feature_map(fm, anchors,
+                                                   number_classes, stride)
+            xy, wh = boxes[..., 0:2], boxes[..., 2:4]
+            rows = torch.cat([xy - 0.5 * wh, xy + 0.5 * wh,
+                              torch.sigmoid(obj), torch.sigmoid(cls)],
+                             dim=-1)
+            out.append(rows.reshape(fm.shape[0], -1, 5 + number_classes))
+        return torch.cat(out, dim=1)

@@ -52,6 +52,7 @@ from yolov3_tpu_torch.config import ModelConfig, TrainConfig
 from yolov3_tpu_torch.models.yolo import YoloV3, prepare_all
 from yolov3_tpu_torch.ops.loss import YoloLoss, compute_loss, l2_regularization
 from yolov3_tpu_torch.parallel import distributed as D
+from yolov3_tpu_torch.utils import tracing
 from yolov3_tpu_torch.utils.checkpoint import (init_train_params,
                                                params_from_jax)
 
@@ -115,8 +116,17 @@ def create_train_state(cfg: ModelConfig, tcfg: TrainConfig, seed: int = 0,
 def _loss(model: YoloV3, cfg: ModelConfig, tcfg: TrainConfig,
           global_batch_size: int, images: torch.Tensor,
           labels: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, YoloLoss]:
-    yolo_loss = compute_loss(model(images), labels, cfg.anchors,
-                             cfg.number_classes, cfg.strides)
+    return _loss_of(model(images), model, cfg, tcfg, global_batch_size,
+                    labels)
+
+
+def _loss_of(fms: List[torch.Tensor], model: YoloV3, cfg: ModelConfig,
+             tcfg: TrainConfig, global_batch_size: int,
+             labels: Sequence[torch.Tensor]
+             ) -> Tuple[torch.Tensor, YoloLoss]:
+    """The loss of the feature maps `fms`, weight decay included."""
+    yolo_loss = compute_loss(fms, labels, cfg.anchors, cfg.number_classes,
+                             cfg.strides)
     loss = yolo_loss.total / float(global_batch_size)
     if tcfg.apply_weight_decay:
         loss = loss + l2_regularization(model, tcfg.weight_decay)
@@ -158,23 +168,31 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     world = D.world_size(group)
 
     def step(state: TrainState, batch: Batch, lr: float):
-        images, *labels = batch
-        model = state.model.train()
-        for g in state.optimizer.param_groups:
-            g["lr"] = float(lr)
-        loss, yolo_loss = _loss(model, cfg, tcfg, global_batch_size, images,
-                                labels)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        if world > 1:
-            D.all_reduce_sum_([p.grad for p in model.parameters()
-                               if p.grad is not None], group)
-        state.optimizer.step()
-        if world > 1:
-            D.average_(batch_stat_buffers(model), group)
-        state.step += 1
-        state.stale = True
-        return state, _metrics(loss, yolo_loss, group)
+        # the optimizer's span opens twice, for zero_grad and for the step
+        with tracing.span("yolo.step"):
+            images, *labels = batch
+            model = state.model.train()
+            for g in state.optimizer.param_groups:
+                g["lr"] = float(lr)
+            with tracing.span("yolo.step.forward"):
+                fms = model(images)
+            with tracing.span("yolo.step.loss"):
+                loss, yolo_loss = _loss_of(fms, model, cfg, tcfg,
+                                           global_batch_size, labels)
+            with tracing.span("yolo.step.optimizer"):
+                state.optimizer.zero_grad(set_to_none=True)
+            with tracing.span("yolo.step.backward"):
+                loss.backward()
+                if world > 1:
+                    D.all_reduce_sum_([p.grad for p in model.parameters()
+                                       if p.grad is not None], group)
+            with tracing.span("yolo.step.optimizer"):
+                state.optimizer.step()
+                if world > 1:
+                    D.average_(batch_stat_buffers(model), group)
+            state.step += 1
+            state.stale = True
+            return state, _metrics(loss, yolo_loss, group)
 
     return step
 

@@ -27,7 +27,11 @@ Loop semantics are the JAX trainer's (train.py:63-371):
   one train batch with that batch's BatchNorm statistics (:181-210,
   273-274); `--int8_static 1` alone changes nothing (:461-464);
 - `--profile_dir` writes a `torch.profiler` trace of epoch 1
-  (`trace.json`, Chrome format; :285-286, 303-304);
+  (`trace.json`, Chrome format; :285-286, 303-304), which carries the
+  program's own `yolo.*` spans (`utils/tracing.py`: the step's forward,
+  loss, backward and optimizer, the model's stages, the device feed);
+  `tracing.recording()` collects the same spans and counters without a
+  profiler;
 - at the end the best checkpoint is exported to `<output>/saved_model`,
   which `inference.py` serves.
 
@@ -476,7 +480,8 @@ def main(argv=None) -> None:
     parser.add_argument("--compute_dtype", type=str, default="bfloat16",
                         choices=("bfloat16", "float32"))
     parser.add_argument("--profile_dir", type=str, default=None,
-                        help="write a torch.profiler trace of epoch 1 here")
+                        help="write a torch.profiler trace of epoch 1 "
+                             "here, the program's yolo.* spans in it")
     parser.add_argument("--device_augment", type=int, default=0,
                         help="augment, z-score and encode labels on the "
                              "device; reader workers only decode")
