@@ -72,7 +72,12 @@ Phases, in order; any failure exits non-zero:
      written by the port's `RecordWriter` (96 train, 32 test images):
      ms/step on a resident batch (CUDA events over 10 steps after 3),
      peak memory, one profiled step by kernel, `train_mfu`; 30 steps on
-     one batch whose loss must fall; `train.train_model` end to end (two
+     one batch whose loss must fall; the train-graph gate
+     (`phase_train_graph`: replayed steps bit-equal to eager ones, plain,
+     QAT, static QAT and remat, the capturable Adam's update against the
+     plain one's, 30 replayed steps whose loss falls, ms a step eager and
+     replayed in turns; `--phase train_graph` runs this phase's step
+     parts alone); `train.train_model` end to end (two
      epochs of 9 steps, augmentation, 3 reader workers): steps/s with the
      feed, the share of the loop spent waiting for batches,
      `test_loss.csv`, checkpoint and export; the export served in bf16
@@ -1693,6 +1698,209 @@ def phase_train_step(torch, ModelConfig, batch, card):
     return out, learn
 
 
+def graph_batches(torch, batch, n):
+    """`n` batches from one: the images plus seeded noise, the labels
+    rolled over the batch."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    out = []
+    for k in range(n):
+        noise = torch.randn(batch[0].shape, generator=gen, device=DEVICE)
+        out.append([batch[0] + 0.25 * k * noise]
+                   + [g.roll(k, 0) for g in batch[1:]])
+    return out
+
+
+def step_state(torch, state):
+    """Copies of the model's state_dict and Adam's state."""
+    out = {f"model.{k}": v for k, v in state.model.state_dict().items()}
+    for i, p in enumerate(state.model.parameters()):
+        for k, v in state.optimizer.state[p].items():
+            out[f"adam.{i}.{k}"] = v
+    return {k: v.detach().clone() for k, v in out.items()}
+
+
+def run_steps(torch, T, cfg, tcfg, batches, lrs, eager):
+    """Steps on `batches` at `lrs` from `init_train_params(cfg, SEED)`;
+    `eager` keeps the step off the graph. (state, losses, {counter:
+    steps})."""
+    from yolov3_tpu_torch.utils import tracing
+    state = T.create_train_state(cfg, tcfg, SEED, DEVICE)
+    step = T.make_train_step(cfg, tcfg, batches[0][0].shape[0])
+    graphable = T.graphable
+    if eager:
+        T.graphable = lambda model, group=None: False
+    tracing.clear()
+    try:
+        with tracing.recording():
+            losses = [float(step(state, b, lr)[1]["loss"])
+                      for b, lr in zip(batches, lrs)]
+        counts = tracing.counters()
+    finally:
+        T.graphable = graphable
+        tracing.clear()
+    return state, losses, counts
+
+
+def graph_modes(torch, T, ModelConfig, batch, card):
+    """QAT, static QAT (scales 1.0) and `remat_blocks` at FULL on `batch`
+    (bf16): three steps replayed (warm-up, capture, replay) against three
+    eager ones from the same state, bit for bit, cuDNN deterministic."""
+    from yolov3_tpu_torch.config import TrainConfig
+    tcfg = TrainConfig(batch_size=TRAIN_BATCH)
+    batches = graph_batches(torch, batch, 3)
+    out = {}
+    for name, flags in (("int8_train", {"int8_train": True}),
+                        ("int8_train_static", {"int8_train": True,
+                                               "int8_train_static": True}),
+                        ("remat_blocks", {"remat_blocks": True})):
+        cfg = ModelConfig(**FULL, **flags)
+        runs = {}
+        for eager in (True, False):
+            state, losses, counts = run_steps(torch, T, cfg, tcfg, batches,
+                                              [1e-4] * 3, eager)
+            runs[eager] = losses, step_state(torch, state), counts
+            del state
+            torch.cuda.empty_cache()
+        (le, te, _), (lg, tg, cg) = runs[True], runs[False]
+        differ = [k for k in te if not torch.equal(te[k], tg[k])]
+        out[name] = {"counts": cg, "losses": lg, "loss_equal": le == lg,
+                     "tensors": len(te), "tensors_differing": len(differ),
+                     "first_differing": differ[:3]}
+        del runs, te, tg
+    log(f"train graph modes b{TRAIN_BATCH} on {card}: {out}")
+    return out
+
+
+def phase_train_graph(torch, ModelConfig, batch, card):
+    """The train step replayed as one CUDA graph, at FULL (bf16, b16):
+    five replayed steps bit-equal to five eager steps with the same
+    capturable Adam from the same state and batches (cuDNN deterministic:
+    loss, parameters, BatchNorm statistics, moments), and the same for
+    QAT, static QAT and remat over three steps (`graph_modes`); the
+    capturable Adam's update against the plain one's on one eager step's
+    gradients, each leaf within GRAD_BOUND of its largest; the loss
+    falling over 30 replayed steps on one batch; ms a step eager and
+    replayed in turns, and the peak memory allocated while each ran."""
+    from yolov3_tpu_torch.config import TrainConfig
+    from yolov3_tpu_torch.parallel import train_step as T
+    cfg = ModelConfig(**FULL)
+    tcfg = TrainConfig(batch_size=TRAIN_BATCH)
+    batches = graph_batches(torch, batch, 5)
+    lrs = [tcfg.learning_rate * (k + 1) / 5 for k in range(5)]
+    out = {"card": card}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {}
+        for eager in (True, False):
+            state, losses, counts = run_steps(torch, T, cfg, tcfg, batches,
+                                              lrs, eager)
+            runs[eager] = losses, step_state(torch, state), counts
+            del state
+            torch.cuda.empty_cache()
+        (le, te, ce), (lg, tg, cg) = runs[True], runs[False]
+        differ = [k for k in te if not torch.equal(te[k], tg[k])]
+        out["bit_equal"] = {"losses_eager": le, "losses_replayed": lg,
+                            "counts_eager": ce, "counts_replayed": cg,
+                            "tensors": len(te),
+                            "tensors_differing": len(differ),
+                            "first_differing": differ[:5]}
+        del runs, te, tg
+
+        # Adam's update alone: each optimizer steps zero parameters that
+        # hold one eager step's gradients (a parameter near 1 would round
+        # the update to its ulps)
+        state, _, _ = run_steps(torch, T, cfg, tcfg, batches[:1], lrs[:1],
+                                True)
+        grads = {n: p.grad.detach().clone()
+                 for n, p in state.model.named_parameters()}
+        del state
+        updates = {}
+        for name in ("capturable", "plain"):
+            shadow = {n: torch.zeros_like(g, requires_grad=True)
+                      for n, g in grads.items()}
+            for n, p in shadow.items():
+                p.grad = grads[n].clone()
+            kw = dict(betas=(tcfg.adam_b1, tcfg.adam_b2), eps=tcfg.adam_eps)
+            if name == "capturable":
+                kw.update(lr=torch.full((), lrs[0], device=DEVICE),
+                          capturable=True)
+            else:
+                kw.update(lr=lrs[0])
+            torch.optim.Adam(list(shadow.values()), **kw).step()
+            updates[name] = {n: p.detach() for n, p in shadow.items()}
+        worst, at = 0.0, None
+        for n, want in updates["plain"].items():
+            err = float((updates["capturable"][n] - want).abs().max()
+                        / (want.abs().max() or 1.0))
+            if err > worst:
+                worst, at = err, n
+        out["adam"] = {"worst_update_err_rel_leaf_max": worst, "at": at,
+                       "bound": GRAD_BOUND}
+        del grads, updates, shadow
+        out["modes"] = graph_modes(torch, T, ModelConfig, batch, card)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    torch.cuda.empty_cache()
+
+    state, losses, counts = run_steps(torch, T, cfg, tcfg, [batch] * 30,
+                                      [1e-4] * 30, False)
+    del state
+    out["learns"] = {"lr": 1e-4, "counts": counts,
+                     "loss_at": {i: losses[i] for i in (0, 10, 20, 29)}}
+    torch.cuda.empty_cache()
+
+    # ms a step in turns on one state: eager, replayed, replayed, eager
+    state = T.create_train_state(cfg, tcfg, SEED, DEVICE)
+    step = T.make_train_step(cfg, tcfg, TRAIN_BATCH)
+    graphable = T.graphable
+    timed, ms, peaks = 10, {"eager": [], "replayed": []}, {}
+    try:
+        for mode in ("eager", "replayed", "replayed", "eager"):
+            if mode == "eager":
+                T.graphable = lambda model, group=None: False
+            for _ in range(3):
+                step(state, batch, 1e-4)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            for _ in range(timed):
+                _, metrics = step(state, batch, 1e-4)
+                float(metrics["loss"])
+            torch.cuda.synchronize()
+            ms[mode].append((time.perf_counter() - t0) / timed * 1e3)
+            peaks[mode] = torch.cuda.max_memory_allocated()
+            T.graphable = graphable
+    finally:
+        T.graphable = graphable
+    del state, step
+    torch.cuda.empty_cache()
+    out["ms_per_step"] = ms
+    out["peak_bytes"] = peaks
+    b = out["bit_equal"]
+    log(f"train graph b{TRAIN_BATCH} 512px bf16 on {card}: replayed vs "
+        f"eager {b['tensors_differing']} of {b['tensors']} tensors differ, "
+        f"losses {b['losses_replayed']} vs {b['losses_eager']}; capturable "
+        f"vs plain Adam worst leaf {out['adam']['worst_update_err_rel_leaf_max']:.3e} "
+        f"({out['adam']['at']}); 30 replayed steps {out['learns']}; ms a "
+        f"step (loss read each step) eager {ms['eager']} replayed "
+        f"{ms['replayed']}; peak {peaks}")
+    if not (b["tensors_differing"] == 0
+            and b["losses_eager"] == b["losses_replayed"]
+            and b["counts_replayed"] == {"step.eager": 1.0,
+                                         "step.replayed": 4.0}
+            and out["adam"]["worst_update_err_rel_leaf_max"] <= GRAD_BOUND
+            and all(m["tensors_differing"] == 0 and m["loss_equal"]
+                    and m["counts"] == {"step.eager": 1.0,
+                                        "step.replayed": 2.0}
+                    for m in out["modes"].values())
+            and all(math.isfinite(v) for v in losses)
+            and losses[29] < losses[0]
+            and counts == {"step.eager": 1.0, "step.replayed": 29.0}):
+        raise AssertionError(f"train graph gate: {out}")
+    return out
+
+
 def phase_trainer(torch, workdir, card, overrides=None, name="train_out"):
     """`train.train_model` on the planted store, end to end, with the 1x1
     kernel and the model `overrides` (QAT's flags)."""
@@ -1822,12 +2030,14 @@ def phase_training(torch, inf, TQ, build, ModelConfig, workdir, card):
                               TRAIN_BATCH, FULL["anchors"])
     batch = [torch.from_numpy(a).to(DEVICE) for a in batch]
     step, learn = phase_train_step(torch, ModelConfig, batch, card)
+    graph = phase_train_graph(torch, ModelConfig, batch, card)
     del batch
     torch.cuda.empty_cache()
     export, trainer = phase_trainer(torch, workdir, card)
     served = phase_train_served(torch, inf, TQ, build, export, workdir, card)
     reference = phase_train_reference(torch, ModelConfig, card)
-    lines = {"train_step": step, "train_learns": learn, "trainer": trainer,
+    lines = {"train_step": step, "train_learns": learn,
+             "train_graph": graph, "trainer": trainer,
              "train_export_served": served, "train_card_vs_cpu": reference}
     log(f"training phase took {time.perf_counter() - t0:.1f} s")
     return lines
@@ -1845,14 +2055,15 @@ def qat_state(torch, TQ, cfg, tcfg, images):
 
 def phase_qat_steps(torch, TQ, ModelConfig, batch, card):
     """The train step at FULL, b16, in the three modes: each mode's peak
-    memory over what was allocated before its state (3 warm-up steps),
-    ms/step by CUDA events over 10 steps, in turns (plain, dynamic,
-    static, static, dynamic, plain), and one profiled step, with the
-    device time of `torch._int_mm` and of the whole `int8_conv_sums`
-    (the im2col with it)."""
+    memory over what was allocated before its state (3 warm-up steps, the
+    graph's capture among them), ms/step of the replayed step by CUDA
+    events over 10 steps, in turns (plain, dynamic, static, static,
+    dynamic, plain), and one profiled eager step, with the device time of
+    `torch._int_mm` and of the whole `int8_conv_sums` (the im2col with
+    it)."""
     from yolov3_tpu_torch.config import TrainConfig
     from yolov3_tpu_torch.ops import quant
-    from yolov3_tpu_torch.parallel.train_step import make_train_step
+    from yolov3_tpu_torch.parallel import train_step as T
     tcfg = TrainConfig(batch_size=TRAIN_BATCH)
     lr = tcfg.learning_rate
     runs, out = {}, {}
@@ -1862,7 +2073,7 @@ def phase_qat_steps(torch, TQ, ModelConfig, batch, card):
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         state = qat_state(torch, TQ, cfg, tcfg, batch[0])
-        step = make_train_step(cfg, tcfg, TRAIN_BATCH)
+        step = T.make_train_step(cfg, tcfg, TRAIN_BATCH)
         for _ in range(3):
             step(state, batch, lr)
         torch.cuda.synchronize()
@@ -1873,12 +2084,14 @@ def phase_qat_steps(torch, TQ, ModelConfig, batch, card):
         state, step = runs[mode]
         times[mode].append(cuda_ms(lambda: step(state, batch, lr), 10,
                                    warmup=1))
-    orig = quant.int8_conv_sums
+    orig, graphable = quant.int8_conv_sums, T.graphable
 
     def spanned(*args):
         with torch.profiler.record_function("int8_conv_sums"):
             return orig(*args)
     quant.int8_conv_sums = spanned
+    # the profiled steps eager: a replay runs no host op to give kernels to
+    T.graphable = lambda model, group=None: False
     try:
         for mode, (state, step) in runs.items():
             ms = sum(times[mode]) / len(times[mode])
@@ -1893,7 +2106,7 @@ def phase_qat_steps(torch, TQ, ModelConfig, batch, card):
                 f"peak {out[mode]['peak_bytes'] / 2**30:.2f} GiB over "
                 f"what was allocated before its state, on {card}")
     finally:
-        quant.int8_conv_sums = orig
+        quant.int8_conv_sums, T.graphable = orig, graphable
     del runs
     return dict(out, card=card, batch=TRAIN_BATCH)
 
@@ -2862,10 +3075,39 @@ def phase_multi(torch, inf, TQ, build, ModelConfig, path, card):
     return out
 
 
+def train_graph_only(torch, ModelConfig, card, out_path) -> int:
+    """`--phase train_graph`: phase 9's step timing and learning check,
+    then `phase_train_graph`, on a planted store; one JSON line each."""
+    with tempfile.TemporaryDirectory() as workdir:
+        path = os.path.join(workdir, "train.ydb")
+        plant_store(path, TRAIN_BATCH, SEED)
+        _, batch = store_examples(path, TRAIN_BATCH, FULL["anchors"])
+    batch = [torch.from_numpy(a).to(DEVICE) for a in batch]
+    step, learn = phase_train_step(torch, ModelConfig, batch, card)
+    lines = {"train_step": step, "train_learns": learn,
+             "train_graph": phase_train_graph(torch, ModelConfig, batch,
+                                              card)}
+    if out_path:
+        os.makedirs(os.path.dirname(os.path.abspath(out_path)),
+                    exist_ok=True)
+        with open(out_path, "w") as fh:
+            json.dump(lines, fh, indent=1)
+    for key, value in lines.items():
+        print(json.dumps({key: value}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", default=None,
                         help="also write the detailed results to this JSON")
+    parser.add_argument("--phase", choices=("all", "train_graph"),
+                        default="all",
+                        help="train_graph: phase 9's step timing and the "
+                        "train-graph gate alone, on its planted store")
     args = parser.parse_args(argv)
 
     sys.path.insert(0, HERE)
@@ -2893,6 +3135,8 @@ def main(argv=None) -> int:
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
+    if args.phase == "train_graph":
+        return train_graph_only(torch, ModelConfig, smi, args.out)
     t0 = time.perf_counter()
     build.build()
     log(f"kernels built in {time.perf_counter() - t0:.1f} s")

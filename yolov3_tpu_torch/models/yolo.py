@@ -266,9 +266,11 @@ class BatchNorm(Prepared):
         xf = x.to(torch.float32)
         dims = tuple(range(xf.dim() - 1))
         mean = xf.mean(dims)
-        # torch.maximum splits the gradient at a tie, as jnp.maximum does
+        # torch.maximum splits the gradient at a tie, as jnp.maximum does;
+        # its zero is a device fill (a tensor made from host data would be
+        # a copy that synchronises, and that a CUDA graph cannot capture)
         var = torch.maximum((xf * xf).mean(dims) - mean * mean,
-                            xf.new_tensor(0.0))
+                            xf.new_zeros(()))
         self._update_stats(mean, var)
         y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight)
         return (y + self.bias).to(x.dtype)

@@ -7,15 +7,24 @@ Per cell and anchor (YOLOv3 paper, reference/model.py:122-212):
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
 from yolov3_tpu_torch.utils import tracing
 
+Anchors = Union[Sequence[Tuple[float, float]], torch.Tensor]
 
-def reorg_feature_map(feature_map: torch.Tensor,
-                      anchors: Sequence[Tuple[float, float]],
+
+def anchor_tensor(anchors: Anchors, device) -> torch.Tensor:
+    """The anchors as a float32 [A, 2] tensor: a tensor as it is, (w, h)
+    pairs copied from the host onto `device` (a copy that synchronises)."""
+    if isinstance(anchors, torch.Tensor):
+        return anchors
+    return torch.tensor(anchors, dtype=torch.float32, device=device)
+
+
+def reorg_feature_map(feature_map: torch.Tensor, anchors: Anchors,
                       number_classes: int, stride: int,
                       max_twh: Optional[float] = None,
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
@@ -36,7 +45,7 @@ def reorg_feature_map(feature_map: torch.Tensor,
                               torch.arange(gw, dtype=torch.float32, device=dev),
                               indexing="ij")
     xy_offset = torch.stack([col, row], dim=-1).reshape(gh, gw, 1, 2)
-    anchors_t = torch.tensor(anchors, dtype=torch.float32, device=dev)
+    anchors_t = anchor_tensor(anchors, dev)
     box_xy = (torch.sigmoid(fm[..., 0:2]) + xy_offset) * float(stride)
     twh = fm[..., 2:4]
     if max_twh is not None:

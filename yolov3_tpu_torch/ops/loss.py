@@ -39,7 +39,8 @@ from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
-from yolov3_tpu_torch.ops.decode import reorg_feature_map
+from yolov3_tpu_torch.ops.decode import (Anchors, anchor_tensor,
+                                         reorg_feature_map)
 
 XY_CLIP = 0.01  # reference/model.py:326
 WH_LOG_CLIP_MIN = 1e-9  # reference/model.py:344
@@ -59,14 +60,15 @@ class YoloLoss(NamedTuple):
 
 def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     """`jnp.clip`: minimum(maximum(x, lo), hi), ties split as JAX does."""
-    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+    return torch.minimum(torch.maximum(x, x.new_full((), lo)),
+                         x.new_full((), hi))
 
 
 def _sigmoid_ce(labels: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     """tf.nn.sigmoid_cross_entropy_with_logits:
     max(x, 0) - x*z + log1p(exp(-|x|))."""
     abs_logits = torch.where(logits >= 0, logits, -logits)
-    return (torch.maximum(logits, logits.new_tensor(0.0)) - logits * labels
+    return (torch.maximum(logits, logits.new_zeros(())) - logits * labels
             + torch.log1p(torch.exp(-abs_logits)))
 
 
@@ -90,26 +92,28 @@ def _anchor_prior_iou(pred_xy: torch.Tensor, pred_wh: torch.Tensor,
     pred_area = (pred_wh[..., 0] * pred_wh[..., 1])[..., None]
     prior_area = anchors[:, 0] * anchors[:, 1]
     iou = inter / (pred_area + prior_area - inter)
-    masked = torch.where(anchor_present, iou, iou.new_tensor(float("-inf")))
+    masked = torch.where(anchor_present, iou,
+                         iou.new_full((), float("-inf")))
     return masked.amax(dim=-1)
 
 
 def loss_layer(feature_map: torch.Tensor, gt_grid: torch.Tensor,
-               anchors: Sequence[Tuple[float, float]], number_classes: int,
+               anchors: Anchors, number_classes: int,
                stride: int) -> Tuple[torch.Tensor, ...]:
     """Per-scale (xy, wh, objectness, class) losses.
 
     feature_map: NHWC [B, gh, gw, A*(5+C)] raw network output.
     gt_grid: [B, gh, gw, A, 5+C] label grid (absolute-pixel centre boxes,
     objectness flag, one-hot classes) from `data/encoder.py`.
+    anchors: the (w, h) pairs, or a float32 [A, 2] tensor on the feature
+    map's device (`anchor_tensor`), which the train step makes once.
     """
-    anchors_t = torch.tensor(anchors, dtype=torch.float32,
-                             device=feature_map.device)
+    anchors_t = anchor_tensor(anchors, feature_map.device)
     batch_size = float(feature_map.shape[0])
     gt_grid = gt_grid.to(torch.float32)
 
     xy_offset, pred_boxes, pred_obj_logits, pred_class_logits = (
-        reorg_feature_map(feature_map, anchors, number_classes, stride,
+        reorg_feature_map(feature_map, anchors_t, number_classes, stride,
                           max_twh=WH_LOGIT_MAX))
     object_mask = gt_grid[..., 4:5]                       # [B,gh,gw,A,1]
     pred_xy, pred_wh = pred_boxes[..., 0:2], pred_boxes[..., 2:4]
@@ -153,7 +157,7 @@ def loss_layer(feature_map: torch.Tensor, gt_grid: torch.Tensor,
 
 def compute_loss(feature_maps: Sequence[torch.Tensor],
                  gt_grids: Sequence[torch.Tensor],
-                 anchors: Sequence[Tuple[float, float]], number_classes: int,
+                 anchors: Anchors, number_classes: int,
                  strides: Sequence[int] = (32, 16, 8)) -> YoloLoss:
     """The four components summed over the scales
     (reference/model.py:214-228)."""

@@ -28,8 +28,10 @@ Loop semantics are the JAX trainer's (train.py:63-371):
   273-274); `--int8_static 1` alone changes nothing (:461-464);
 - `--profile_dir` writes a `torch.profiler` trace of epoch 1
   (`trace.json`, Chrome format; :285-286, 303-304), which carries the
-  program's own `yolo.*` spans (`utils/tracing.py`: the step's forward,
-  loss, backward and optimizer, the model's stages, the device feed);
+  program's own `yolo.*` spans (`utils/tracing.py`: the step, and on
+  eager steps its forward, loss, backward and optimizer, the model's
+  stages, the device feed; on one card the step replays as one CUDA graph,
+  `parallel/train_step.py`);
   `tracing.recording()` collects the same spans and counters without a
   profiler;
 - at the end the best checkpoint is exported to `<output>/saved_model`,

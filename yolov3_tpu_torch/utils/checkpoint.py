@@ -332,11 +332,16 @@ def has_checkpoint(output_folder: str) -> bool:
 
 def restore_checkpoint(output_folder: str, state):
     """Load a checkpoint written by `save_checkpoint` into `state` (a
-    fresh state of the same configuration) and return it."""
+    fresh state of the same configuration) and return it. The optimizer
+    keeps its own settings (a capturable Adam's flag and lr tensor on the
+    card, a plain Adam's on the CPU), whichever kind wrote the file."""
     device = next(state.model.parameters()).device
     saved = _load_checkpoint(output_folder, device)
     state.model.load_state_dict(saved["model"])
-    state.optimizer.load_state_dict(saved["optimizer"])
+    opt = saved["optimizer"]
+    for group, own in zip(opt["param_groups"], state.optimizer.param_groups):
+        group.update({k: v for k, v in own.items() if k != "params"})
+    state.optimizer.load_state_dict(opt)
     state.step = saved["step"]
     return state
 
