@@ -31,6 +31,12 @@ Phases, in order; any failure exits non-zero:
      WMMA twin
      (`pointwise_conv_block_wmma`), both timed in turns per launch shape.
      Each kernel's time beside each call's bound.
+  4m. YOLOv4 (608 px, 80 classes, b8) served in bf16 from an export, its
+     launches counted (43 Mish and 20 LeakyReLU 1x1s, one NMS), and the
+     1x1 kernel's Mish entry against its plain version on every Mish
+     launch of the call, timed per shape beside the library yardstick
+     (`--phase pointwise` runs phase 3's calls, phase 4's 1x1 rows and
+     this alone).
   5. int8 reference check at 64 px, full width, bf16, both sides under
      the card's default kernel set: the port's int8 model on the card
      (kernels) and on the CPU (plain versions) with one scale dict. Every
@@ -202,6 +208,15 @@ DEVICE = "cuda"
 # launches of one serving call at FULL: FeatureBlocks 1+2+8+8+4 1x1s,
 # three YoloBlocks of three 1x1s and two neck 1x1s; one NMS launch
 EXPECTED_LAUNCHES = {"pointwise_conv_block": 34, "nms_suppress": 1}
+# YOLOv4 (darknet's cfg/yolov4.cfg) at 608 px, 80 classes, bf16 serving
+# with the fused 1x1: 43 Mish and 20 LeakyReLU 1x1 launches, one NMS
+V4 = dict(architecture="yolov4", img_size=(608, 608, 3), number_classes=80,
+          anchors=((12, 16), (19, 36), (40, 28), (36, 75), (76, 55),
+                   (72, 146), (142, 110), (192, 243), (459, 401)),
+          scale_x_y=(1.2, 1.1, 1.05), compute_dtype="bfloat16",
+          leaky_relu_alpha=0.1, bn_epsilon=1e-5, use_pallas_pointwise=True)
+V4_LAUNCHES = {"pointwise_conv_block": 20, "pointwise_conv_block_mish": 43,
+               "nms_suppress": 1}
 # int8 serving at FULL under the reference's default kernel set: the stem
 # region (stem2, FeatureBlock_0's 1x1 and 3x3, ConvBlock_2) is one launch;
 # 1x1s = 22 feature-block + 6 YoloBlock mid + 3 YoloBlock entry + 2 neck;
@@ -604,6 +619,115 @@ def phase_pointwise(torch, calls):
         f"ms), plain {per['plain_ms']:.3f} ms, library "
         f"{per['library_ms']:.3f} ms, bound {per['bound_ms']:.3f} ms")
     return summary, rows
+
+
+def phase_pointwise_mish(torch, ckpt, inf, build, ModelConfig, workdir):
+    """Row 4m: the 1x1 kernel's Mish entry in one YOLOv4 serving call at
+    608 px, b{BATCH} (launches counted), each launch within rtol = atol =
+    2e-2 of its plain version, and per launch shape its device time, the
+    library yardstick's (matmul + F.mish), the plain version's event time
+    and the bound; per-forward sums."""
+    import torch.nn.functional as F
+    from yolov3_tpu_torch.ops.kernels import conv_block as K
+
+    cfg = ModelConfig(**V4)
+    params, stats = ckpt.init_params(cfg, SEED)
+    # beside, not over, the NIST export the later phases serve
+    path = ckpt.export_model(os.path.join(workdir, "yolov4"), params, stats,
+                             cfg)
+    serve, _ = inf.make_serving_fn(path, device=DEVICE)
+    images = torch.rand((BATCH, *cfg.img_size), device=DEVICE)
+    calls = []
+    orig = record(K, "pointwise_conv_block", calls)
+    try:
+        serve(images)
+    finally:
+        K.pointwise_conv_block = orig
+    build.launch_counts.clear()
+    serve(images)
+    torch.cuda.synchronize()
+    launches = dict(build.launch_counts)
+    log(f"YOLOv4 serving b{BATCH} 608px bf16 launches: {launches}")
+    if launches != V4_LAUNCHES:
+        raise AssertionError(f"expected launches {V4_LAUNCHES}, got "
+                             f"{launches}")
+    groups, max_err = {}, 0.0
+    for args, kw in calls:
+        if kw.get("act") != "mish":
+            continue
+        got = K.pointwise_conv_block(*args, **kw)
+        want = K.pointwise_conv_block_plain(*args, act="mish")
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                   atol=2e-2)
+        max_err = max(max_err, float((got.float() - want.float()).abs().max()))
+        x, w = args[0], args[1]
+        groups.setdefault((*x.shape, w.shape[0]), []).append(args)
+    rows = []
+    for (m, ci, co), members in groups.items():
+        x, w, b, mul, add, alpha, out_dtype = members[0]
+
+        def library():
+            y = torch.matmul(x, w.t()).float() + b
+            return (F.mish(y) * mul + add).to(out_dtype)
+
+        def kern():
+            return K.pointwise_conv_block(x, w, b, mul, add, alpha, out_dtype,
+                                          act="mish")
+
+        ms, event = device_ms(kern), cuda_ms(kern, 20)
+        plain = cuda_ms(lambda: K.pointwise_conv_block_plain(
+            x, w, b, mul, add, alpha, out_dtype, act="mish"), 5)
+        lib = device_ms(library)
+        nbytes = (m * ci + ci * co) * 2 + 3 * co * 4 + m * co * 2
+        ops = 2 * m * ci * co
+        b_ms, b_by = bound(nbytes, ops, BF16_OPS_S)
+        rows.append(dict(m=m, ci=ci, co=co, launches=len(members), ms=ms,
+                         event_ms=event, plain_ms=plain, library_ms=lib,
+                         bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+                         ops=ops))
+        log(f"pointwise_conv_block_mish M={m} Ci={ci} Co={co} "
+            f"x{len(members)}: kernel {ms:.4f} ms (events {event:.4f}), "
+            f"plain {plain:.4f} ms, library {lib:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}), {ops / ms / 1e9:.1f} TFLOP/s")
+    keys = ("ms", "event_ms", "plain_ms", "library_ms", "bound_ms", "bytes",
+            "ops")
+    per = {k: sum(r[k] * r["launches"] for r in rows) for k in keys}
+    t_bytes, t_ops = per["bytes"] / HBM_BYTES_S, per["ops"] / BF16_OPS_S
+    summary = dict(per, launches=launches["pointwise_conv_block_mish"],
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   max_abs_err=max_err)
+    log(f"pointwise_conv_block_mish per forward ({summary['launches']} "
+        f"launches): kernel {per['ms']:.3f} ms (events "
+        f"{per['event_ms']:.3f}), plain {per['plain_ms']:.3f} ms, library "
+        f"{per['library_ms']:.3f} ms, bound {per['bound_ms']:.3f} ms")
+    return summary, rows
+
+
+def pointwise_only(torch, ckpt, inf, build, ModelConfig, InferenceConfig,
+                   card, out_path) -> int:
+    """`--phase pointwise`: rows 4 and 4m alone (phase 3's recorded calls,
+    phase 4's 1x1 rows, the Mish entry's); one JSON line each."""
+    build.build(("pointwise_conv_block", "nms_suppress"))
+    with tempfile.TemporaryDirectory() as workdir:
+        _, calls, _, _ = phase_serving(torch, ckpt, inf, build, ModelConfig,
+                                       InferenceConfig, workdir, card)
+        with torch.inference_mode():
+            pw, _ = phase_pointwise(torch, calls["pw"])
+        del calls
+        with torch.inference_mode():
+            mish, mish_rows = phase_pointwise_mish(torch, ckpt, inf, build,
+                                                   ModelConfig, workdir)
+    lines = {"pointwise": pw, "pointwise_mish": mish,
+             "pointwise_mish_calls": mish_rows, "card": card}
+    if out_path:
+        os.makedirs(os.path.dirname(os.path.abspath(out_path)),
+                    exist_ok=True)
+        with open(out_path, "w") as fh:
+            json.dump(lines, fh, indent=1)
+    for key, value in lines.items():
+        print(json.dumps({key: value}), flush=True)
+    print(json.dumps({"ok": True}), flush=True)
+    return 0
 
 
 def nms_case(torch, cand, valid, label):
@@ -3104,10 +3228,12 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", default=None,
                         help="also write the detailed results to this JSON")
-    parser.add_argument("--phase", choices=("all", "train_graph"),
+    parser.add_argument("--phase", choices=("all", "train_graph",
+                                            "pointwise"),
                         default="all",
                         help="train_graph: phase 9's step timing and the "
-                        "train-graph gate alone, on its planted store")
+                        "train-graph gate alone, on its planted store; "
+                        "pointwise: the 1x1 kernel's rows 4 and 4m alone")
     args = parser.parse_args(argv)
 
     sys.path.insert(0, HERE)
@@ -3137,6 +3263,9 @@ def main(argv=None) -> int:
         f"{torch.cuda.get_device_name(0)}")
     if args.phase == "train_graph":
         return train_graph_only(torch, ModelConfig, smi, args.out)
+    if args.phase == "pointwise":
+        return pointwise_only(torch, ckpt, inf, build, ModelConfig,
+                              InferenceConfig, smi, args.out)
     t0 = time.perf_counter()
     build.build()
     log(f"kernels built in {time.perf_counter() - t0:.1f} s")
@@ -3152,6 +3281,9 @@ def main(argv=None) -> int:
             pw, pw_rows = phase_pointwise(torch, calls["pw"])
             nms_rows, greedy_rows = phase_nms(torch, calls["nms"])
         del calls
+        with torch.inference_mode():
+            mish, result["pointwise_mish_calls"] = phase_pointwise_mish(
+                torch, ckpt, inf, build, ModelConfig, workdir)
         result["int8_reference"] = phase_int8_reference(torch, ckpt, TQ,
                                                         ModelConfig)
         images = torch.from_numpy(np.random.default_rng(2).standard_normal(
@@ -3217,6 +3349,15 @@ def main(argv=None) -> int:
          "bound_ms": pw["bound_ms"],
          "bound_by": pw["bound_by"], "library_ms": pw["library_ms"],
          "previous_ms": pw["previous_ms"]},
+        {"name": "pointwise_conv_block_mish", "route": "cuda",
+         "source": "yolov3_tpu_torch/csrc/pointwise_conv_block.cu",
+         "replaces": "none (YOLOv4's Mish 1x1; row 4's kernel, its Mish "
+                     "entry)",
+         "launches": mish["launches"], "max_abs_err": mish["max_abs_err"],
+         "ms": mish["ms"], "event_ms": mish["event_ms"],
+         "plain_ms": mish["plain_ms"], "bound_ms": mish["bound_ms"],
+         "bound_by": mish["bound_by"], "library_ms": mish["library_ms"],
+         "previous_ms": None},
     ]
     # launches: the region's from the default serving call, the tail's and
     # the exit's from the serving calls of their kernel sets

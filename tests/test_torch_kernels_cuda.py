@@ -157,6 +157,32 @@ def test_pointwise_edges(cuda, m, ci, co, out):
     pointwise_close_to_plain_and_wmma(args, out)
 
 
+@pytest.mark.parametrize("m,ci,co,folded", [
+    (304 * 304, 64, 64, True), (304 * 304, 64, 32, True),
+    (304 * 304, 128, 64, True), (2 * 152 * 152, 128, 64, True),
+    (2 * 152 * 152, 64, 64, False), (2 * 76 * 76, 256, 128, True),
+    (2 * 38 * 38, 512, 256, True), (2 * 19 * 19, 1024, 512, True),
+    (2 * 19 * 19, 1024, 1024, False), (777, 64, 48, False)])
+def test_pointwise_mish_matches_plain(cuda, m, ci, co, folded):
+    """The Mish entry at YOLOv4's 1x1 shapes (608 px, b1-b2; a ragged one)
+    within rtol = atol = 2e-2 of its plain twin, one launch counted under
+    its own name; `folded` with mul 1 and add 0, as the model launches
+    it."""
+    x, w, b, mul, add = pointwise_case(np.random.RandomState(m + co), m, ci,
+                                       co, cuda)
+    if folded:
+        mul, add = torch.ones_like(mul), torch.zeros_like(add)
+    want = PW.pointwise_conv_block_plain(x, w, b, mul, add, 0.1,
+                                         torch.bfloat16, act="mish")
+    before = _build.launch_counts[PW.MISH]
+    got = PW.pointwise_conv_block(x, w, b, mul, add, 0.1, torch.bfloat16,
+                                  act="mish")
+    torch.cuda.synchronize()
+    assert _build.launch_counts[PW.MISH] == before + 1
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
 def test_pointwise_kernel_raises_on_f32_input(cuda):
     x = torch.zeros(64, 64, device=cuda)
     w = torch.zeros(64, 64, device=cuda, dtype=torch.bfloat16)

@@ -28,6 +28,17 @@ its defaults. `shard_optimizer` is ZeRO-1 over the data-parallel group
 (`parallel/train_step.py`); the TPU-only `packed_loss` (the lane-domain
 loss) is accepted at its default only.
 
+`architecture` selects the detector. `nist_yolov3` (the default, and
+every JSON written before the field existed) is the model above; every
+scale takes all of `anchors`. `yolov4` is YOLOv4 (`models/yolov4.py`,
+darknet's `cfg/yolov4.cfg`): its wiring is fixed by the layer table, so
+`block_count`, `filter_count` and `kernel_size` stay at their defaults
+and the NIST-only options are refused; `anchors` holds the three scales'
+sets in stride order 8, 16, 32 (an equal number each), `scale_x_y` the
+decode's per-scale factor (empty: none), `leaky_relu_alpha` the neck's
+slope and `bn_epsilon` its BatchNorm's. `to_json` leaves these fields out
+at their defaults, so a NIST config writes the JSON it always did.
+
 torch is imported lazily (`ModelConfig.dtype`): the reader's worker
 processes import this module and need no torch.
 """
@@ -49,6 +60,12 @@ EDGE_EFFECT_RANGE = 96
 
 DEFAULT_ANCHORS: Tuple[Tuple[int, int], ...] = ((32, 32), (128, 128), (256, 256))
 TRAIN_DEFAULT_ANCHORS: Tuple[Tuple[int, int], ...] = ((64, 384), (384, 64))
+
+NIST_YOLOV3 = "nist_yolov3"
+YOLOV4 = "yolov4"
+ARCHITECTURES = (NIST_YOLOV3, YOLOV4)
+# fields written to JSON only away from their defaults
+_NEW_FIELDS = ("architecture", "scale_x_y")
 
 # readers per device (reference/train.py:16)
 READER_COUNT_PER_DEVICE = 3
@@ -86,6 +103,9 @@ class ModelConfig:
     int8_train_static: bool = False
     # recompute FeatureBlock/YoloBlock activations in the backward
     remat_blocks: bool = False
+    # the detector (module docstring); YOLOv4's decode factor per scale
+    architecture: str = NIST_YOLOV3
+    scale_x_y: Tuple[float, ...] = ()
 
     def __post_init__(self):
         h, w, _ = self.img_size
@@ -93,10 +113,43 @@ class ModelConfig:
             raise ValueError(
                 f"img size {self.img_size} must be a multiple of "
                 f"{NETWORK_DOWNSAMPLE_FACTOR}")
+        if self.architecture not in ARCHITECTURES:
+            raise ValueError(f"architecture {self.architecture!r} is not "
+                             f"one of {ARCHITECTURES}")
+        if self.scale_x_y and self.architecture != YOLOV4:
+            raise ValueError(f"scale_x_y is yolov4's; {self.architecture} "
+                             "decodes without it")
+        if self.scale_x_y and len(self.scale_x_y) != len(self.strides):
+            raise ValueError(f"scale_x_y needs one factor a scale, got "
+                             f"{self.scale_x_y}")
+        if self.architecture == YOLOV4:
+            fixed = {"block_count": BLOCK_COUNT, "filter_count": FILTER_COUNT,
+                     "kernel_size": KERNEL_SIZE,
+                     "upsample_channel_sum": False, "int8_train": False,
+                     "remat_blocks": False}
+            off = {k: getattr(self, k) for k, v in fixed.items()
+                   if getattr(self, k) != v}
+            if off:
+                raise ValueError(f"yolov4's layer table fixes {off}")
+            if not self.anchors or len(self.anchors) % len(self.strides):
+                raise ValueError(f"yolov4 needs an equal number of anchors "
+                                 f"a scale, got {len(self.anchors)}")
 
     @property
     def number_anchors(self) -> int:
+        """Anchors a cell at each scale."""
+        if self.architecture == YOLOV4:
+            return len(self.anchors) // len(self.strides)
         return len(self.anchors)
+
+    @property
+    def scale_anchors(self) -> List[Tuple[Tuple[float, float], ...]]:
+        """The anchors of each scale, in `strides` order."""
+        a = self.number_anchors
+        if self.architecture == YOLOV4:
+            return [tuple(self.anchors[i * a:(i + 1) * a])
+                    for i in range(len(self.strides))]
+        return [tuple(self.anchors)] * len(self.strides)
 
     @property
     def dtype(self):
@@ -111,6 +164,9 @@ class ModelConfig:
 
     @property
     def strides(self) -> List[int]:
+        """The heads' strides, in the order the model returns them."""
+        if self.architecture == YOLOV4:
+            return [8, 16, 32]
         return [32, 16, 8]
 
     @property
@@ -118,13 +174,19 @@ class ModelConfig:
         return self.number_anchors * sum(gh * gw for gh, gw in self.grid_sizes)
 
     def to_json(self) -> str:
-        return json.dumps(dataclasses.asdict(self))
+        d = dataclasses.asdict(self)
+        for f in dataclasses.fields(self):
+            if f.name in _NEW_FIELDS and d[f.name] == f.default:
+                del d[f.name]
+        return json.dumps(d)
 
     @staticmethod
     def from_json(s: str) -> "ModelConfig":
         d = json.loads(s)
         d["img_size"] = tuple(d["img_size"])
         d["anchors"] = tuple(tuple(a) for a in d["anchors"])
+        if "scale_x_y" in d:
+            d["scale_x_y"] = tuple(d["scale_x_y"])
         return ModelConfig(**d)
 
 

@@ -8,7 +8,8 @@
 // operand type is one template parameter (OP) of one kernel: the ring,
 // barriers, producer, persistent loop and epilogue swizzle are shared.
 //
-// bf16 operands (OP = kOpBF16): y = leaky(x @ W^T + bias) * mul + add
+// bf16 operands (OP = kOpBF16): y = leaky(x @ W^T + bias) * mul + add,
+// or (OP = kOpBF16Mish, YOLOv4's CSP 1x1s) mish(x @ W^T + bias) * mul + add
 // over x [M, Ci] and W [Co, Ci] bf16 (K-major, like the s8 weights, so
 // both operands' descriptors are the s8 ones: a wgmma k16 step of bf16
 // is 32 bytes of K, as a k32 step of s8), summed in f32 (wgmma
@@ -113,8 +114,12 @@ namespace {
 
 enum InKind { kS8 = 0, kBF16 = 1, kF32 = 2 };  // as convq::InKind
 // the products' operands: s8 x s8 -> s32 (the int8 ConvBlocks) or bf16 x
-// bf16 -> f32 (the bf16 1x1 ConvBlock)
-enum Op { kOpS8 = 0, kOpBF16 = 1 };
+// bf16 -> f32 (the bf16 1x1 ConvBlock), whose epilogue's activation is
+// LeakyReLU (kOpBF16) or Mish (kOpBF16Mish). The activation rides in OP,
+// not in a template parameter of its own, so that every LeakyReLU kernel
+// keeps its name and its code, and the Mish kernel is an instantiation of
+// its own name in a device trace (conv_gemm_q_kernel<BN, 1, 2, false>).
+enum Op { kOpS8 = 0, kOpBF16 = 1, kOpBF16Mish = 2 };
 
 constexpr int kWG = 128;  // threads of a warpgroup
 constexpr int kMaxSmem = 232448;
@@ -390,6 +395,10 @@ CQ_MMA(64, "%32", "%33", "%34")
 CQ_MMA(128, "%64", "%65", "%66")
 CQ_MMA(256, "%128", "%129", "%130")
 
+// the Mish epilogue's products are the bf16 ones
+template <int BN>
+struct Mma<BN, kOpBF16Mish> : Mma<BN, kOpBF16> {};
+
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
@@ -598,9 +607,22 @@ __device__ __forceinline__ uint32_t codes4(const Params& p, const float* e,
   return pack4(q[0], q[1], q[2], q[3]);
 }
 
+// Mish, y * tanh(softplus(y)), with softplus's threshold 20 (darknet's and
+// F.softplus's: y itself above it). With n = e^y, tanh(log(1 + n)) is
+// n (n + 2) / (n (n + 2) + 2): one expf and one division in place of
+// log1pf and tanhf (the Mish launches of a YOLOv4 call at 608 px, b8, took
+// 2.22 ms on an H100 against 2.88 ms with those); below -20 it is
+// y * e^y to f32's precision, as is softplus's exp(y) there.
+__device__ __forceinline__ float mish(float v) {
+  const float n = expf(fminf(v, 20.0f));
+  const float t = __fmul_rn(n, __fadd_rn(n, 2.0f));
+  return v > 20.0f ? v : __fmul_rn(v, __fdiv_rn(t, __fadd_rn(t, 2.0f)));
+}
+
 // The bf16 1x1's epilogue of the same four channels from their f32 sums
-// (the bits in acc), conv_block_kernel.py's: leaky(acc + bias) * mul + add
-template <int BN>
+// (the bits in acc), conv_block_kernel.py's: act(acc + bias) * mul + add,
+// act LeakyReLU (alpha) or, for OP = kOpBF16Mish, Mish
+template <int BN, int OP>
 __device__ __forceinline__ void epilogue4_f(const Params& p, const float* e,
                                             const uint32_t (&acc)[4],
                                             size_t o, int lc) {
@@ -611,7 +633,10 @@ __device__ __forceinline__ void epilogue4_f(const Params& p, const float* e,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     float v = __fadd_rn(__uint_as_float(acc[i]), b[i]);
-    v = v >= 0.0f ? v : __fmul_rn(p.alpha, v);
+    if constexpr (OP == kOpBF16Mish)
+      v = mish(v);
+    else
+      v = v >= 0.0f ? v : __fmul_rn(p.alpha, v);
     y[i] = __fadd_rn(__fmul_rn(v, m[i]), a[i]);
   }
   store_f4(p, y, o);
@@ -629,7 +654,7 @@ conv_gemm_q_kernel(const __grid_constant__ Params p,
                    const __grid_constant__ CUtensorMap map_a,
                    const __grid_constant__ CUtensorMap map_b) {
   // A by TMA, or through the converting producer
-  constexpr bool kTmaA = OP == kOpBF16 || KIND == kS8;
+  constexpr bool kTmaA = OP != kOpS8 || KIND == kS8;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + kAlign - 1) & ~static_cast<uint32_t>(kAlign - 1);
@@ -916,7 +941,7 @@ conv_gemm_q_kernel(const __grid_constant__ Params p,
           if constexpr (OP == kOpS8)
             epilogue4<BN>(p, e, v, orow + gc, lc);
           else
-            epilogue4_f<BN>(p, e, v, orow + gc, lc);
+            epilogue4_f<BN, OP>(p, e, v, orow + gc, lc);
         }
       }
     }
@@ -991,7 +1016,7 @@ int run(const Params& p, const CUtensorMap& a, const CUtensorMap& b,
     if (err != cudaSuccess) return static_cast<int>(err);
     smem_set = smem;
   }
-  constexpr bool tma = OP == kOpBF16 || KIND == kS8;
+  constexpr bool tma = OP != kOpS8 || KIND == kS8;
   conv_gemm_q_kernel<BN, KIND, OP, RES>
       <<<grid, (p.bm / 64 + producer_wgs(tma, p.bm)) * kWG, smem, stream>>>(
           p, a, b);
@@ -1003,8 +1028,8 @@ int run(const Params& p, const CUtensorMap& a, const CUtensorMap& b,
 template <int BN, int OP>
 int run_kind(const Params& p, int x_kind, bool res, const CUtensorMap& a,
              const CUtensorMap& b, dim3 grid, int smem, cudaStream_t stream) {
-  if constexpr (OP == kOpBF16) {
-    return run<BN, kBF16, kOpBF16>(p, a, b, grid, smem, stream);
+  if constexpr (OP != kOpS8) {
+    return run<BN, kBF16, OP>(p, a, b, grid, smem, stream);
   } else {
     switch (x_kind) {
       case kS8:
@@ -1026,7 +1051,7 @@ int run_kind(const Params& p, int x_kind, bool res, const CUtensorMap& a,
 // Check the plan, encode the maps and launch on `stream`; returns a
 // cudaError_t code (0 on success). OP's operands: s8 (a 1x1 or 3x3 on
 // an s8, bf16 or f32 x, or a 3x3 stride 2 on any of them) or bf16 (a 1x1
-// on a bf16 x).
+// on a bf16 x, with the LeakyReLU or the Mish epilogue).
 template <int OP>
 int launch(Params p, int x_kind, int bn, cudaStream_t stream) {
   const long long m = static_cast<long long>(p.n) * p.oh * p.ow;
@@ -1099,7 +1124,7 @@ int launch(Params p, int x_kind, int bn, cudaStream_t stream) {
     if (!encode(&map_b, p.w, 3, dims, strides, box, p.bk))
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (OP == kOpBF16 || x_kind == kS8) {
+  if (OP != kOpS8 || x_kind == kS8) {
     bool ok;
     if (p.ksize == 1) {
       const cuuint64_t dims[2] = {kb, static_cast<cuuint64_t>(m)};

@@ -6,6 +6,12 @@
 //
 //     y = leaky(x @ W^T + bias, alpha) * mul + add,   cast to the output type
 //
+// or, in the entry pointwise_conv_block_mish (YOLOv4's CSP 1x1s, BatchNorm
+// folded into W and bias, mul = 1 and add = 0), mish(x @ W^T + bias) in
+// place of leaky: the core's conv_gemm_q_kernel<BN, 1, 2, false> (OP =
+// kOpBF16Mish), so that its launches carry a name of their own in a device
+// trace; softplus's threshold is 20, as in F.softplus and darknet.
+//
 // with x [M, Ci] and W [Co, Ci] in bf16, products summed in f32, and the
 // epilogue in f32 (mul = gamma / sqrt(var + eps), add = beta - mean * mul,
 // folded by the Python wrapper).
@@ -150,16 +156,15 @@ pointwise_conv_block_kernel(const __nv_bfloat16* __restrict__ x,
 
 }  // namespace
 
-// x [m, ci] bf16, w [co, ci] bf16, bias/mul/add [co] f32 -> out [m, co]
-// (bf16 when out_bf16, else f32), all contiguous and 16-byte aligned; ci
-// and co multiples of 8. The sm90 entry also takes the tile plan (bm, bn,
-// bk, stages). Each returns a cudaError_t code (0 on success).
-extern "C" int pointwise_conv_block(const void* x, const void* w,
-                                    const float* bias, const float* mul,
-                                    const float* add, void* out, int m,
-                                    int ci, int co, float alpha, int out_bf16,
-                                    int bm, int bn, int bk, int stages,
-                                    cudaStream_t stream) {
+namespace {
+
+// the sm90 entries' launch, with operands and epilogue OP (kOpBF16:
+// LeakyReLU, kOpBF16Mish: Mish)
+template <int OP>
+int launch_sm90(const void* x, const void* w, const float* bias,
+                const float* mul, const float* add, void* out, int m, int ci,
+                int co, float alpha, int out_bf16, int bm, int bn, int bk,
+                int stages, cudaStream_t stream) {
   convq90::Params p{};
   p.x = x;
   p.w = w;
@@ -183,7 +188,37 @@ extern "C" int pointwise_conv_block(const void* x, const void* w,
   p.th = 1;
   p.tw = bm;
   p.stages = stages;
-  return convq90::launch<convq90::kOpBF16>(p, convq90::kBF16, bn, stream);
+  return convq90::launch<OP>(p, convq90::kBF16, bn, stream);
+}
+
+}  // namespace
+
+// x [m, ci] bf16, w [co, ci] bf16, bias/mul/add [co] f32 -> out [m, co]
+// (bf16 when out_bf16, else f32), all contiguous and 16-byte aligned; ci
+// and co multiples of 8. The sm90 entries also take the tile plan (bm, bn,
+// bk, stages); pointwise_conv_block_mish is the same contract with
+// mish(acc + bias) in place of leaky (alpha unused). Each returns a
+// cudaError_t code (0 on success).
+extern "C" int pointwise_conv_block(const void* x, const void* w,
+                                    const float* bias, const float* mul,
+                                    const float* add, void* out, int m,
+                                    int ci, int co, float alpha, int out_bf16,
+                                    int bm, int bn, int bk, int stages,
+                                    cudaStream_t stream) {
+  return launch_sm90<convq90::kOpBF16>(x, w, bias, mul, add, out, m, ci,
+                                       co, alpha, out_bf16, bm, bn, bk,
+                                       stages, stream);
+}
+
+extern "C" int pointwise_conv_block_mish(const void* x, const void* w,
+                                         const float* bias, const float* mul,
+                                         const float* add, void* out, int m,
+                                         int ci, int co, float alpha,
+                                         int out_bf16, int bm, int bn, int bk,
+                                         int stages, cudaStream_t stream) {
+  return launch_sm90<convq90::kOpBF16Mish>(x, w, bias, mul, add, out, m,
+                                           ci, co, alpha, out_bf16, bm, bn,
+                                           bk, stages, stream);
 }
 
 extern "C" int pointwise_conv_block_wmma(const void* x, const void* w,

@@ -220,6 +220,12 @@ def zscore_images(images: torch.Tensor) -> torch.Tensor:
     return torch.where(std <= 1.0, x - mean, (x - mean) / std)
 
 
+def unit_images(images: torch.Tensor) -> torch.Tensor:
+    """YOLOv4's input: an NHWC batch's 8-bit RGB pixels / 255, in float32,
+    on the batch's device (darknet's `load_image`)."""
+    return images.to(torch.float32) / 255.0
+
+
 # ---------------------------------------------------------------------------
 # boxes
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """Whole-image inference CLI: exported model -> per-class NMS -> CSV boxes.
 
 Port of `yolov3_tpu/inference.py`. Pipeline: image -> whole-image
-z-score -> model -> clip corners to the image -> strict small-box filter
+z-score (a YOLOv4 export: RGB / 255, `input_transform`) -> model -> clip
+corners to the image -> strict small-box filter
 -> per-class NMS (sqrt score rule) -> corners to xywh + class id ->
 'X,Y,W,H,C' CSV named after the image (or 'X,Y,W,H,P,C' with
 --save-scores).
@@ -32,8 +33,8 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from yolov3_tpu_torch.config import InferenceConfig
-from yolov3_tpu_torch.data.device_pipeline import zscore_images
+from yolov3_tpu_torch.config import YOLOV4, InferenceConfig, ModelConfig
+from yolov3_tpu_torch.data.device_pipeline import unit_images, zscore_images
 from yolov3_tpu_torch.data.imaging import ensure_hwc, imread
 from yolov3_tpu_torch.models import quantized
 from yolov3_tpu_torch.ops import boxes as bbox
@@ -41,6 +42,12 @@ from yolov3_tpu_torch.ops.nms import batched_nms_device, nms_to_host
 from yolov3_tpu_torch.parallel import distributed as D
 from yolov3_tpu_torch.utils import checkpoint as ckpt
 from yolov3_tpu_torch.utils import tracing
+
+
+def input_transform(cfg: ModelConfig):
+    """The device-side preprocessing of raw pixels the model takes: the
+    per-image z-score, or RGB / 255 for YOLOv4."""
+    return unit_images if cfg.architecture == YOLOV4 else zscore_images
 
 
 def resolve_devices(num_devices: int, device: str,
@@ -89,8 +96,9 @@ def make_serving_fn(saved_model_filepath: str,
     """The full serving path on the device: forward + decode + corner clip
     + small-box filter + per-class NMS.
 
-    Returns (serve, cfg) where serve(images [B,H,W,C] float32) ->
-    (boxes [B,C,K,4] ltrb, scores [B,C,K], keep [B,C,K] bool).
+    Returns (serve, cfg) where serve(images [B,H,W,C] float32, already
+    through `input_transform(cfg)`) -> (boxes [B,C,K,4] ltrb, scores
+    [B,C,K], keep [B,C,K] bool).
     """
     icfg = icfg or InferenceConfig()
     if min_box_size is None:
@@ -179,11 +187,13 @@ def _csv_rows(boxes, scores, labels) -> Tuple[np.ndarray, np.ndarray]:
 
 def detect_images(images: Sequence[np.ndarray], detect, num_classes: int,
                   icfg: InferenceConfig, min_box_size: int,
-                  use_host_nms: bool = False, device: str = "cuda"
+                  use_host_nms: bool = False, device: str = "cuda",
+                  preprocess=zscore_images
                   ) -> Tuple[List[np.ndarray], List[np.ndarray]]:
     """One CLI batch: HWC images (raw pixels, one size) -> per image the
-    [M, 5] xywhc rows and the [M] scores. The z-score runs on `device`."""
-    batch = zscore_images(torch.from_numpy(np.stack(images)).to(device))
+    [M, 5] xywhc rows and the [M] scores. `preprocess` (the z-score, or
+    `input_transform`'s) runs on `device`."""
+    batch = preprocess(torch.from_numpy(np.stack(images)).to(device))
     dets = detect(batch).cpu().numpy()
     pairs = [detections_to_csv_rows(det, img.shape[:2], min_box_size, icfg,
                                     use_host_nms, num_classes,
@@ -285,7 +295,7 @@ def inference(image_folder: str, image_format: str,
                     devices=devices)
             rows_per_image, scores_per_image = detect_images(
                 images, detect, cfg.number_classes, icfg, min_box_size,
-                use_host_nms, device)
+                use_host_nms, device, input_transform(cfg))
         for fp, rows, scores, img in zip(chunk, rows_per_image,
                                          scores_per_image, images):
             file_name = os.path.basename(fp)

@@ -31,7 +31,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from yolov3_tpu_torch.config import EDGE_EFFECT_RANGE, InferenceConfig
+from yolov3_tpu_torch.config import (EDGE_EFFECT_RANGE, NIST_YOLOV3,
+                                     InferenceConfig)
 from yolov3_tpu_torch.data.device_pipeline import zscore_images
 from yolov3_tpu_torch.data.imaging import ensure_hwc, imread
 from yolov3_tpu_torch.inference import make_detector_fn, resolve_devices
@@ -137,6 +138,10 @@ def inference_image_folder(image_folder: str, image_format: str,
     else:
         detect, cfg = make_detector_fn(saved_model_filepath,
                                        devices=devices)
+    if cfg.architecture != NIST_YOLOV3:
+        raise ValueError(f"the tiled CLI z-scores its tiles for the NIST "
+                         f"YOLOv3; a {cfg.architecture} export is served by "
+                         "the whole-image CLI")
     expected_hw = (cfg.img_size[0], cfg.img_size[1])
     if tuple(tile_size) != expected_hw:
         raise ValueError(

@@ -92,7 +92,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from yolov3_tpu_torch.config import InferenceConfig, ModelConfig
+from yolov3_tpu_torch.config import NIST_YOLOV3, InferenceConfig, ModelConfig
 from yolov3_tpu_torch.models.yolo import (ConvBlock, YoloV3, conv2d_same,
                                           upsample_2x)
 from yolov3_tpu_torch.ops import quant
@@ -635,6 +635,9 @@ def build_quantized_model(params: dict, batch_stats: dict, cfg: ModelConfig,
     kernel flags (None: `default_serving_kernels` of the device the
     forward runs on)."""
     from yolov3_tpu_torch.utils.checkpoint import params_from_jax
+    if cfg.architecture != NIST_YOLOV3:
+        raise ValueError(f"int8 serving is the NIST YOLOv3's alone, not "
+                         f"{cfg.architecture}'s")
     model = QuantizedYoloV3(cfg, kernels=kernels, quant_skip=quant_skip)
     model.load_state_dict(params_from_jax(params, batch_stats, cfg))
     model = model.to(device).eval()

@@ -213,13 +213,16 @@ def prepare_all(model: nn.Module) -> None:
 
 
 class Conv(nn.Module):
-    """Conv parameters (OIHW weight + bias); zeros until weights load."""
+    """Conv parameters (OIHW weight + bias, or no bias: YOLOv4's blocks);
+    zeros until weights load."""
 
-    def __init__(self, in_features: int, features: int, kernel: int):
+    def __init__(self, in_features: int, features: int, kernel: int,
+                 bias: bool = True):
         super().__init__()
         self.weight = nn.Parameter(
             torch.zeros(features, in_features, kernel, kernel))
-        self.bias = nn.Parameter(torch.zeros(features))
+        if bias:
+            self.bias = nn.Parameter(torch.zeros(features))
 
 
 class BatchNorm(Prepared):

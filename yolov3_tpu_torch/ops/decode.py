@@ -3,6 +3,11 @@
 Per cell and anchor (YOLOv3 paper, reference/model.py:122-212):
     b_x = (sigmoid(t_x) + c_x) * stride      b_w = anchor_w * exp(t_w)
     b_y = (sigmoid(t_y) + c_y) * stride      b_h = anchor_h * exp(t_h)
+
+YOLOv4 (darknet's yolo layer) gives each scale its own anchors and a
+factor s (`scale_x_y`) that lets the centre reach past its cell:
+    b_x = (sigmoid(t_x) * s - (s - 1) / 2 + c_x) * stride
+Without a factor the op sequence is the one above, bit for bit.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ def anchor_tensor(anchors: Anchors, device) -> torch.Tensor:
 def reorg_feature_map(feature_map: torch.Tensor, anchors: Anchors,
                       number_classes: int, stride: int,
                       max_twh: Optional[float] = None,
+                      scale_x_y: Optional[float] = None,
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                  torch.Tensor]:
     """Decode one NHWC feature map [N, gh, gw, A*(5+C)].
@@ -34,7 +40,8 @@ def reorg_feature_map(feature_map: torch.Tensor, anchors: Anchors,
     Returns (xy_offset [gh,gw,1,2], boxes [N,gh,gw,A,4] as absolute-pixel
     (cx, cy, w, h), objectness_logits [N,gh,gw,A,1], class_logits
     [N,gh,gw,A,C]). With `max_twh` the wh logits are clamped to it before
-    the exp (the loss's overflow guard, `ops/loss.py`).
+    the exp (the loss's overflow guard, `ops/loss.py`); with `scale_x_y`
+    the centre is YOLOv4's.
     """
     n, gh, gw, _ = feature_map.shape
     dev = feature_map.device
@@ -46,7 +53,12 @@ def reorg_feature_map(feature_map: torch.Tensor, anchors: Anchors,
                               indexing="ij")
     xy_offset = torch.stack([col, row], dim=-1).reshape(gh, gw, 1, 2)
     anchors_t = anchor_tensor(anchors, dev)
-    box_xy = (torch.sigmoid(fm[..., 0:2]) + xy_offset) * float(stride)
+    if scale_x_y is None:
+        box_xy = (torch.sigmoid(fm[..., 0:2]) + xy_offset) * float(stride)
+    else:
+        s = float(scale_x_y)
+        box_xy = (torch.sigmoid(fm[..., 0:2]) * s - 0.5 * (s - 1.0)
+                  + xy_offset) * float(stride)
     twh = fm[..., 2:4]
     if max_twh is not None:
         twh = torch.clamp(twh, max=max_twh)
@@ -58,18 +70,28 @@ def reorg_feature_map(feature_map: torch.Tensor, anchors: Anchors,
 def decode_detections(feature_maps: Sequence[torch.Tensor],
                       anchors: Sequence[Tuple[float, float]],
                       number_classes: int,
-                      strides: Sequence[int] = (32, 16, 8)) -> torch.Tensor:
+                      strides: Sequence[int] = (32, 16, 8),
+                      scale_anchors: Optional[Sequence[Anchors]] = None,
+                      scale_x_y: Optional[Sequence[float]] = None
+                      ) -> torch.Tensor:
     """Decode all scales into detections [N, num_boxes, 4+1+C].
 
     Rows are [x0, y0, x1, y1, objectness, class_probs...], corners
     unclipped, ordered (scale, cell, anchor). Corners are c - 0.5*wh and
-    c + 0.5*wh, the JAX decode's op order (decode.py:113-114).
+    c + 0.5*wh, the JAX decode's op order (decode.py:113-114). Every
+    scale takes `anchors`, or with `scale_anchors` its own set (YOLOv4's,
+    made once as device tensors by its detector), and with `scale_x_y`
+    its factor.
     """
+    n = len(feature_maps)
+    per_anchors = scale_anchors if scale_anchors is not None else [anchors] * n
+    per_s = scale_x_y if scale_x_y else [None] * n
     with tracing.span("yolo.decode"):
         out = []
-        for fm, stride in zip(feature_maps, strides):
-            _, boxes, obj, cls = reorg_feature_map(fm, anchors,
-                                                   number_classes, stride)
+        for fm, stride, anc, s in zip(feature_maps, strides, per_anchors,
+                                      per_s):
+            _, boxes, obj, cls = reorg_feature_map(fm, anc, number_classes,
+                                                   stride, scale_x_y=s)
             xy, wh = boxes[..., 0:2], boxes[..., 2:4]
             rows = torch.cat([xy - 0.5 * wh, xy + 0.5 * wh,
                               torch.sigmoid(obj), torch.sigmoid(cls)],

@@ -9,12 +9,16 @@ BatchNorm is one matrix product with an epilogue:
     mul = gamma / sqrt(var + eps),  add = beta - mean * mul
 
 x and W go in as bf16, the products are summed in f32 and the epilogue is
-f32, as the TPU kernel does. The kernel is `csrc/pointwise_conv_block.cu`:
-the wgmma + TMA core of the int8 1x1 and 3x3 kernels
-(`csrc/conv_gemm_q_sm90.cuh`) with bf16 operands, under the tile plan
-`_conv_q.conv_plan` picks (the source note says what bounds it). A CUDA
-tensor goes through the kernel, or the wrapper raises; a CPU tensor goes
-through `pointwise_conv_block_plain`.
+f32, as the TPU kernel does. `act="mish"` (YOLOv4's CSP 1x1s, whose
+BatchNorm the model folds into W and b, with mul = 1 and add = 0) takes
+Mish, y * tanh(softplus(y)), in LeakyReLU's place: the library's entry
+`pointwise_conv_block_mish`, the core's `conv_gemm_q_kernel<BN, 1, 2,
+false>` in a device trace, counted under `MISH`. The kernel is
+`csrc/pointwise_conv_block.cu`: the wgmma + TMA core of the int8 1x1 and
+3x3 kernels (`csrc/conv_gemm_q_sm90.cuh`) with bf16 operands, under the
+tile plan `_conv_q.conv_plan` picks (the source note says what bounds
+it). A CUDA tensor goes through the kernel, or the wrapper raises; a CPU
+tensor goes through `pointwise_conv_block_plain`.
 
 `fused_pointwise_conv_block` keeps the JAX function's contract (`kernel`
 [Ci, Co]); the inner `pointwise_conv_block`, its plain version and its
@@ -35,6 +39,8 @@ from yolov3_tpu_torch.ops.kernels import _build, _conv_q
 
 NAME = "pointwise_conv_block"
 WMMA = NAME + "_wmma"
+MISH = NAME + "_mish"
+ACTS = ("leaky", "mish")
 _fns = {}
 
 
@@ -43,8 +49,8 @@ def _kernel_fn(entry: str):
     if fn is None:
         fn = getattr(_build.load(NAME), entry)
         p, i = ctypes.c_void_p, ctypes.c_int
-        # the sm90 entry takes the tile plan (bm, bn, bk, stages) too
-        plan = [i] * 4 if entry == NAME else []
+        # the sm90 entries take the tile plan (bm, bn, bk, stages) too
+        plan = [i] * 4 if entry != WMMA else []
         fn.argtypes = [p, p, p, p, p, p, i, i, i, ctypes.c_float, i,
                        *plan, p]
         fn.restype = ctypes.c_int
@@ -55,13 +61,17 @@ def _kernel_fn(entry: str):
 def pointwise_conv_block_plain(x: torch.Tensor, w: torch.Tensor,
                                bias: torch.Tensor, mul: torch.Tensor,
                                add: torch.Tensor, alpha: float,
-                               out_dtype: torch.dtype) -> torch.Tensor:
+                               out_dtype: torch.dtype,
+                               act: str = "leaky") -> torch.Tensor:
     """x [M, Ci], w [Co, Ci] rounded to bf16 and multiplied in f32, then
     the f32 epilogue; the kernel's arithmetic without its tiling."""
     f32 = torch.float32
     y = x.to(torch.bfloat16).to(f32) @ w.to(torch.bfloat16).to(f32).t()
     y = y + bias.to(f32)
-    y = torch.where(y >= 0.0, y, alpha * y)
+    if act == "mish":
+        y = y * torch.tanh(torch.nn.functional.softplus(y))
+    else:
+        y = torch.where(y >= 0.0, y, alpha * y)
     y = y * mul.to(f32) + add.to(f32)
     return y.to(out_dtype)
 
@@ -91,7 +101,7 @@ def _launch(x, w, bias, mul, add, alpha, out_dtype, entry=NAME,
     if m == 0:
         return out
     extra = ()
-    if entry == NAME:
+    if entry != WMMA:
         plan = plan or _conv_q.conv_plan(1, 1, m, ci, co, 1, esize=2)
         extra = (plan.bm, plan.bn, plan.bk, plan.stages)
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -114,16 +124,19 @@ def pointwise_conv_block(x: torch.Tensor, w: torch.Tensor,
                          bias: torch.Tensor, mul: torch.Tensor,
                          add: torch.Tensor, alpha: float,
                          out_dtype: torch.dtype,
-                         plan: Optional[_conv_q.Plan] = None
-                         ) -> torch.Tensor:
+                         plan: Optional[_conv_q.Plan] = None,
+                         act: str = "leaky") -> torch.Tensor:
     """x [M, Ci] bf16, w [Co, Ci] bf16, bias/mul/add [Co] f32 ->
     [M, Co] in `out_dtype`; `plan` forces a tile plan (default
-    `_conv_q.conv_plan`'s)."""
+    `_conv_q.conv_plan`'s); `act` is "leaky" (alpha) or "mish"."""
     _check_shapes(x, w)
+    if act not in ACTS:
+        raise ValueError(f"act must be one of {ACTS}, got {act!r}")
     if x.device.type == "cpu":
         return pointwise_conv_block_plain(x, w, bias, mul, add, alpha,
-                                          out_dtype)
-    return _launch(x, w, bias, mul, add, alpha, out_dtype, plan=plan)
+                                          out_dtype, act)
+    return _launch(x, w, bias, mul, add, alpha, out_dtype,
+                   entry=MISH if act == "mish" else NAME, plan=plan)
 
 
 def pointwise_conv_block_wmma(x: torch.Tensor, w: torch.Tensor,

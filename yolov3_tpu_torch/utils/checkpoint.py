@@ -12,7 +12,10 @@ share one tree, so one mapping serves both.
 The port's artifact is `<folder>/saved_model/` with the same
 `model_config.json` as the JAX export and a `weights.npz` keyed by Flax
 path (`params/Darknet53_0/ConvBlock_0/Conv_0/kernel`), written without
-pickle. Converting a JAX (Orbax) export needs JAX, so it is done outside
+pickle. A YOLOv4 export (`ModelConfig.architecture`) keys its convs by
+cfg layer, `params/conv_<L>/Conv_0/kernel` (no bias but the heads'),
+`params/conv_<L>/BatchNorm_0/scale`, `batch_stats/conv_<L>/BatchNorm_0/
+mean`. Converting a JAX (Orbax) export needs JAX, so it is done outside
 this package: load it with the JAX package, turn the leaves into numpy,
 and pass them to `export_model`. `params_to_jax` is the inverse of
 `params_from_jax`: the trainer exports its model through it.
@@ -45,7 +48,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from yolov3_tpu_torch.config import ModelConfig
+from yolov3_tpu_torch.config import YOLOV4, ModelConfig
 
 CHECKPOINT_DIR = "checkpoint"
 STATE_FILE = "state.pt"
@@ -64,6 +67,8 @@ _MODULES = {
     "convs": "ConvBlock_{}",
     "conv": "Conv_0",
     "bn": "BatchNorm_0",
+    # YOLOv4's convs, by cfg layer (`models/yolov4.py`): `conv_<L>`
+    "layers": "{}",
 }
 # a quantizing ConvBlock's frozen activation scale (static QAT)
 SCALE_LEAF = "act_scale"
@@ -132,11 +137,19 @@ def _unflatten(flat: Dict[str, np.ndarray]) -> dict:
     return tree
 
 
+def feature_model(cfg: ModelConfig) -> torch.nn.Module:
+    """The feature-map model of `cfg.architecture`."""
+    if cfg.architecture == YOLOV4:
+        from yolov3_tpu_torch.models.yolov4 import YoloV4
+        return YoloV4(cfg)
+    from yolov3_tpu_torch.models.yolo import YoloV3
+    return YoloV3(cfg)
+
+
 def _template(cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     """The port's state_dict names and shapes, allocated on no device."""
-    from yolov3_tpu_torch.models.yolo import YoloV3
     with torch.device("meta"):
-        return YoloV3(cfg).state_dict()
+        return feature_model(cfg).state_dict()
 
 
 def params_from_jax(params: dict, batch_stats: dict, cfg: ModelConfig,
@@ -389,9 +402,13 @@ def load_model(saved_model_path: str) -> Tuple[dict, dict, ModelConfig]:
 
 def build_model(params: dict, batch_stats: dict, cfg: ModelConfig,
                 device) -> torch.nn.Module:
-    """`YoloV3Detector` for `cfg` with the given Flax-shaped weights, in
-    eval mode on `device`."""
-    from yolov3_tpu_torch.models.yolo import YoloV3Detector
-    model = YoloV3Detector(cfg)
+    """The detector of `cfg.architecture` (`YoloV3Detector`,
+    `YoloV4Detector`) with the given Flax-shaped weights, in eval mode on
+    `device`."""
+    if cfg.architecture == YOLOV4:
+        from yolov3_tpu_torch.models.yolov4 import YoloV4Detector as Detector
+    else:
+        from yolov3_tpu_torch.models.yolo import YoloV3Detector as Detector
+    model = Detector(cfg)
     model.backbone.load_state_dict(params_from_jax(params, batch_stats, cfg))
     return model.to(device).eval()
